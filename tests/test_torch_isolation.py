@@ -1,0 +1,72 @@
+"""The port stands alone: importing every module of zipvoice_tpu_torch and
+chip_smoke.py pulls in neither JAX nor any zipvoice_tpu module, and a CUDA
+request on a machine without CUDA raises instead of running on the CPU."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import zipvoice_tpu_torch
+names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+    zipvoice_tpu_torch.__path__, "zipvoice_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+                or m.startswith("jaxlib.") or m == "zipvoice_tpu"
+                or m.startswith("zipvoice_tpu."))
+print(json.dumps({"imported": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE, str(REPO)],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "zipvoice_tpu_torch.ops.attention" in res["imported"]
+    assert "zipvoice_tpu_torch.bin.infer_zipvoice" in res["imported"]
+    assert res["leaked"] == []
+
+
+def test_cuda_request_without_cuda_raises():
+    from zipvoice_tpu_torch.utils.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_pipeline_defaults_to_cuda():
+    """The pipeline's default device is the card: without one it raises."""
+    from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig
+    from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
+    from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with torch.device("meta"):
+        model = ZipVoiceModel(ZipVoiceConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ZipVoicePipeline(model=model, model_cfg=ZipVoiceConfig(),
+                         feat_cfg=FeatureConfig())
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

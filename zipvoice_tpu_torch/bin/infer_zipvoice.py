@@ -1,0 +1,175 @@
+"""Zero-shot TTS inference CLI on PyTorch (CUDA by default).
+
+Usage (single sentence):
+  python -m zipvoice_tpu_torch.bin.infer_zipvoice \\
+      --model-dir exp/zipvoice --vocoder-path vocos/pytorch_model.bin \\
+      --tokenizer simple --prompt-wav prompt.wav --prompt-text "..." \\
+      --text "..." --res-wav-path out.wav
+
+Batch mode reads a TSV (``name\\tprompt_text\\tprompt_wav\\ttext`` per line)
+with --test-list and writes ``<res-dir>/<name>.wav``.  ``--device cpu`` runs
+on the CPU; CUDA is required otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+from pathlib import Path
+
+import torch
+
+_NOT_PORTED = "is not yet ported to zipvoice_tpu_torch"
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--model-name", type=str, default="zipvoice",
+                        choices=["zipvoice"], help="The model used for inference")
+    parser.add_argument("--model-dir", type=str, default=None,
+                        help="Model dir with checkpoint, model.json, tokens.txt")
+    parser.add_argument("--checkpoint-name", type=str, default="model.pt",
+                        help="The name of model checkpoint")
+    parser.add_argument("--vocoder-path", type=str, default=None,
+                        help="Vocos checkpoint (pytorch_model.bin / .safetensors)")
+    parser.add_argument("--tokenizer", type=str, default="emilia",
+                        help="Tokenizer type (only 'simple' is ported)")
+    parser.add_argument("--test-list", type=str, default=None,
+                        help="TSV of name\\tprompt_text\\tprompt_wav\\ttext")
+    parser.add_argument("--prompt-wav", type=str, default=None,
+                        help="The prompt wav to mimic")
+    parser.add_argument("--prompt-text", type=str, default=None,
+                        help="The transcription of the prompt wav")
+    parser.add_argument("--text", type=str, default=None,
+                        help="The text to synthesize")
+    parser.add_argument("--res-dir", type=str, default="results",
+                        help="Output dir for --test-list mode")
+    parser.add_argument("--res-wav-path", type=str, default="result.wav",
+                        help="Output wav for single-sentence mode")
+    parser.add_argument("--guidance-scale", type=float, default=None,
+                        help="Classifier-free guidance scale (default: per-model)")
+    parser.add_argument("--num-step", type=int, default=None,
+                        help="Number of sampling steps (default: per-model)")
+    parser.add_argument("--feat-scale", type=float, default=0.1,
+                        help="The scale factor of fbank feature")
+    parser.add_argument("--feat-bias", type=float, default=0.0,
+                        help="The bias added to fbank feature")
+    parser.add_argument("--speed", type=float, default=1.0,
+                        help="Speech speed control (>1 speeds up)")
+    parser.add_argument("--t-shift", type=float, default=0.5,
+                        help="Timestep shift toward low SNR if < 1.0")
+    parser.add_argument("--timesteps", type=str, default=None,
+                        help="Explicit comma-separated Euler grid in [0,1], "
+                             "overriding --num-step/--t-shift")
+    parser.add_argument("--target-rms", type=float, default=0.1,
+                        help="Prompt RMS normalization target (0 disables)")
+    parser.add_argument("--seed", type=int, default=666, help="Random seed")
+    parser.add_argument("--long-form", action="store_true",
+                        help="chunked synthesis for long texts (not yet ported)")
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"], help="Compute dtype")
+    parser.add_argument("--quantize", type=str, default=None,
+                        choices=["int8", "int8-dynamic"],
+                        help="int8 linear layers (not yet ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"], help="Device to run on")
+    return parser
+
+
+def build_pipeline(args):
+    from zipvoice_tpu_torch.audio.vocos import (
+        load_vocos_params,
+        vocos_config_from_params,
+    )
+    from zipvoice_tpu_torch.io.checkpoint import load_torch_state_dict
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
+
+    if args.vocoder_path is None:
+        raise SystemExit(f"downloading the vocoder {_NOT_PORTED}: pass --vocoder-path")
+    assets = load_model_dir(model_dir=args.model_dir, model_name=args.model_name,
+                            checkpoint_name=args.checkpoint_name,
+                            tokenizer_name=args.tokenizer)
+    feat_cfg = dataclasses.replace(assets.feat_cfg, feat_scale=args.feat_scale,
+                                   feat_bias=args.feat_bias)
+    vocos_params = load_vocos_params(load_torch_state_dict(args.vocoder_path))
+    pipeline = ZipVoicePipeline(
+        model=assets.model,
+        model_cfg=assets.model_cfg,
+        feat_cfg=feat_cfg,
+        vocos_params=vocos_params,
+        vocos_cfg=vocos_config_from_params(vocos_params, feat_cfg.hop_length),
+        tokenizer=assets.tokenizer,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        device=args.device,
+    )
+    d = assets.defaults
+    num_step = args.num_step if args.num_step is not None else d["num_step"]
+    gs = args.guidance_scale if args.guidance_scale is not None else d["guidance_scale"]
+    return pipeline, num_step, gs
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    for flag, on in (("--long-form", args.long_form),
+                     ("--quantize", args.quantize is not None)):
+        if on:
+            raise SystemExit(f"{flag} {_NOT_PORTED}")
+    if args.model_dir is None:
+        raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
+
+    from zipvoice_tpu_torch.audio.wav import read_wav, write_wav
+
+    pipeline, num_step, guidance_scale = build_pipeline(args)
+    sr = pipeline.feat_cfg.sampling_rate
+    timesteps = (tuple(float(x) for x in args.timesteps.split(","))
+                 if args.timesteps else None)
+
+    def synth_one(prompt_text, prompt_wav_path, text, out_path):
+        wav, wav_sr = read_wav(prompt_wav_path)
+        res = pipeline.synthesize(
+            text=text, prompt_text=prompt_text, prompt_wav=wav, prompt_sr=wav_sr,
+            num_step=num_step, guidance_scale=guidance_scale, speed=args.speed,
+            t_shift=args.t_shift, target_rms=args.target_rms, seed=args.seed,
+            timesteps=timesteps,
+        )
+        write_wav(out_path, res.wav, sr)
+        m = res.metrics
+        logging.info("%s: %.2fs audio, rtf %.4f (model %.4f, vocoder %.4f)",
+                     out_path, m["wav_seconds"], m["rtf"], m["rtf_no_vocoder"],
+                     m["rtf_vocoder"])
+        return m
+
+    all_metrics = []
+    if args.test_list is not None:
+        os.makedirs(args.res_dir, exist_ok=True)
+        with open(args.test_list, encoding="utf-8") as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                name, prompt_text, prompt_wav_path, text = line.strip().split("\t")[:4]
+                out = Path(args.res_dir) / f"{name}.wav"
+                all_metrics.append(synth_one(prompt_text, prompt_wav_path, text,
+                                             str(out)))
+        if all_metrics:
+            tot = {k: sum(m[k] for m in all_metrics) for k in all_metrics[0]}
+            logging.info(
+                "Average RTF: %.4f (model %.4f, vocoder %.4f) over %.2fs audio",
+                tot["t"] / tot["wav_seconds"], tot["t_no_vocoder"] / tot["wav_seconds"],
+                tot["t_vocoder"] / tot["wav_seconds"], tot["wav_seconds"],
+            )
+    else:
+        if not (args.prompt_wav and args.prompt_text is not None and args.text):
+            raise SystemExit("need --prompt-wav, --prompt-text and --text "
+                             "(or --test-list)")
+        all_metrics.append(synth_one(args.prompt_text, args.prompt_wav, args.text,
+                                     args.res_wav_path))
+    return all_metrics
+
+
+if __name__ == "__main__":
+    main()

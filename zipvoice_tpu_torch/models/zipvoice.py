@@ -1,0 +1,200 @@
+"""ZipVoice flow-matching TTS model: inference in PyTorch.
+
+``ZipVoiceModel`` holds the token embedding and the two Zipformers under
+the published state_dict names; the forward pieces below are functions
+over it.  Host-side arithmetic (label padding, duration prediction) stays
+in numpy.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from zipvoice_tpu_torch.config import ZipVoiceConfig
+from zipvoice_tpu_torch.nn.functional import make_pad_mask
+from zipvoice_tpu_torch.nn.zipformer import (
+    BiasNorm,
+    TTSZipformer,
+    _Scale,
+    tts_zipformer_forward,
+)
+
+
+class ZipVoiceModel(nn.Module):
+    def __init__(self, cfg: ZipVoiceConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.text_embed_dim)
+        self.fm_decoder = TTSZipformer(cfg.fm_decoder_config())
+        self.text_encoder = TTSZipformer(cfg.text_encoder_config())
+
+
+@torch.no_grad()
+def init_zipvoice(cfg: ZipVoiceConfig, generator: Optional[torch.Generator] = None,
+                  device="cpu") -> ZipVoiceModel:
+    """Random weights with the JAX package's init statistics: Linear
+    U(+-1/sqrt(in)) times its initial scale (bias U(+-0.1*scale) when the
+    scale is not 1), depthwise conv U(+-1/sqrt(K)), embedding N(0, 1),
+    bypass scales 0.5, BiasNorm log_scale 1 and bias 0, downsample bias 0.
+    Draws come from ``generator`` (on ``device``)."""
+    with torch.device("meta"):
+        model = ZipVoiceModel(cfg)
+    model = model.to_empty(device=device)
+    g = generator
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            bound = 1.0 / math.sqrt(mod.in_features)
+            scale = getattr(mod, "initial_scale", 1.0)
+            mod.weight.uniform_(-bound, bound, generator=g).mul_(scale)
+            if mod.bias is not None:
+                b = bound if scale == 1.0 else 0.1 * scale
+                mod.bias.uniform_(-b, b, generator=g)
+        elif isinstance(mod, nn.Conv1d):
+            bound = 1.0 / math.sqrt(mod.kernel_size[0])
+            mod.weight.uniform_(-bound, bound, generator=g)
+            mod.bias.uniform_(-bound, bound, generator=g)
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(generator=g)
+        elif isinstance(mod, BiasNorm):
+            mod.log_scale.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, _Scale):
+            for name, p in mod.named_parameters():
+                p.fill_(0.5 if name == "bypass_scale" else 0.0)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers
+# ---------------------------------------------------------------------------
+
+
+def pad_labels(tokens: List[List[int]], pad_id: int) -> np.ndarray:
+    """Pad token id lists to (B, S), appending one extra pad to every
+    sequence so the duration-expansion index tokens_lens is in bounds."""
+    tokens = [list(t) + [pad_id] for t in tokens]
+    max_len = max(len(t) for t in tokens)
+    return np.array(
+        [t + [pad_id] * (max_len - len(t)) for t in tokens], dtype=np.int32
+    )
+
+
+def predict_features_lens(
+    prompt_features_lens: np.ndarray,
+    prompt_tokens_lens: np.ndarray,
+    tokens_lens: np.ndarray,
+    speed: float = 1.0,
+) -> np.ndarray:
+    """Duration prediction by token-count ratio (host-side numpy)."""
+    extra = np.ceil(
+        prompt_features_lens / np.maximum(prompt_tokens_lens, 1) * tokens_lens / speed
+    ).astype(np.int64)
+    return prompt_features_lens + extra
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+
+def forward_fm_decoder(
+    model: ZipVoiceModel,
+    t,
+    xt: torch.Tensor,
+    text_condition: torch.Tensor,
+    speech_condition: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Velocity prediction at timestep t (a float); xt and the conditions:
+    (B, T, F).  xt may ride in f32 (f32 Euler state) while the backbone
+    runs at the conditions' dtype."""
+    x = torch.cat([xt.to(text_condition.dtype), text_condition, speech_condition],
+                  dim=-1)
+    b = x.shape[0]
+    # t stays f32 (the sinusoidal embedding needs full timestep precision)
+    # and is filled on the device, with no host-to-device copy
+    t = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
+    return tts_zipformer_forward(model.fm_decoder, x, t, padding_mask)
+
+
+def forward_text_embed(model: ZipVoiceModel, tokens_padded: torch.Tensor,
+                       tokens_lens: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
+    """Token embedding + text encoder: (B, S) ids -> (B, S, feat_dim)."""
+    embed = model.embed.weight.to(dtype)[tokens_padded.long()]
+    mask = make_pad_mask(tokens_lens, tokens_padded.shape[1])
+    return tts_zipformer_forward(model.text_encoder, embed, None, mask)
+
+
+def average_duration_token_index(tokens_lens: torch.Tensor,
+                                 features_lens: torch.Tensor,
+                                 num_frames: int) -> torch.Tensor:
+    """Uniform-duration frame -> token index map, (B, num_frames) int64:
+    token i covers frames [i*avg, (i+1)*avg) with avg = features_len //
+    tokens_len; leftover frames point at index tokens_len (the extra pad
+    appended by pad_labels)."""
+    tokens_lens = tokens_lens.long()
+    avg = features_lens.long() // torch.clamp(tokens_lens, min=1)
+    frames = torch.arange(num_frames, device=tokens_lens.device)[None, :]
+    idx = frames // torch.clamp(avg, min=1)[:, None]
+    idx = torch.minimum(idx, tokens_lens[:, None])
+    # degenerate avg == 0: every frame maps to the trailing pad embedding
+    return torch.where((avg == 0)[:, None], tokens_lens[:, None], idx)
+
+
+def forward_text_condition(embed: torch.Tensor, tokens_lens: torch.Tensor,
+                           features_lens: torch.Tensor,
+                           num_frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand token embeddings (B, S, F) to frame rate: ((B, T, F), (B, T)
+    padding mask)."""
+    padding_mask = make_pad_mask(features_lens, num_frames)
+    idx = average_duration_token_index(tokens_lens, features_lens, num_frames)
+    # clamp to S so a caller that padded exactly to tokens_lens gets the
+    # last embedding instead of an out-of-bounds gather
+    idx = torch.clamp(idx, max=embed.shape[1] - 1)
+    text_condition = torch.gather(
+        embed, 1, idx[:, :, None].expand(-1, -1, embed.shape[-1])
+    )
+    return text_condition, padding_mask
+
+
+def sample(
+    model: ZipVoiceModel,
+    tokens_padded: torch.Tensor,
+    tokens_lens: torch.Tensor,
+    prompt_features: torch.Tensor,
+    prompt_features_lens: torch.Tensor,
+    features_lens: torch.Tensor,
+    noise: torch.Tensor,
+    num_step: int = 16,
+    guidance_scale: float = 1.0,
+    t_shift: float = 1.0,
+    timesteps=None,
+) -> torch.Tensor:
+    """Generate mel features for concatenated prompt+target tokens.
+
+    prompt_features: (B, T, F) prompt mel zero-padded to the full frame
+    count T; features_lens: (B,) total frames (prompt + generated); noise:
+    (B, T, F) standard normal.  Returns the full (B, T, F) features at t=1;
+    the caller strips the prompt region and the padding."""
+    from zipvoice_tpu_torch.sampling.euler import euler_sample
+
+    num_frames = prompt_features.shape[1]
+    embed = forward_text_embed(model, tokens_padded, tokens_lens,
+                               dtype=prompt_features.dtype)
+    text_condition, padding_mask = forward_text_condition(
+        embed, tokens_lens, features_lens, num_frames
+    )
+    # the prompt region is the speech condition; zero elsewhere
+    prompt_mask = make_pad_mask(prompt_features_lens, num_frames)
+    speech_condition = prompt_features.masked_fill(prompt_mask[:, :, None], 0.0)
+    return euler_sample(
+        model, noise, text_condition, speech_condition, padding_mask,
+        num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
+        timesteps=timesteps,
+    )
