@@ -15,10 +15,27 @@ Phases (each raises on failure; nothing is caught):
   5. drive the port's CLI: 3 f32 requests (~4, 8, 12 s of text) and one
      bf16 request, 16 steps with CFG; check the wavs and that every request
      launched B1 260 times and B2 520 times;
+  3b. the training kernels B3, B4 and B8 against their plain versions at
+     the training shapes (B=8, H=4, T in 1024/512/256/288/577/120 with one
+     padded row; B3 also at H=1 with vd 384 and 144; the failsafe penalty
+     and the const-attention gate each on and off; B8 at 10 s and 1 s), f32
+     and bf16, with times and bounds;
   6. one full-width fm_decoder forward on the card (kernels) against the
      CPU (plain versions) on the same weights and inputs;
-  7. with --profile only: one warm request under torch.profiler (device
-     busy share, top kernels; the trace goes to chiprun_out/ if present).
+     with --profile: one warm request under torch.profiler (device busy
+     share, top kernels; the trace goes to chiprun_out/ if present);
+  7. one full-width compute_fm_loss backward on the card against the CPU,
+     same weights and inputs, no random draws, with and without the
+     regularizers; relative L2 error per parameter group;
+  8. a 16-file random corpus, then the port's train CLI on the card at
+     full width in bf16: 6 steps with regularizers, 5 without; finite
+     losses, every parameter tensor changed, launches pinned per step (B1
+     40, B2 80, B3 60 or B4 20, B8 1), warm step ms (median of the
+     intervals after the first) and peak memory;
+  9. one warm training step under torch.profiler (device busy share, top
+     kernels; with --profile the trace goes to chiprun_out/ if present);
+  10. the training checkpoint, as a model dir's model.pt, drives the
+     inference CLI.
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -124,7 +141,7 @@ def check_kernels():
             nbytes = s * (2 * b * t * h * qd + b * t * h * pd + (2 * t - 1) * h * pd) \
                 + b * t + s * b * h * t * t
             bnd, by = bound_ms(nbytes, 2 * b * h * t * t * (qd + pd), dn)
-            results["B1"][(t, dn)] = dict(err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
+            results["B1"][(t, dn)] = dict(abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
                                           library_ms=None, bound_ms=bnd, bound_by=by)
             print(f"B1 rel_probs T={t} ({kind}) {dn}: max_abs_err {err:.3g} "
                   f"(tol {tol:g}) kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
@@ -147,7 +164,7 @@ def check_kernels():
             l2 = time_ms(lambda: torch.matmul(probs, v_hm))
             nbytes2 = s * (b * h * t * t + 2 * b * t * h * vd)
             bnd2, by2 = bound_ms(nbytes2, 2 * b * h * t * t * vd, dn)
-            results["B2"][(t, dn)] = dict(err=err2, tol=tol2, ms=k2, plain_ms=p2,
+            results["B2"][(t, dn)] = dict(abs_err=err2, tol=tol2, ms=k2, plain_ms=p2,
                                           library_ms=l2, bound_ms=bnd2, bound_by=by2)
             print(f"B2 probs_apply T={t} ({kind}) {dn}: max_abs_err {err2:.3g} "
                   f"(tol {tol2:.3g}) kernel_ms {k2:.4f} plain_ms {p2:.4f} "
@@ -155,6 +172,169 @@ def check_kernels():
             if not err2 <= tol2:
                 raise AssertionError(f"B2 disagrees at T={t} {dn}: {err2} > {tol2}")
     return results
+
+
+def _rel_inputs(gen, b, h, t, vd, dtype, scale=1.0):
+    """q, k, pq, pe, mask (one padded batch row), v, g at one shape."""
+    import torch
+
+    def rnd(*shape, s=1.0):
+        return (s * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    lens = [t] * b
+    lens[-1] = max(1, t - t // 3 - 1)
+    mask = torch.arange(t, device="cuda")[None, :] >= torch.tensor(lens, device="cuda")[:, None]
+    return (rnd(b, t, h, 32, s=scale), rnd(b, t, h, 32, s=scale), rnd(b, t, h, 4, s=scale),
+            rnd(2 * t - 1, h, 4, s=scale), mask, rnd(b, t, h, vd), rnd(b, t, h, vd))
+
+
+# training shapes of B3/B4: (label, B, H, T, vd); H=1 rows are the
+# NonlinAttention head-0 consumer of the fm_decoder (vd 384) and the text
+# encoder (vd 144)
+TRAIN_ATTN_CASES = [("main", 8, 4, 1024, 12), ("main", 8, 4, 512, 12), ("main", 8, 4, 256, 12),
+                    ("ragged", 8, 4, 288, 12), ("ragged", 8, 4, 577, 12),
+                    ("text", 8, 4, 120, 12), ("head0", 8, 1, 1024, 384),
+                    ("head0-text", 8, 1, 120, 144)]
+# (penalty, const gate): the failsafe and the const-attention branch
+TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
+
+
+def _penalty_limit(q, k, pq, pe) -> float:
+    """A failsafe limit that a few hundred of these scores cross, put in a
+    gap of at least 1e-3 between two |scores|, so that f32 rounding
+    differences between kernel and plain version cannot flip an element."""
+    import torch
+
+    from zipvoice_tpu_torch.ops.attention import rel_scores_plain
+
+    top = torch.topk(rel_scores_plain(q, k, pq, pe).abs().flatten(), 1000).values
+    for i in range(200, 999):
+        if float(top[i] - top[i + 1]) > 1e-3:
+            return float(top[i] + top[i + 1]) / 2
+    raise AssertionError("no gap in the top scores for the penalty limit")
+
+
+def _errs(out, ref):
+    """(max |out - ref|, that over max(1, max |ref|))."""
+    err = float((out.float() - ref.float()).abs().max())
+    return err, err / max(1.0, float(ref.float().abs().max()))
+
+
+def check_training_kernels():
+    """Phase 3b: B3, B4 and B8 against their plain versions on the card at
+    the training shapes, f32 and bf16; returns {kernel: {case: numbers}}."""
+    import torch
+
+    from zipvoice_tpu_torch.ops import attention as att
+    from zipvoice_tpu_torch.ops.melspec import fused_log_mel, fused_log_mel_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {"B3": {}, "B4": {}, "B8": {}}
+    for label, b, h, t, vd in TRAIN_ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            s = torch.finfo(dtype).bits // 8
+            q, k, pq, pe, mask, v, g = _rel_inputs(gen, b, h, t, vd, dtype, scale=1.5)
+            bth = b * t * h
+            in_bytes = s * (2 * bth * 32 + bth * 4 + (2 * t - 1) * h * 4) + b * t
+            score_ops = 2 * b * h * t * t * 36
+            limit_hi = _penalty_limit(q, k, pq, pe)
+            for pen, gate in TRAIN_ATTN_VARIANTS:
+                limit = limit_hi if pen else 25.0
+                key = (label, t, h, vd, dn, pen, gate)
+                timed_case = pen == 0.0 and not gate
+                # B4 (SelfAttention shapes only: it is B1's backward)
+                if h == 4 and not gate:
+                    gp = torch.randn((b, h, t, t), generator=gen, device="cuda").to(dtype)
+                    ds = att.rel_attention_ds(q, k, pq, pe, mask, gp, pen, limit)
+                    ref = att.rel_attention_ds_plain(q, k, pq, pe, mask, gp, pen, limit)
+                    torch.cuda.synchronize()
+                    abs_err, err = _errs(ds, ref)
+                    # relative to max(1, max |ds|); f32: scores summed in another
+                    # order than cuBLAS's; bf16: ds rounded to bf16 on both sides
+                    # (one unit in the last place)
+                    tol = 2e-5 if dtype == torch.float32 else 8e-3
+                    r = dict(abs_err=abs_err, rel_err=err, tol=tol, ms=None, plain_ms=None,
+                             library_ms=None, bound_ms=None, bound_by=None)
+                    if timed_case:
+                        r["ms"] = time_ms(lambda: att.rel_attention_ds(q, k, pq, pe, mask, gp))
+                        r["plain_ms"] = time_ms(
+                            lambda: att.rel_attention_ds_plain(q, k, pq, pe, mask, gp))
+                        r["bound_ms"], r["bound_by"] = bound_ms(
+                            in_bytes + 2 * s * b * h * t * t, score_ops, dn)
+                    results["B4"][key] = r
+                    print(f"B4 rel_ds {label} T={t} {dn} pen={pen:g}: rel_err {err:.3g} "
+                          f"(tol {tol:g}), max_abs_err {abs_err:.3g}" + _times(r), flush=True)
+                    if not err <= tol:
+                        raise AssertionError(f"B4 disagrees at {key}: {err} > {tol}")
+                    del gp, ds, ref
+                # B3
+                outs = att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g, pen, limit, gate)
+                refs = att.rel_attention_consume_bwd_plain(q, k, pq, pe, mask, v, g, pen,
+                                                           limit, gate)
+                torch.cuda.synchronize()
+                pairs = {n: _errs(o, rf) for n, o, rf in zip(("dq", "dk", "dpq", "dpe", "dv"),
+                                                              outs, refs)}
+                errs = {n: rel for n, (_, rel) in pairs.items()}
+                err = max(errs.values())
+                # relative to max(1, each output's max); every output is an
+                # f32 sum over T keys (dpe over B*T rows, by atomics) in
+                # another order than the plain version's
+                tol = 1e-4
+                r = dict(abs_err=max(a for a, _ in pairs.values()), rel_err=err, tol=tol,
+                         ms=None, plain_ms=None, library_ms=None, bound_ms=None, bound_by=None)
+                if timed_case:
+                    r["ms"] = time_ms(
+                        lambda: att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g))
+                    r["plain_ms"] = time_ms(
+                        lambda: att.rel_attention_consume_bwd_plain(q, k, pq, pe, mask, v, g))
+                    out_bytes = 4 * (2 * bth * 32 + bth * 4 + (2 * t - 1) * h * 4 + bth * vd)
+                    ops = score_ops + 2 * b * h * t * t * (2 * vd + 2 * 32 + 8)
+                    r["bound_ms"], r["bound_by"] = bound_ms(
+                        in_bytes + 2 * s * bth * vd + out_bytes, ops, dn)
+                results["B3"][key] = r
+                worst = max(errs, key=errs.get)
+                print(f"B3 rel_apply_bwd {label} H={h} T={t} vd={vd} {dn} pen={pen:g} "
+                      f"gate={int(gate)}: rel_err {err:.3g} ({worst}, tol {tol:g}), "
+                      f"max_abs_err {r['abs_err']:.3g}" + _times(r), flush=True)
+                if not err <= tol:
+                    raise AssertionError(f"B3 disagrees at {key}: {errs} > {tol}")
+                del outs, refs
+            del q, k, pq, pe, mask, v, g
+    # B8 at ~10 s and 1 s of 24 kHz audio, B=8, one row zero after 2/3
+    for seconds in (10, 1):
+        n = 24000 * seconds
+        wav = 0.1 * torch.randn((8, n), generator=gen, device="cuda")
+        wav[-1, 2 * n // 3:] = 0.0
+        wp = torch.nn.functional.pad(wav[:, None, :], (512, 512), mode="reflect")[:, 0]
+        out = fused_log_mel(wp)
+        ref = fused_log_mel_plain(wp)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        # log-mel: f32 DFT sums in another order; 1e-3 in log is 0.1 % of the mel energy
+        tol = 1e-3
+        frames = out.shape[1]
+        # a frame's least work: the window, a real-input FFT of 1024 points
+        # (2.5 N log2 N, the usual count for real data), |.| of 513 bins
+        # (3 each), the 513 x 100 mel product and 100 logs
+        per_frame = 1024 + 2.5 * 1024 * 10 + 3 * 513 + 2 * 513 * 100 + 100
+        bnd, by = bound_ms(4 * wp.numel() + 4 * out.numel(), 8 * frames * per_frame, "float32")
+        r = dict(abs_err=err, tol=tol, ms=time_ms(lambda: fused_log_mel(wp)),
+                 plain_ms=time_ms(lambda: fused_log_mel_plain(wp)), library_ms=None,
+                 bound_ms=bnd, bound_by=by)
+        results["B8"][(seconds, frames)] = r
+        print(f"B8 log_mel B=8 {seconds} s ({frames} frames): max_abs_err {err:.3g} "
+              f"(tol {tol:g})" + _times(r), flush=True)
+        if out.shape != (8, frames, 100) or not err <= tol:
+            raise AssertionError(f"B8 disagrees at {seconds} s: {err} > {tol}")
+    return results
+
+
+def _times(r) -> str:
+    if r["ms"] is None:
+        return ""
+    return (f" kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
 
 def make_assets(root: Path):
@@ -205,9 +385,10 @@ def expected_samples(text: str, prompt_samples: int) -> int:
     return (int(total) - pf - 1) * 256
 
 
-def run_cli(root: Path, names, dtype: str, card: str):
-    """Phase 5 helper: one CLI run over `names`; returns its metrics after
-    checking the wavs and the per-request kernel launches."""
+def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None):
+    """Phase 5 helper: one CLI run over `names` (with the model dir `root`,
+    or `model_dir`); returns its metrics after checking the wavs and the
+    per-request kernel launches."""
     import numpy as np
 
     from zipvoice_tpu_torch.audio.wav import read_wav
@@ -221,7 +402,7 @@ def run_cli(root: Path, names, dtype: str, card: str):
     att.rel_attention_probs.launches = 0
     att.rel_attention_probs_apply.launches = 0
     metrics = cli_main([
-        "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
+        "--model-dir", str(model_dir or root), "--vocoder-path", str(root / "vocos.bin"),
         "--tokenizer", "simple", "--test-list", str(lst), "--res-dir", str(out_dir),
         "--num-step", str(N_STEP), "--guidance-scale", "1.0", "--dtype", dtype,
         "--device", "cuda",
@@ -269,6 +450,269 @@ def check_forward_against_cpu(root: Path):
     return err
 
 
+class _NoDraws:
+    """Within the block: no random draw reaches the loss.  The condition
+    mask is a fixed span, the pos-emb dropout an identity, every gate of
+    the training contexts closed, and the schedules' random rates are 0
+    (``schedules``)."""
+
+    def __enter__(self):
+        from zipvoice_tpu_torch.models import zipvoice as zv
+        from zipvoice_tpu_torch.nn import regularizers as reg
+        from zipvoice_tpu_torch.nn import zipformer as zf
+
+        def fixed_span(features_lens, max_len, generator, mask_percent=(0.7, 1.0)):
+            import torch
+
+            seq = torch.arange(max_len, device=features_lens.device)[None, :]
+            return (seq >= 10) & (seq < 10 + (features_lens[:, None] * 0.8).long())
+
+        self.saved = [(zv, "condition_time_mask", zv.condition_time_mask),
+                      (reg, "dropout_shared", reg.dropout_shared),
+                      (zf.TrainCtx, "gate", zf.TrainCtx.gate)]
+        zv.condition_time_mask = fixed_span
+        reg.dropout_shared = lambda x, *a, **k: x
+        zf.TrainCtx.gate = lambda self, prob: False
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    @staticmethod
+    def schedules(cfg):
+        from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+
+        out = {}
+        for key, s in zipvoice_schedules(100.0, cfg).items():
+            out[key] = dict(s, dropout=0.0, attention_skip_rate=0.0, conv_skip_rate=0.0,
+                            ff2_skip_rate=0.0, ff3_skip_rate=0.0,
+                            layerdrop=tuple(tuple(0.0 for _ in st) for st in s["layerdrop"]))
+        return out
+
+
+def _param_group(name: str) -> str:
+    parts = name.split(".")
+    if parts[0] == "fm_decoder" and parts[1] == "encoders":
+        return ".".join(parts[:3])
+    return parts[0]
+
+
+def check_gradient_against_cpu(root: Path):
+    """Phase 7: one full-width compute_fm_loss backward on the card
+    (kernels) and on the CPU (plain versions), same weights and inputs, f32,
+    no random draws: with the regularizer schedules (B1 + B3) and without
+    (B1 + B4 + B2).  Returns {path: {group: relative L2 error}}."""
+    import torch
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.models.zipvoice import compute_fm_loss
+
+    model = load_model_dir(str(root), tokenizer_name="simple").model
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(5)
+    b, t, s = 2, 256, 48
+    tokens = torch.randint(1, cfg.vocab_size, (b, s + 1), generator=g)
+    tokens[:, -1] = 0
+    tokens_lens = torch.tensor([s, s - 11])
+    features = 0.5 * torch.randn((b, t, cfg.feat_dim), generator=g)
+    features_lens = torch.tensor([t, t - 57])
+    noise = torch.randn((b, t, cfg.feat_dim), generator=g)
+    tt = torch.tensor([0.3, 0.8]).reshape(b, 1, 1)
+    inputs = (tokens, tokens_lens, features, features_lens, noise, tt)
+    out = {}
+    with _NoDraws() as nd:
+        for path, scheds in (("regularizers", nd.schedules(cfg)), ("no-regularizers", None)):
+            grads = {}
+            for dev in ("cpu", "cuda"):
+                model = model.to(dev)
+                model.zero_grad()
+                loss = compute_fm_loss(model, *(x.to(dev) for x in inputs), 0,
+                                       schedules=scheds)
+                loss.backward()
+                grads[dev] = {n: q.grad.detach().cpu() for n, q in model.named_parameters()}
+            groups = {}
+            for n, gc in grads["cpu"].items():
+                d2, r2 = groups.get(_param_group(n), (0.0, 0.0))
+                groups[_param_group(n)] = (d2 + float(((grads["cuda"][n] - gc) ** 2).sum()),
+                                           r2 + float((gc ** 2).sum()))
+            out[path] = {k: (d / max(r, 1e-30)) ** 0.5 for k, (d, r) in groups.items()}
+            worst = max(out[path].values())
+            print(f"gradient card vs CPU ({path}): relative L2 per group "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in out[path].items())
+                  + f"; worst {worst:.2e} (tol 1e-3)", flush=True)
+            # f32 on both sides; sums over T keys and 20 layers in another
+            # order (dpe by atomics), through the balancer-free backward
+            if not worst <= 1e-3:
+                raise AssertionError(f"gradient card vs CPU ({path}): {out[path]}")
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def make_corpus(root: Path, n: int = 16):
+    """16 random-noise wavs of 2-12 s at 24 kHz, a TSV manifest."""
+    import numpy as np
+
+    from zipvoice_tpu_torch.audio.wav import write_wav
+
+    d = root / "corpus"
+    d.mkdir()
+    rng = np.random.default_rng(7)
+    lines = []
+    for i in range(n):
+        sec = rng.uniform(2.0, 12.0)
+        wav = (0.05 * rng.standard_normal(int(sec * 24000))).astype(np.float32)
+        write_wav(d / f"utt{i}.wav", wav, 24000)
+        lines.append(f"utt{i}\t{(BASE * 3)[: int(15 * sec)]}\t{d / f'utt{i}.wav'}")
+    (d / "train.tsv").write_text("\n".join(lines) + "\n")
+    return d / "train.tsv"
+
+
+# per training step: B1 forward + rematerialized recompute in all 20 layers
+# (4 text encoder, 16 fm_decoder), B2 in both SelfAttention consumers of each
+# (forward + recompute), B3 in the three consumers of each layer (with
+# regularizers), B4 once a layer (without), B8 once a batch
+LAYERS = 4 + 16
+PER_STEP = {"B1": 2 * LAYERS, "B2": 4 * LAYERS, "B3": 3 * LAYERS, "B4": LAYERS, "B8": 1}
+
+
+def _counters():
+    from zipvoice_tpu_torch.ops import attention as att
+    from zipvoice_tpu_torch.ops import melspec
+
+    return {"B1": att.rel_attention_probs, "B2": att.rel_attention_probs_apply,
+            "B3": att.rel_attention_consume_bwd, "B4": att.rel_attention_ds,
+            "B8": melspec.fused_log_mel}
+
+
+def run_training(root: Path, manifest: Path, card: str, regularizers: bool, steps: int):
+    """Phase 8: the port's train CLI on the card at full width, bf16.
+    Checks finite losses, that every parameter changed and the per-step
+    launches; returns (launches per step, launches, warm step ms, peak
+    memory GiB, exp dir, result)."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.bin.train_zipvoice import main as train_main
+
+    exp = root / ("exp_reg" if regularizers else "exp_noreg")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = train_main([
+        "--device", "cuda", "--train-manifest", str(manifest),
+        "--token-file", str(root / "tokens.txt"), "--tokenizer", "simple",
+        "--model-config", str(root / "model.json"), "--exp-dir", str(exp),
+        "--num-epochs", "1", "--num-steps-per-epoch", str(steps),
+        "--max-duration", "100", "--log-interval", "1",
+        "--dtype", "bfloat16", *([] if regularizers else ["--no-regularizers"]),
+    ])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = len(res["steps"])
+    want = {k: v * n for k, v in PER_STEP.items()}
+    if regularizers:
+        want["B4"] = 0
+    else:
+        want["B3"] = 0
+    if n != steps or launches != want:
+        raise AssertionError(f"training launches {launches} over {n} steps, want {want}")
+    losses = [loss for _, loss in res["steps"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    trainer = res["trainer"]
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+
+    init = init_zipvoice(trainer.model.cfg, torch.Generator(device="cuda").manual_seed(42),
+                         device="cuda")
+    same = [n for (n, p), q in zip(trainer.model.named_parameters(), init.parameters())
+            if torch.equal(p, q)]
+    total = sum(1 for _ in init.parameters())
+    changed = total - len(same)
+    del init
+    if same:
+        raise AssertionError(f"{len(same)} of {total} parameter tensors unchanged: {same[:20]}")
+    # step intervals after the first (which builds the kernels' workspaces
+    # and warms the allocator); one epoch, so no checkpoint save falls inside
+    ends = [t for t, _ in res["steps"]]
+    step_ms = float(np.median(np.diff(ends)[1:] if n > 2 else np.diff(ends))) * 1e3
+    kind = "regularizers" if regularizers else "no-regularizers"
+    per_step = {k: v / n for k, v in launches.items()}
+    print(f"training ({kind}, bf16, full width): {n} steps, losses "
+          f"{[round(x, 4) for x in losses]}, {changed}/{total} parameter tensors changed, "
+          f"warm step {step_ms:.1f} ms (median of {max(n - 2, 1)} intervals), peak memory "
+          f"{peak_gib:.2f} GiB, launches {launches} ({per_step} a step) on {card}", flush=True)
+    return per_step, launches, step_ms, peak_gib, exp, res
+
+
+def profile_train_step(res, manifest: Path, card: str):
+    """Phase 9: one warm training step (regularizers, bf16) under
+    torch.profiler: device busy share and the kernels that take the most
+    device time; with --profile the trace goes to chiprun_out/ if present."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zipvoice_tpu_torch.data.dataset import (
+        DurationBucketSampler,
+        OnDeviceFbankCollator,
+        read_tsv_manifest,
+    )
+    from zipvoice_tpu_torch.text.tokenizer import SimpleTokenizer
+
+    trainer = res["trainer"]
+    tok = SimpleTokenizer(str(Path(trainer.opts.exp_dir) / "tokens.txt"))
+    from zipvoice_tpu_torch.config import FeatureConfig
+
+    collate = OnDeviceFbankCollator(tok, FeatureConfig(), device="cuda")
+    sampler = DurationBucketSampler(read_tsv_manifest(manifest), max_duration=100.0, seed=3)
+    # the longest batch: the training shape that bounds the step
+    batch = collate(sampler.pessimistic_batches(1)[0])
+    float(trainer.step_and_log(batch)["loss"])  # warm at this shape
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        float(trainer.step_and_log(batch)["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events) / 1e6
+    b, t = batch["features"].shape[:2]
+    print(f"profile train step (regularizers, bf16, B={b} T={t}): wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%) on {card}", flush=True)
+    for e in events[:15]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    # the host side: operators by their own CPU time
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(f"  host: {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms of operator "
+          f"self time in {sum(e.count for e in host)} calls; the most:")
+    for e in host[:12]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    out = REPO / "chiprun_out"
+    if "--profile" in sys.argv[1:] and out.is_dir():
+        prof.export_chrome_trace(str(out / "trace_train_step.json"))
+    return wall, busy
+
+
+def check_checkpoint_serves(root: Path, exp: Path, card: str):
+    """Phase 10: the training checkpoint as a model dir's model.pt drives the
+    inference CLI (one f32 request, pinned launches, a finite wav)."""
+    ckpts = sorted(exp.glob("epoch-*.pt"))
+    shutil.copy(ckpts[-1], exp / "model.pt")
+    metrics, _ = run_cli(root, ["r4s"], "float32", card, model_dir=exp)
+    return metrics
+
+
 def profile_request(root: Path, card: str):
     """Optional phase (--profile): one warm f32 ~8 s request under
     torch.profiler; prints the device busy share and the kernels that take
@@ -312,6 +756,20 @@ def profile_request(root: Path, card: str):
         prof.export_chrome_trace(str(out / "trace_r8s_f32.json"))
 
 
+def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
+    case = results[key][main_key]
+    every = results[key].values()
+    if all("rel_err" in r for r in every):
+        extra["max_rel_err"] = max(r["rel_err"] for r in every)
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches, "max_abs_err": max(r["abs_err"] for r in every),
+        "ms": case["ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": case["library_ms"], "shape": shape,
+        **extra,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -323,7 +781,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from zipvoice_tpu_torch.ops import attention as att
     from zipvoice_tpu_torch.ops import build
 
     t_start = time.monotonic()
@@ -341,6 +798,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     results = check_kernels()
+    results.update(check_training_kernels())
 
     build.BUILD.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="smoke-", dir=build.BUILD))
@@ -349,36 +807,55 @@ def main() -> int:
         n_params = make_assets(root)
         print(f"assets: {n_params / 1e6:.1f}M-parameter model in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
-        metrics, launches = run_cli(root, list(TEXTS), "float32", card)
+        metrics, serve_launches = run_cli(root, list(TEXTS), "float32", card)
         run_cli(root, ["r8s"], "bfloat16", card)
         fwd_err = check_forward_against_cpu(root)
         if "--profile" in sys.argv[1:]:
             profile_request(root, card)
+        grad_err = check_gradient_against_cpu(root)
+        manifest = make_corpus(root)
+        reg_step, reg_launches, reg_ms, reg_gib, exp, res = run_training(
+            root, manifest, card, True, 6)
+        noreg_step, noreg_launches, noreg_ms, noreg_gib, _, _ = run_training(
+            root, manifest, card, False, 5)
+        wall, busy = profile_train_step(res, manifest, card)
+        del res
+        check_checkpoint_serves(root, exp, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    def entry(key, name, src, replaces, n):
-        main_case = results[key][(1024, "float32")]
-        every = results[key].values()
-        return {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": n, "launches_per_request": n // len(TEXTS),
-            "max_abs_err": max(r["err"] for r in every),
-            "max_abs_err_f32": max(r["err"] for (t, d), r in results[key].items()
-                                   if d == "float32"),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"], "shape": "B=2 H=4 T=1024 f32",
-        }
-
     kernels = [
-        entry("B1", "rel_attention_probs", "zipvoice_tpu_torch/csrc/rel_probs.cu",
-              "zipvoice_tpu/ops/attention.py:979", launches[0]),
-        entry("B2", "rel_attention_probs_apply", "zipvoice_tpu_torch/csrc/probs_apply.cu",
-              "zipvoice_tpu/ops/attention.py:1110", launches[1]),
+        _kernel_entry(results, "B1", "rel_attention_probs", "zipvoice_tpu_torch/csrc/rel_probs.cu",
+                      "zipvoice_tpu/ops/attention.py:979", serve_launches[0],
+                      (1024, "float32"), "B=2 H=4 T=1024 f32",
+                      launches_per_request=serve_launches[0] // len(TEXTS),
+                      launches_per_train_step=reg_step["B1"]),
+        _kernel_entry(results, "B2", "rel_attention_probs_apply",
+                      "zipvoice_tpu_torch/csrc/probs_apply.cu",
+                      "zipvoice_tpu/ops/attention.py:1110", serve_launches[1],
+                      (1024, "float32"), "B=2 H=4 T=1024 f32",
+                      launches_per_request=serve_launches[1] // len(TEXTS),
+                      launches_per_train_step=reg_step["B2"]),
+        _kernel_entry(results, "B3", "rel_attention_consume_bwd",
+                      "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
+                      "zipvoice_tpu/ops/attention.py:694", reg_launches["B3"],
+                      ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 vd=12 f32",
+                      launches_per_train_step=reg_step["B3"]),
+        _kernel_entry(results, "B4", "rel_attention_ds", "zipvoice_tpu_torch/csrc/rel_ds.cu",
+                      "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
+                      ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 f32",
+                      launches_per_train_step=noreg_step["B4"]),
+        _kernel_entry(results, "B8", "fused_log_mel", "zipvoice_tpu_torch/csrc/log_mel.cu",
+                      "zipvoice_tpu/ops/melspec.py:122", reg_launches["B8"],
+                      next(k for k in results["B8"] if k[0] == 10), "B=8 10 s (938 frames)",
+                      launches_per_train_step=reg_step["B8"]),
     ]
     rtf = [round(m["rtf"], 5) for m in metrics]
+    worst_grad = max(max(v.values()) for v in grad_err.values())
     print(f"f32 rtf per request {rtf}; fm_decoder card-vs-cpu err {fwd_err:.3g}; "
+          f"gradient card-vs-cpu worst relative L2 {worst_grad:.3g}; train step "
+          f"{reg_ms:.1f} ms (regularizers) / {noreg_ms:.1f} ms (no regularizers), "
+          f"busy {100 * busy / wall:.1f}%, peak {max(reg_gib, noreg_gib):.2f} GiB; "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

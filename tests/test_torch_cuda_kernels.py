@@ -1,5 +1,5 @@
-"""The CUDA kernels of zipvoice_tpu_torch.ops.attention against their plain
-versions on the card.  Marked ``cuda``: without a CUDA card every test
+"""The CUDA kernels of zipvoice_tpu_torch.ops (B1-B4, B8) against their
+plain versions on the card.  Marked ``cuda``: without a CUDA card every test
 skips.  On a machine with one (and nvcc), run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -72,3 +72,65 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         att.rel_attention_probs_apply(probs, torch.zeros((2, 16, 4, 12), device="cuda",
                                                          dtype=torch.bfloat16))
+
+
+def _train_inputs(gen, t, dtype, h=4, vd=12):
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, h=h)
+    v = torch.randn((2, t, h, vd), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((2, t, h, vd), generator=gen, device="cuda").to(dtype)
+    return q, k, pq, pe, mask, v, g
+
+
+def _rel(out, ref):
+    return float((out.float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("t,h,vd", [(1, 4, 12), (40, 4, 12), (577, 4, 12), (300, 1, 384),
+                                    (120, 1, 144)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pen,gate", [(0.0, False), (1e-2, False), (0.0, True)])
+def test_rel_apply_bwd_kernel_matches_plain(gen, t, h, vd, dtype, pen, gate):
+    """B3: every gradient within 1e-4 of its max (f32 sums over T keys in
+    another order; dpe by atomics).  The penalty limit sits in a gap of the
+    scores so that rounding cannot flip an element across it."""
+    q, k, pq, pe, mask, v, g = _train_inputs(gen, t, dtype, h, vd)
+    s = att.rel_scores_plain(q, k, pq, pe).abs().flatten().sort(descending=True).values
+    limit = float(s[min(len(s) - 1, 5)]) - 1e-3 if pen else 25.0
+    n = att.rel_attention_consume_bwd.launches
+    outs = att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g, pen, limit, gate)
+    refs = att.rel_attention_consume_bwd_plain(q, k, pq, pe, mask, v, g, pen, limit, gate)
+    torch.cuda.synchronize()
+    assert att.rel_attention_consume_bwd.launches == n + 1
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape and _rel(o, r) <= 1e-4
+
+
+@pytest.mark.parametrize("t", [1, 40, 577, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_ds_kernel_matches_plain(gen, t, dtype):
+    """B4 with the failsafe on: f32 within 2e-5, bf16 one unit in the last
+    place of ds (relative to its max)."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype)
+    gp = torch.randn((2, 4, t, t), generator=gen, device="cuda").to(dtype)
+    n = att.rel_attention_ds.launches
+    ds = att.rel_attention_ds(q, k, pq, pe, mask, gp, 1e-2, 25.0)
+    ref = att.rel_attention_ds_plain(q, k, pq, pe, mask, gp, 1e-2, 25.0)
+    torch.cuda.synchronize()
+    assert att.rel_attention_ds.launches == n + 1
+    assert ds.dtype == dtype and _rel(ds, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("seconds", [0.05, 1.0, 10.0])
+def test_log_mel_kernel_matches_plain(gen, seconds):
+    """B8 at any frame count: log-mel within 1e-3 (f32 DFT sums in another
+    order)."""
+    from zipvoice_tpu_torch.ops.melspec import fused_log_mel, fused_log_mel_plain
+
+    wav = 0.1 * torch.randn((3, int(24000 * seconds)), generator=gen, device="cuda")
+    wp = torch.nn.functional.pad(wav[:, None], (512, 512), mode="reflect")[:, 0]
+    n = fused_log_mel.launches
+    out = fused_log_mel(wp)
+    ref = fused_log_mel_plain(wp)
+    torch.cuda.synchronize()
+    assert fused_log_mel.launches == n + 1
+    assert out.shape == ref.shape and float((out - ref).abs().max()) <= 1e-3

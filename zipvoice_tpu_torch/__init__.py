@@ -1,11 +1,14 @@
-"""PyTorch/CUDA port of zipvoice_tpu: zero-shot ZipVoice inference on Hopper.
+"""PyTorch/CUDA port of zipvoice_tpu: zero-shot ZipVoice inference and base
+ZipVoice training on Hopper.
 
 The package mirrors the module layout of ``zipvoice_tpu`` and holds its own
 copies of everything it needs; it never imports JAX or ``zipvoice_tpu``.
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.
 
-The attention kernels live in ``ops/attention.py`` (CUDA C++ sources under
-``csrc/``, built with nvcc at first use); every other op is plain PyTorch.
+The kernels live in ``ops/attention.py`` (attention probabilities, probs @
+V, their backwards) and ``ops/melspec.py`` (log-mel), with CUDA C++ sources
+under ``csrc/`` built with nvcc at first use; every other op is plain
+PyTorch.
 """
 
 import torch

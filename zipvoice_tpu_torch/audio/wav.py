@@ -6,6 +6,7 @@ is windowed-sinc polyphase via scipy.signal.resample_poly.
 
 from __future__ import annotations
 
+import os
 import struct
 from fractions import Fraction
 from pathlib import Path
@@ -82,6 +83,44 @@ def write_wav(path: Union[str, Path], samples: np.ndarray, sample_rate: int):
     )
     hdr += b"data" + struct.pack("<I", len(body))
     Path(path).write_bytes(hdr + body)
+
+
+def probe_wav(path: Union[str, Path]) -> Tuple[int, int, int]:
+    """Read only the RIFF headers -> (sample_rate, num_frames, channels).
+
+    Unlike the stdlib ``wave`` module this accepts every format read_wav
+    does (PCM, IEEE float, WAVE_FORMAT_EXTENSIBLE) and never decodes the
+    data chunk — duration probing over a large manifest stays I/O-light."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        total = os.fstat(f.fileno()).st_size
+        fmt = None
+        data_size = None
+        while True:
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                break
+            cid = hdr[:4]
+            size = struct.unpack("<I", hdr[4:8])[0]
+            if cid == b"fmt ":
+                fmt = struct.unpack("<HHIIHH", f.read(16))
+                f.seek(size - 16 + (size & 1), 1)
+            elif cid == b"data":
+                # streaming-style headers write size 0xFFFFFFFF and
+                # truncated files lie: clamp to the bytes actually present
+                data_size = min(size, max(total - f.tell(), 0))
+                f.seek(size + (size & 1), 1)
+            else:
+                f.seek(size + (size & 1), 1)
+            if fmt is not None and data_size is not None:
+                break
+    if fmt is None or data_size is None:
+        raise ValueError(f"{path}: missing fmt/data chunk")
+    _, channels, sample_rate, _, block_align, bits = fmt
+    bytes_per_frame = block_align or channels * max(bits // 8, 1)
+    return sample_rate, data_size // bytes_per_frame, channels
 
 
 def resample(wav: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:

@@ -27,65 +27,22 @@
 //     probabilities touch device memory once.
 // Any T is handled by masking the ragged edge in the kernel (no padding to a
 // tile multiple, unlike the TPU's (8,128) tiling).  `rows` shrinks for long
-// sequences so the score rows fit in shared memory.
+// sequences so the score rows fit in shared memory.  The staging and score
+// code is shared with B3 and B4 (rel_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rel_common.cuh"
 
 namespace {
 
+using namespace zv;
+
 constexpr int kWarps = 8;
-constexpr int kPD = 4;  // pos_head_dim of every published config
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy `count` values into shared memory with kBatch independent global
-// loads in flight per thread: a plain load-then-store loop would wait one
-// full memory latency per element.
-template <int kBatch, typename Load, typename Store>
-__device__ __forceinline__ void staged_copy(int count, Load load, Store store) {
-  for (int base = threadIdx.x; base < count; base += kBatch * blockDim.x) {
-    float tmp[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * blockDim.x;
-      tmp[u] = idx < count ? load(idx) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + u * blockDim.x;
-      if (idx < count) store(idx, tmp[u]);
-    }
-  }
-}
-
-// shared memory (floats), every region 16-byte aligned (QD % 4 == 0):
-// q[rows*QD] | pq[rows*4] | band[(T+rows-1)*4] | scores[rows*T]
+// shared memory (floats): the row tile (rel_common.cuh) | scores[rows*T]
 __host__ __device__ inline size_t smem_floats(int T, int rows, int QD) {
-  return (size_t)rows * QD + (size_t)rows * kPD + (size_t)(T + rows - 1) * kPD +
-         (size_t)rows * T;
+  return row_tile_floats(T, rows, QD) + (size_t)rows * T;
 }
 
-// kt is k transposed to (B, H, QD, T), so that lanes on neighbouring keys
-// read neighbouring addresses.
 template <int QD, typename Tin, typename Tout>
 __global__ void __launch_bounds__(kWarps * 32)
 rel_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
@@ -103,61 +60,10 @@ rel_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
   const int nrows = min(rows, T - i0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // stage the block's query rows (rows past T are zero and never used)
-  staged_copy<4>(
-      rows * QD,
-      [&](int idx) {
-        const int r = idx / QD, d = idx % QD;
-        return r < nrows ? to_f32(q[((size_t)(b * T + i0 + r) * H + h) * QD + d]) : 0.f;
-      },
-      [&](int idx, float x) { qs[idx] = x; });
-  staged_copy<1>(
-      rows * kPD,
-      [&](int idx) {
-        const int r = idx / kPD, d = idx % kPD;
-        return r < nrows ? to_f32(pq[((size_t)(b * T + i0 + r) * H + h) * kPD + d]) : 0.f;
-      },
-      [&](int idx, float x) { pqs[idx] = x; });
-  // pe band: row n = j - (i0 + r) + T - 1 lives at band index j - r + rows - 1
-  const int n0 = T - 1 - i0 - (rows - 1);
-  staged_copy<8>(
-      (T + rows - 1) * kPD,
-      [&](int idx) {
-        const int n = n0 + idx / kPD, d = idx % kPD;
-        return (n >= 0 && n < 2 * T - 1) ? to_f32(pe[((size_t)n * H + h) * kPD + d]) : 0.f;
-      },
-      [&](int idx, float x) { band[idx] = x; });
+  stage_row_tile<QD>(q, pq, pe, qs, pqs, band, b, h, T, H, i0, rows);
   __syncthreads();
-
-  // scores: lane = key, k column in registers, q rows as shared broadcasts
-  const float4* q4 = reinterpret_cast<const float4*>(qs);
-  const float4* pq4 = reinterpret_cast<const float4*>(pqs);
-  const float4* band4 = reinterpret_cast<const float4*>(band);
-  const Tin* ktb = kt + (size_t)bh * QD * T;
-  for (int j = warp * 32 + lane; j < T; j += kWarps * 32) {
-    float kr[QD];
-#pragma unroll
-    for (int d = 0; d < QD; ++d) kr[d] = to_f32(ktb[(size_t)d * T + j]);
-    const float bias = (mask != nullptr && mask[(size_t)b * T + j]) ? -1000.f : 0.f;
-    for (int r = 0; r < nrows; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < QD / 4; ++d4) {
-        const float4 qv = q4[r * (QD / 4) + d4];
-        s = fmaf(qv.x, kr[4 * d4], s);
-        s = fmaf(qv.y, kr[4 * d4 + 1], s);
-        s = fmaf(qv.z, kr[4 * d4 + 2], s);
-        s = fmaf(qv.w, kr[4 * d4 + 3], s);
-      }
-      const float4 pv = pq4[r];
-      const float4 ev = band4[j - r + rows - 1];
-      s = fmaf(pv.x, ev.x, s);
-      s = fmaf(pv.y, ev.y, s);
-      s = fmaf(pv.z, ev.z, s);
-      s = fmaf(pv.w, ev.w, s);
-      scores[(size_t)r * T + j] = s + bias;
-    }
-  }
+  row_tile_scores<QD, Tin, true>(kt + (size_t)bh * QD * T, mask, qs, pqs, band, scores, b,
+                                 T, rows, nrows);
   __syncthreads();
 
   // softmax: one warp per row
@@ -182,21 +88,15 @@ template <int QD, typename Tin, typename Tout>
 int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
                  const void* mask, void* out, int B, int T, int H,
                  cudaStream_t stream) {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int max_smem = max_optin_smem();
   // largest row count whose score rows fit; 16 keeps two blocks per SM at
   // T=1024, fewer rows are taken only for long sequences
-  int rows = 16;
-  while (rows > 1 && smem_floats(T, rows, QD) * sizeof(float) > (size_t)max_smem) rows >>= 1;
+  const int rows = fit_rows(16, max_smem, [&](int r) { return smem_floats(T, r, QD); });
   const size_t smem = smem_floats(T, rows, QD) * sizeof(float);
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   auto kern = rel_probs_kernel<QD, Tin, Tout>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((T + rows - 1) / rows, B * H);
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const Tin*>(q), static_cast<const Tin*>(kt), static_cast<const Tin*>(pq),

@@ -1,4 +1,4 @@
-"""ZipVoice flow-matching TTS model: inference in PyTorch.
+"""ZipVoice flow-matching TTS model: inference and the training loss in PyTorch.
 
 ``ZipVoiceModel`` holds the token embedding and the two Zipformers under
 the published state_dict names; the forward pieces below are functions
@@ -19,6 +19,7 @@ from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.nn.functional import make_pad_mask
 from zipvoice_tpu_torch.nn.zipformer import (
     BiasNorm,
+    TrainCtx,
     TTSZipformer,
     _Scale,
     tts_zipformer_forward,
@@ -109,26 +110,30 @@ def forward_fm_decoder(
     text_condition: torch.Tensor,
     speech_condition: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
+    ctx: Optional[TrainCtx] = None,
 ) -> torch.Tensor:
-    """Velocity prediction at timestep t (a float); xt and the conditions:
-    (B, T, F).  xt may ride in f32 (f32 Euler state) while the backbone
-    runs at the conditions' dtype."""
+    """Velocity prediction at timestep t (a float, or a tensor of B
+    values); xt and the conditions: (B, T, F).  xt may ride in f32 (f32
+    Euler state) while the backbone runs at the conditions' dtype."""
     x = torch.cat([xt.to(text_condition.dtype), text_condition, speech_condition],
                   dim=-1)
     b = x.shape[0]
-    # t stays f32 (the sinusoidal embedding needs full timestep precision)
-    # and is filled on the device, with no host-to-device copy
-    t = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
-    return tts_zipformer_forward(model.fm_decoder, x, t, padding_mask)
+    # t stays f32 (the sinusoidal embedding needs full timestep precision);
+    # a float is filled on the device, with no host-to-device copy
+    if isinstance(t, torch.Tensor):
+        t = t.to(torch.float32).reshape(-1).expand(b)
+    else:
+        t = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
+    return tts_zipformer_forward(model.fm_decoder, x, t, padding_mask, ctx=ctx)
 
 
 def forward_text_embed(model: ZipVoiceModel, tokens_padded: torch.Tensor,
-                       tokens_lens: torch.Tensor,
-                       dtype=torch.float32) -> torch.Tensor:
+                       tokens_lens: torch.Tensor, dtype=torch.float32,
+                       ctx: Optional[TrainCtx] = None) -> torch.Tensor:
     """Token embedding + text encoder: (B, S) ids -> (B, S, feat_dim)."""
     embed = model.embed.weight.to(dtype)[tokens_padded.long()]
     mask = make_pad_mask(tokens_lens, tokens_padded.shape[1])
-    return tts_zipformer_forward(model.text_encoder, embed, None, mask)
+    return tts_zipformer_forward(model.text_encoder, embed, None, mask, ctx=ctx)
 
 
 def average_duration_token_index(tokens_lens: torch.Tensor,
@@ -161,6 +166,82 @@ def forward_text_condition(embed: torch.Tensor, tokens_lens: torch.Tensor,
         embed, 1, idx[:, :, None].expand(-1, -1, embed.shape[-1])
     )
     return text_condition, padding_mask
+
+
+def forward_text_train(model: ZipVoiceModel, tokens_padded, tokens_lens, features_lens,
+                       num_frames: int, dtype=torch.float32,
+                       ctx: Optional[TrainCtx] = None):
+    """Text encoder then the frame-rate expansion: ((B, T, F), (B, T) mask)."""
+    embed = forward_text_embed(model, tokens_padded, tokens_lens, dtype, ctx=ctx)
+    return forward_text_condition(embed, tokens_lens, features_lens, num_frames)
+
+
+def condition_time_mask(features_lens: torch.Tensor, max_len: int,
+                        generator: torch.Generator,
+                        mask_percent: Tuple[float, float] = (0.7, 1.0)) -> torch.Tensor:
+    """Random interior span of each utterance, (B, max_len) bool, True =
+    masked: a span of U(mask_percent) of its frames at a uniform start."""
+    b = features_lens.shape[0]
+    dev = features_lens.device
+    fl = features_lens.float()
+    lo, hi = mask_percent
+    u = torch.rand((b,), generator=generator, device=dev)
+    size = ((lo + u * (hi - lo)) * fl).to(torch.int32)
+    start = (torch.rand((b,), generator=generator, device=dev)
+             * (fl - size.float())).to(torch.int32)
+    seq = torch.arange(max_len, dtype=torch.int32, device=dev)[None, :]
+    return (seq >= start[:, None]) & (seq < (start + size)[:, None])
+
+
+def compute_fm_loss(
+    model: ZipVoiceModel,
+    tokens_padded: torch.Tensor,
+    tokens_lens: torch.Tensor,
+    features: torch.Tensor,
+    features_lens: torch.Tensor,
+    noise: torch.Tensor,
+    t: torch.Tensor,
+    seed: int,
+    condition_drop_ratio: float = 0.0,
+    schedules: Optional[dict] = None,
+) -> torch.Tensor:
+    """Conditional flow-matching MSE on the velocity.
+
+    features / noise: (B, T, F) in the compute dtype; t: (B, 1, 1) in (0, 1),
+    f32.  ``seed`` seeds the condition mask, the text-condition drop and,
+    with ``schedules`` ({"fm_decoder": ..., "text_encoder": ...} from
+    train/schedules.zipvoice_schedules), the backbones' training contexts.
+    Returns the mean over masked, non-padded
+    positions, f32."""
+    num_frames = features.shape[1]
+    dev = features.device
+    seeds = np.random.default_rng(seed).integers(0, 2**62, size=4)
+    text_ctx = fm_ctx = None
+    if schedules is not None:
+        text_ctx = TrainCtx(int(seeds[2]), schedules["text_encoder"], dev)
+        fm_ctx = TrainCtx(int(seeds[3]), schedules["fm_decoder"], dev)
+    text_condition, padding_mask = forward_text_train(
+        model, tokens_padded, tokens_lens, features_lens, num_frames,
+        dtype=features.dtype, ctx=text_ctx)
+    gen = torch.Generator(device=dev)
+    speech_condition_mask = condition_time_mask(features_lens, num_frames,
+                                                gen.manual_seed(int(seeds[0])))
+    speech_condition = features.masked_fill(speech_condition_mask[:, :, None], 0.0)
+    if condition_drop_ratio > 0.0:
+        drop = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(seeds[1])),
+                          device=dev)
+        text_condition = text_condition * (drop > condition_drop_ratio).to(text_condition.dtype)
+    # mix in the features' compute dtype (t is drawn in f32 and must not
+    # promote x_t to f32)
+    tm = t.to(features.dtype)
+    xt = features * tm + noise * (1.0 - tm)
+    ut = features - noise
+    vt = forward_fm_decoder(model, t, xt, text_condition, speech_condition, padding_mask,
+                            ctx=fm_ctx)
+    loss_mask = speech_condition_mask & ~padding_mask
+    w = loss_mask[:, :, None].float()
+    se = torch.square((vt - ut).float()) * w
+    return torch.sum(se) / torch.clamp(torch.sum(w) * features.shape[-1], min=1.0)
 
 
 def sample(

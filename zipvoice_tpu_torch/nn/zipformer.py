@@ -1,4 +1,4 @@
-"""TTSZipformer backbone, eval forward, in PyTorch.
+"""TTSZipformer backbone, eval and training forward, in PyTorch.
 
 Batch-first (B, T, C) everywhere.  The modules hold parameters under the
 published state_dict names (Linear weights (out, in), depthwise conv
@@ -14,18 +14,32 @@ one per block of the reference architecture:
   ``_encoder_stack`` (a Python loop over layers), ``_downsample`` /
   ``_upsample`` and ``tts_zipformer_forward``.
 
+Training passes a ``TrainCtx``: the regularizers (balancers, whitening,
+dropout, layerdrop, module skips, const attention, the score failsafe) are
+live, and the attention takes the shared-probabilities path: B1 once per
+layer without gradient, each of the three consumers contracting it in the
+forward and recomputing it in its flash backward (B3).  Without a ctx the
+forward is the eval one, differentiable through B1's backward (B4) and
+B2's einsum adjoints.  Under autograd each layer of a multi-layer stack is
+rematerialized (``torch.utils.checkpoint``), and its random draws come from
+a seed drawn before the checkpointed call, so the recompute draws the same
+values as the forward.
+
 Attention probabilities and normalization statistics are f32 inside;
 everything else follows the input dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from zipvoice_tpu_torch.config import ZipformerConfig
+from zipvoice_tpu_torch.nn import regularizers as reg
 from zipvoice_tpu_torch.nn.functional import (
     bias_norm,
     compact_rel_positional_encoding,
@@ -35,9 +49,19 @@ from zipvoice_tpu_torch.nn.functional import (
     timestep_embedding,
 )
 from zipvoice_tpu_torch.ops.attention import (
+    rel_attention_consume,
     rel_attention_probs,
     rel_attention_probs_apply,
 )
+
+# Rematerialize each layer of a multi-layer stack under autograd (the JAX
+# package's default "full" policy: nothing but the layer input is saved).
+_REMAT = True
+
+
+def set_remat(enabled: bool) -> None:
+    global _REMAT
+    _REMAT = bool(enabled)
 
 # ---------------------------------------------------------------------------
 # Modules (parameter containers under the published names)
@@ -172,6 +196,71 @@ class TTSZipformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Training context
+# ---------------------------------------------------------------------------
+
+
+class TrainCtx:
+    """Training-mode context: schedule values and the random draws.
+
+    ``s`` is a schedule dict from train/schedules.zipformer_schedules.
+    Gates and seeds are Python values drawn on the host from a numpy
+    Generator; masks are drawn on ``device`` from a torch.Generator; both
+    are seeded from ``seed``.  ``child`` gives a layer its own context from
+    a seed, so a rematerialized layer redraws exactly what it drew in the
+    forward.  Subclasses (tests) may override ``gate``."""
+
+    def __init__(self, seed: int, s: Dict, device, layerdrop: float = 0.0):
+        self.seed = int(seed)
+        self.s = s
+        self.device = torch.device(device)
+        self.host = np.random.default_rng(self.seed)
+        self.layerdrop = layerdrop
+        self._gen = None
+        self._stack = 0
+
+    @property
+    def gen(self) -> torch.Generator:
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(self.seed)
+        return self._gen
+
+    def gate(self, prob: float) -> bool:
+        """Apply-with-probability."""
+        return bool(self.host.random() < prob)
+
+    def next_seed(self) -> int:
+        return int(self.host.integers(0, 2**62))
+
+    def uniform(self, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.gen, device=self.device)
+
+    def child(self, seed: int, layerdrop: float = 0.0) -> "TrainCtx":
+        return type(self)(seed, self.s, self.device, layerdrop)
+
+
+def _maybe_balancer(ctx: Optional[TrainCtx], x, prob, **kw):
+    if ctx is None:
+        return x
+    return reg.balancer(x, ctx.gate(prob), **kw)
+
+
+def _maybe_whiten(ctx: Optional[TrainCtx], x, limit_key: str, grad_scale: float,
+                  num_groups: int = 1, max_prob: float = 0.25):
+    if ctx is None:
+        return x
+    return reg.whiten(x, ctx.gate(max_prob), num_groups=num_groups,
+                      whitening_limit=ctx.s[limit_key], grad_scale=grad_scale)
+
+
+def _maybe_seq_dropout(ctx: Optional[TrainCtx], x, rate):
+    if ctx is None:
+        return x
+    return reg.sequence_dropout(x, ctx.gen, rate)
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
@@ -180,44 +269,107 @@ def _lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return linear(x, m.weight, m.bias)
 
 
+def _attention_projections(m: AttentionWeights, cfg: ZipformerConfig, x: torch.Tensor,
+                           pos_emb: torch.Tensor, ctx: Optional[TrainCtx] = None):
+    """Shared q/k/pos-q/pos-emb projections and their training
+    regularizers: (q, k, pq, pe, pen).  The pos-score dropout gates pq
+    (the positional scores are linear in pq); pen is the failsafe penalty
+    (0.0 when its gate is closed, None in eval)."""
+    b, t, _ = x.shape
+    h, qd, pd = cfg.num_heads, cfg.query_head_dim, cfg.pos_head_dim
+    proj = _lin(m.in_proj, x)
+    q = proj[..., : qd * h]
+    k = proj[..., qd * h : 2 * qd * h]
+    pq = proj[..., 2 * qd * h :].reshape(b, t, h, pd)
+    k = _maybe_balancer(ctx, k, 0.025, min_positive=0.4, max_positive=0.6,
+                        min_abs=0.0, max_abs=100.0)
+    k = _maybe_whiten(ctx, k, "whiten_3", 0.025, num_groups=h)
+    q = q.reshape(b, t, h, qd)
+    k = k.reshape(b, t, h, qd)
+    pe = _lin(m.linear_pos, pos_emb.to(x.dtype)).reshape(2 * t - 1, h, pd)
+    pen = None
+    if ctx is not None:
+        if ctx.gate(ctx.s["pos_emb_skip_rate"]):
+            pq = pq * 0.0
+        pen = 1.0e-04 if ctx.gate(0.1) else 0.0
+    return q, k, pq, pe, pen
+
+
 def _attention_weights(m: AttentionWeights, cfg: ZipformerConfig,
                        x: torch.Tensor, pos_emb: torch.Tensor,
                        key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Shared q/k/pos projections, then the probabilities (B, H, T, T) in
     x.dtype through the B1 kernel (plain version on the CPU)."""
-    b, t, _ = x.shape
-    h, qd, pd = cfg.num_heads, cfg.query_head_dim, cfg.pos_head_dim
-    proj = _lin(m.in_proj, x)
-    q = proj[..., : qd * h].reshape(b, t, h, qd)
-    k = proj[..., qd * h : 2 * qd * h].reshape(b, t, h, qd)
-    pq = proj[..., 2 * qd * h :].reshape(b, t, h, pd)
-    pe = _lin(m.linear_pos, pos_emb.to(x.dtype)).reshape(2 * t - 1, h, pd)
+    q, k, pq, pe, _ = _attention_projections(m, cfg, x, pos_emb)
     return rel_attention_probs(q, k, pq, pe, key_padding_mask, out_dtype=x.dtype)
 
 
-def _self_attention(m: _InOut, cfg: ZipformerConfig, x: torch.Tensor,
-                    probs: torch.Tensor) -> torch.Tensor:
+class _SharedAttn:
+    """Training attention bundle: the shared projections plus the layer's
+    probabilities (computed once by B1, no gradient).  Each consumer
+    contracts ``probs`` and recomputes them in its flash backward; ``pen``
+    rides on exactly one consumer."""
+
+    __slots__ = ("q", "k", "pq", "pe", "mask", "pen", "probs")
+
+    def __init__(self, q, k, pq, pe, mask, pen, probs):
+        self.q, self.k, self.pq, self.pe = q, k, pq, pe
+        self.mask, self.pen, self.probs = mask, pen, probs
+
+
+def _self_attention(m: _InOut, cfg: ZipformerConfig, x: torch.Tensor, attn,
+                    ctx: Optional[TrainCtx] = None, use_pen: bool = False) -> torch.Tensor:
+    """attn: (B, H, T, T) probabilities, or a _SharedAttn (training)."""
     b, t, _ = x.shape
     h = cfg.num_heads
     v = _lin(m.in_proj, x).reshape(b, t, h, cfg.value_head_dim)
-    o = rel_attention_probs_apply(probs.to(x.dtype), v)
-    return _lin(m.out_proj, o.reshape(b, t, h * cfg.value_head_dim))
+    if isinstance(attn, _SharedAttn):
+        o = rel_attention_consume(attn.q, attn.k, attn.pq, attn.pe, attn.mask, attn.probs,
+                                  v, score_penalty=attn.pen if use_pen else 0.0)
+    else:
+        o = rel_attention_probs_apply(attn.to(x.dtype), v)
+    out = _lin(m.out_proj, o.reshape(b, t, h * cfg.value_head_dim))
+    return _maybe_whiten(ctx, out, "whiten_7_5x3", 0.01)
 
 
-def _nonlin_attention(m: _InOut, x: torch.Tensor,
-                      head0: torch.Tensor) -> torch.Tensor:
-    """NonlinAttention; head0 (B, T, T) are head 0's probabilities."""
+def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
+                      ctx: Optional[TrainCtx] = None, const_gate: bool = False) -> torch.Tensor:
+    """NonlinAttention; head0: (B, T, T) head-0 probabilities, or a
+    _SharedAttn whose head 0 is contracted (with the const-attention branch
+    when const_gate)."""
     s, v, y = _lin(m.in_proj, x).chunk(3, dim=-1)
+    if ctx is not None:
+        s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
+                            min_positive=ctx.s["nonlin_balancer_min_pos"],
+                            max_positive=ctx.s["nonlin_balancer_max_pos"],
+                            min_abs=0.5, max_abs=5.0)
+    v = _maybe_whiten(ctx, v, "whiten_5", 0.01)
     v = v * torch.tanh(s)
-    v = torch.matmul(head0.to(x.dtype), v)
-    return _lin(m.out_proj, v * y)
+    if isinstance(head0, _SharedAttn):
+        a = head0
+        probs0 = a.probs[:, :1]
+        if const_gate:
+            binary = (probs0 > 0.0).to(probs0.dtype)
+            probs0 = binary / torch.clamp(binary.sum(-1, keepdim=True), min=1e-20)
+        v = rel_attention_consume(a.q[:, :, :1], a.k[:, :, :1], a.pq[:, :, :1],
+                                  a.pe[:, :1], a.mask, probs0, v[:, :, None, :],
+                                  const_gate=const_gate)[:, :, 0]
+    else:
+        v = torch.matmul(head0.to(x.dtype), v)
+    out = _lin(m.out_proj, v * y)
+    return _maybe_whiten(ctx, out, "whiten_5x3", 0.01)
 
 
 def _conv_module(m: ConvModule, x: torch.Tensor,
-                 key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 key_padding_mask: Optional[torch.Tensor],
+                 ctx: Optional[TrainCtx] = None) -> torch.Tensor:
     """GLU gate -> key mask -> depthwise conv over time (SAME) -> SwooshR
     -> out linear."""
     v, s = _lin(m.in_proj, x).chunk(2, dim=-1)
+    if ctx is not None:
+        s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
+                            min_positive=ctx.s["conv_balancer1_min_pos"], max_positive=1.0,
+                            min_abs=1.5, max_abs=ctx.s["conv_balancer1_max_abs"])
     v = v * torch.sigmoid(s)
     if key_padding_mask is not None:
         v = v.masked_fill(key_padding_mask[:, :, None], 0.0)
@@ -226,60 +378,148 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
         v.transpose(1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
         padding=conv.padding, groups=conv.groups,
     ).transpose(1, 2)
+    if ctx is not None:
+        out = _maybe_balancer(ctx, out, ctx.s["balancer_prob"],
+                              min_positive=ctx.s["conv_balancer2_min_pos"], max_positive=1.0,
+                              min_abs=ctx.s["conv_balancer2_min_abs"], max_abs=10.0)
+    out = _maybe_whiten(ctx, out, "whiten_7_5", 0.01)
     return _lin(m.out_proj, swoosh_r(out))
 
 
-def _feedforward(m: _InOut, x: torch.Tensor) -> torch.Tensor:
-    return _lin(m.out_proj, swoosh_l(_lin(m.in_proj, x)))
+def _feedforward(m: _InOut, x: torch.Tensor, ctx: Optional[TrainCtx] = None) -> torch.Tensor:
+    """Linear -> [balancer] -> SwooshL -> [dropout shared over time] ->
+    Linear -> [whiten]."""
+    h = _lin(m.in_proj, x)
+    if ctx is not None:
+        h = _maybe_balancer(ctx, h, ctx.s["balancer_prob"], min_positive=0.3,
+                            max_positive=1.0, min_abs=0.75, max_abs=5.0)
+    h = swoosh_l(h)
+    if ctx is not None:
+        h = reg.dropout_shared(h, ctx.gen, ctx.s["dropout"], shared_dim=1)
+    return _maybe_whiten(ctx, _lin(m.out_proj, h), "whiten_7_5", 0.01)
 
 
-def _bypass(scale: torch.Tensor, src_orig: torch.Tensor,
-            src: torch.Tensor) -> torch.Tensor:
-    return src_orig + (src - src_orig) * scale.to(src.dtype)
+def _bypass(scale: torch.Tensor, src_orig: torch.Tensor, src: torch.Tensor,
+            ctx: Optional[TrainCtx] = None, skip_rate: Optional[float] = None) -> torch.Tensor:
+    """In training the scale is range-limited (gradient clamp, w.p. 0.6)
+    and whole sequences may be layer-dropped (scale zeroed) w.p.
+    skip_rate."""
+    scale = scale.to(src.dtype)
+    if ctx is not None:
+        scale = reg.limit_param_value(scale, ctx.gate(0.6), ctx.s["bypass_scale_min"], 1.0)
+        if skip_rate is not None:
+            keep = ctx.uniform((src.shape[0], 1, 1)) > skip_rate
+            scale = scale * keep.to(src.dtype)
+    return src_orig + (src - src_orig) * scale
 
 
 def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
                    pos_emb: torch.Tensor, time_emb: Optional[torch.Tensor],
-                   key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Zipformer2EncoderLayer eval forward; time_emb: (B, D) or None."""
+                   key_padding_mask: Optional[torch.Tensor],
+                   ctx: Optional[TrainCtx] = None) -> torch.Tensor:
+    """Zipformer2EncoderLayer forward; time_emb: (B, D) or None."""
     src_orig = src
-    probs = _attention_weights(m.self_attn_weights, cfg, src, pos_emb,
-                               key_padding_mask)
+    if ctx is not None:
+        q, k, pq, pe, pen = _attention_projections(m.self_attn_weights, cfg, src, pos_emb,
+                                                   ctx)
+        with torch.no_grad():
+            probs = rel_attention_probs(q, k, pq, pe, key_padding_mask, out_dtype=src.dtype)
+        attn = _SharedAttn(q, k, pq, pe, key_padding_mask, pen, probs)
+    else:
+        attn = _attention_weights(m.self_attn_weights, cfg, src, pos_emb, key_padding_mask)
     te = None if time_emb is None else time_emb[:, None, :].to(src.dtype)
     if te is not None:
         src = src + te
-    src = src + _feedforward(m.feed_forward1, src)
-    src = src + _nonlin_attention(m.nonlin_attention, src, probs[:, 0])
-    src = src + _self_attention(m.self_attn1, cfg, src, probs)
+    src = src + _feedforward(m.feed_forward1, src, ctx)
+
+    # one per-sequence attention-skip mask for nonlin-attn and both self-attns
+    attn_keep = None
+    if ctx is not None:
+        attn_keep = (ctx.uniform((src.shape[0], 1, 1))
+                     > ctx.s["attention_skip_rate"]).to(src.dtype)
+    if ctx is not None:
+        na = _nonlin_attention(m.nonlin_attention, src, attn, ctx,
+                               ctx.gate(ctx.s["const_attention_rate"]))
+    else:
+        na = _nonlin_attention(m.nonlin_attention, src, attn[:, 0])
+    na = _maybe_balancer(ctx, na, 0.05, min_positive=0.3, max_positive=0.7,
+                         min_abs=ctx.s["balancer_na_min_abs"] if ctx else 0.0,
+                         max_abs=100.0)
+    src = src + (na if attn_keep is None else na * attn_keep)
+    sa = _self_attention(m.self_attn1, cfg, src, attn, ctx, use_pen=True)
+    src = src + (sa if attn_keep is None else sa * attn_keep)
     if cfg.use_conv:
         if te is not None:
             src = src + te
-        src = src + _conv_module(m.conv_module1, src, key_padding_mask)
-    src = src + _feedforward(m.feed_forward2, src)
-    src = _bypass(m.bypass_mid.bypass_scale, src_orig, src)
-    src = src + _self_attention(m.self_attn2, cfg, src, probs)
+        cv = _conv_module(m.conv_module1, src, key_padding_mask, ctx)
+        if ctx is not None:
+            cv = _maybe_seq_dropout(ctx, cv, ctx.s["conv_skip_rate"])
+        src = src + cv
+    ff2 = _feedforward(m.feed_forward2, src, ctx)
+    if ctx is not None:
+        ff2 = _maybe_balancer(ctx, ff2, 0.05, min_positive=0.3, max_positive=0.7,
+                              min_abs=ctx.s["balancer_ff2_min_abs"], max_abs=2.0)
+        ff2 = _maybe_seq_dropout(ctx, ff2, ctx.s["ff2_skip_rate"])
+    src = src + ff2
+    src = _bypass(m.bypass_mid.bypass_scale, src_orig, src, ctx)
+    sa = _self_attention(m.self_attn2, cfg, src, attn, ctx)
+    src = src + (sa if attn_keep is None else sa * attn_keep)
     if cfg.use_conv:
         if te is not None:
             src = src + te
-        src = src + _conv_module(m.conv_module2, src, key_padding_mask)
-    src = src + _feedforward(m.feed_forward3, src)
+        cv = _conv_module(m.conv_module2, src, key_padding_mask, ctx)
+        if ctx is not None:
+            cv = _maybe_seq_dropout(ctx, cv, ctx.s["conv_skip_rate"])
+        src = src + cv
+    ff3 = _feedforward(m.feed_forward3, src, ctx)
+    if ctx is not None:
+        ff3 = _maybe_balancer(ctx, ff3, 0.05, min_positive=0.3, max_positive=0.7,
+                              min_abs=ctx.s["balancer_ff3_min_abs"], max_abs=4.0)
+        ff3 = _maybe_seq_dropout(ctx, ff3, ctx.s["ff3_skip_rate"])
+    src = src + ff3
+    if ctx is not None:
+        src = _maybe_balancer(ctx, src, ctx.s["balancer_prob"], min_positive=0.45,
+                              max_positive=0.55, min_abs=0.2, max_abs=4.0)
     src = bias_norm(src, m.norm.bias, m.norm.log_scale)
-    return _bypass(m.bypass.bypass_scale, src_orig, src)
+    src = _bypass(m.bypass.bypass_scale, src_orig, src, ctx,
+                  skip_rate=ctx.layerdrop if ctx is not None else None)
+    if ctx is not None:
+        src = _maybe_balancer(ctx, src, ctx.s["balancer_prob"], min_positive=0.45,
+                              max_positive=0.55, min_abs=0.1, max_abs=4.0)
+        src = _maybe_whiten(ctx, src, "whiten_4x3", 0.01)
+    return src
 
 
 def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
                    time_emb: Optional[torch.Tensor],
-                   key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                   key_padding_mask: Optional[torch.Tensor],
+                   ctx: Optional[TrainCtx] = None, stack: int = 0) -> torch.Tensor:
     pos_emb = compact_rel_positional_encoding(src.shape[1], cfg.pos_dim,
                                               device=src.device)
+    if ctx is not None:
+        pos_emb = reg.dropout_shared(pos_emb, ctx.gen, 0.15)
     stack_time_emb = None
     if cfg.use_time_embed:
         if time_emb is None:
             raise ValueError("this Zipformer needs a timestep")
         stack_time_emb = _lin(m.time_emb[1], swoosh_r(time_emb))
-    for layer in m.layers:
-        src = _encoder_layer(layer, cfg, src, pos_emb, stack_time_emb,
-                             key_padding_mask)
+    remat = _REMAT and len(m.layers) > 1 and torch.is_grad_enabled()
+    for i, layer in enumerate(m.layers):
+        layer_ctx = None
+        if ctx is not None:
+            # the layer's draws come from this seed, drawn outside the
+            # checkpointed call: its recompute redraws the same values
+            layer_ctx = (ctx.next_seed(), ctx.s["layerdrop"][stack][i])
+
+        def run(x, pe, te, mask, layer=layer, layer_ctx=layer_ctx):
+            lctx = None if layer_ctx is None else ctx.child(*layer_ctx)
+            return _encoder_layer(layer, cfg, x, pe, te, mask, lctx)
+
+        if remat:
+            src = checkpoint(run, src, pos_emb, stack_time_emb, key_padding_mask,
+                             use_reentrant=False)
+        else:
+            src = run(src, pos_emb, stack_time_emb, key_padding_mask)
     return src
 
 
@@ -303,13 +543,14 @@ def _upsample(src: torch.Tensor, ds: int, out_len: int) -> torch.Tensor:
 def _downsampled_encoder_stack(m: DownsampledEncoder, cfg: ZipformerConfig,
                                stack: int, src: torch.Tensor,
                                time_emb: Optional[torch.Tensor],
-                               key_padding_mask: Optional[torch.Tensor]):
+                               key_padding_mask: Optional[torch.Tensor],
+                               ctx: Optional[TrainCtx] = None):
     ds = cfg.downsampling_factor[stack]
     x = _downsample(m.downsample.bias, src, ds)
     mask = None if key_padding_mask is None else key_padding_mask[:, ::ds]
-    x = _encoder_stack(m.encoder, cfg, x, time_emb, mask)
+    x = _encoder_stack(m.encoder, cfg, x, time_emb, mask, ctx, stack)
     x = _upsample(x, ds, src.shape[1])
-    return _bypass(m.out_combiner.bypass_scale, src, x)
+    return _bypass(m.out_combiner.bypass_scale, src, x, ctx)
 
 
 def tts_zipformer_forward(
@@ -318,10 +559,12 @@ def tts_zipformer_forward(
     t: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
     guidance_scale: Optional[torch.Tensor] = None,
+    ctx: Optional[TrainCtx] = None,
 ) -> torch.Tensor:
     """TTSZipformer forward.  x: (B, T, in_dim); t: (B,) timestep in [0, 1]
     or None without a time embedding; padding_mask: (B, T) bool, True =
-    padded; guidance_scale: (B,) (distill variant only).  -> (B, T, out_dim).
+    padded; guidance_scale: (B,) (distill variant only); ctx: training
+    context or None (eval).  -> (B, T, out_dim).
     """
     cfg = m.cfg
     h = _lin(m.in_proj, x)
@@ -342,9 +585,9 @@ def tts_zipformer_forward(
 
     for i, enc in enumerate(m.encoders):
         if cfg.downsampling_factor[i] == 1:
-            h = _encoder_stack(enc, cfg, h, time_emb, padding_mask)
+            h = _encoder_stack(enc, cfg, h, time_emb, padding_mask, ctx, i)
         else:
-            h = _downsampled_encoder_stack(enc, cfg, i, h, time_emb, padding_mask)
+            h = _downsampled_encoder_stack(enc, cfg, i, h, time_emb, padding_mask, ctx)
 
     if cfg.f32_closers:
         # the velocity head feeds the cancellation-prone CFG combination

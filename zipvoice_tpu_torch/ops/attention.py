@@ -1,11 +1,20 @@
 """Relative-position attention kernels (CUDA, Hopper) and their plain versions.
 
-Two kernels carry the Zipformer attention on the inference path:
+Four kernels carry the Zipformer attention:
 
 * ``rel_attention_probs`` (B1, ``csrc/rel_probs.cu``): softmax over keys of
-  q.k + pq.pe[j - i + T - 1] + key-padding bias, (B, H, T, T);
+  q.k + pq.pe[j - i + T - 1] + key-padding bias, (B, H, T, T).  It is
+  differentiable: its backward is B4 plus four matmul adjoints.
+* ``rel_attention_ds`` (B4, ``csrc/rel_ds.cu``): the score cotangent
+  ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit), with the
+  probabilities recomputed from q, k, pq, pe.
 * ``rel_attention_probs_apply`` (B2, ``csrc/probs_apply.cu``): the
-  SelfAttention contraction einsum('bhts,bshd->bthd', probs, v).
+  SelfAttention contraction einsum('bhts,bshd->bthd', probs, v), with its
+  einsum adjoints as the backward.
+* ``rel_attention_consume_bwd`` (B3, ``csrc/rel_apply_bwd.cu``): the flash
+  backward of ``rel_attention_consume``, which contracts a layer's shared
+  stop-gradient probabilities with one consumer's values in the forward
+  and recomputes them in the backward to emit dq, dk, dpq, dpe, dv.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version beside it only for CPU tensors.  ``launches`` on each
@@ -15,7 +24,9 @@ Mask semantics: a padded key gets an additive -1000 before the softmax.
 This equals the reference's replace-with--1000 on every row that has at
 least one real key; on a row whose keys are all padded the additive form
 attends over the real scores instead of uniformly over constants (such rows
-do not occur for key-padding masks of non-empty sequences).
+do not occur for key-padding masks of non-empty sequences).  The failsafe
+penalty applies to every key column, padded ones included (it acts on the
+pre-mask score).
 """
 
 from __future__ import annotations
@@ -49,26 +60,97 @@ def rel_shift(pos_scores: torch.Tensor, seq_len: int) -> torch.Tensor:
     return flat.reshape(b, h, t, 2 * t - 2)[..., :t]
 
 
+def unshear(ds: torch.Tensor) -> torch.Tensor:
+    """Adjoint of ``rel_shift``: (B, H, T, T) -> (B, H, T, 2T-1) with
+    out[..., i, (T-1) + j - i] = ds[..., i, j] and zeros elsewhere."""
+    b, h, t, _ = ds.shape
+    if t == 1:
+        return ds
+    rows = torch.nn.functional.pad(ds, (0, t - 2))  # (B, H, T, 2T-2)
+    flat = torch.nn.functional.pad(rows.reshape(b, h, t * (2 * t - 2)), (t - 1, 1))
+    return flat.reshape(b, h, t, 2 * t - 1)
+
+
+def rel_scores_plain(q, k, pq, pe) -> torch.Tensor:
+    """Pre-mask scores q.k + pq.pe[j - i + T - 1], (B, H, T, T) f32."""
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    pos = torch.einsum("bthd,nhd->bhtn", pq.float(), pe.float())
+    return scores + rel_shift(pos, q.shape[1])
+
+
+def _softmax_masked(scores: torch.Tensor, key_padding_mask) -> torch.Tensor:
+    if key_padding_mask is not None:
+        bias = torch.zeros(key_padding_mask.shape, dtype=torch.float32,
+                           device=scores.device).masked_fill(key_padding_mask, MASK_BIAS)
+        scores = scores + bias[:, None, None, :]
+    return torch.softmax(scores, dim=-1)
+
+
 def rel_attention_probs_plain(q, k, pq, pe, key_padding_mask=None,
                               out_dtype=None) -> torch.Tensor:
     """Plain B1: f32 scores as einsums, the rel shift, the additive mask
     bias and torch.softmax."""
     out_dtype = q.dtype if out_dtype is None else out_dtype
-    t = q.shape[1]
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-    pos = torch.einsum("bthd,nhd->bhtn", pq.float(), pe.float())
-    scores = scores + rel_shift(pos, t)
-    if key_padding_mask is not None:
-        bias = torch.zeros(key_padding_mask.shape, dtype=torch.float32,
-                           device=scores.device)
-        bias = bias.masked_fill(key_padding_mask, MASK_BIAS)
-        scores = scores + bias[:, None, None, :]
-    return torch.softmax(scores, dim=-1).to(out_dtype)
+    return _softmax_masked(rel_scores_plain(q, k, pq, pe), key_padding_mask).to(out_dtype)
 
 
 def rel_attention_probs_apply_plain(probs, v) -> torch.Tensor:
     """Plain B2: einsum('bhts,bshd->bthd') accumulated in f32, in v.dtype."""
     return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(v.dtype)
+
+
+def _penalty_term(s_pre: torch.Tensor, score_penalty: float, penalty_limit: float):
+    return score_penalty * torch.sign(s_pre) * ((torch.abs(s_pre) - penalty_limit) > 0)
+
+
+def rel_attention_ds_plain(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
+                           penalty_limit=25.0) -> torch.Tensor:
+    """Plain B4: ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit)
+    with p recomputed in f32 and s the pre-mask score; (B, H, T, T) in
+    q.dtype."""
+    s_pre = rel_scores_plain(q, k, pq, pe)
+    probs = _softmax_masked(s_pre, key_padding_mask)
+    g = g.float()
+    ds = probs * (g - torch.sum(g * probs, dim=-1, keepdim=True))
+    if score_penalty:
+        ds = ds + _penalty_term(s_pre, score_penalty, penalty_limit)
+    return ds.to(q.dtype)
+
+
+def score_adjoints(ds, q, k, pq, pe):
+    """The four matmul adjoints of the scores, in f32: (dq, dk, dpq, dpe)
+    from the score cotangent ds (B, H, T, T); dpe is summed over batch."""
+    ds = ds.float()
+    dq = torch.einsum("bhts,bshd->bthd", ds, k.float())
+    dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
+    dpos = unshear(ds)
+    dpq = torch.einsum("bhtn,nhd->bthd", dpos, pe.float())
+    dpe = torch.einsum("bhtn,bthd->nhd", dpos, pq.float())
+    return dq, dk, dpq, dpe
+
+
+def rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
+                                    score_penalty=0.0, penalty_limit=25.0,
+                                    const_gate=False):
+    """Plain B3: recompute the probabilities (the const-attention ones when
+    the gate is open), dv = used^T g, the softmax VJP of dP = g v^T (zero
+    through the detached const branch), the penalty on pre-mask scores,
+    then the score adjoints.  Returns (dq, dk, dpq, dpe, dv) in f32."""
+    s_pre = rel_scores_plain(q, k, pq, pe)
+    probs = _softmax_masked(s_pre, key_padding_mask)
+    g32, v32 = g.float(), v.float()
+    if const_gate:
+        binary = (probs > 0.0).float()
+        used = binary / torch.clamp(binary.sum(-1, keepdim=True), min=1e-20)
+        ds = torch.zeros_like(probs)
+    else:
+        used = probs
+        dp = torch.einsum("bthd,bshd->bhts", g32, v32)
+        ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+    dv = torch.einsum("bhts,bthd->bshd", used, g32)
+    if score_penalty:
+        ds = ds + _penalty_term(s_pre, score_penalty, penalty_limit)
+    return (*score_adjoints(ds, q, k, pq, pe), dv)
 
 
 # ---------------------------------------------------------------------------
@@ -84,31 +166,52 @@ def _check_cuda(name: str, *tensors):
         if x.dtype not in _DTYPES:
             raise ValueError(f"{name}: dtype {x.dtype} not supported "
                              "(float32 or bfloat16)")
+    if len({x.dtype for x in tensors}) != 1:
+        raise ValueError(f"{name}: inputs must share a dtype")
+
+
+def _check_rel_shapes(name, q, k, pq, pe):
+    b, t, h, _ = q.shape
+    pd = pq.shape[-1]
+    if (k.shape != q.shape or pq.shape[:3] != (b, t, h)
+            or pe.shape != (2 * t - 1, h, pd)):
+        raise ValueError(f"{name}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"pq{tuple(pq.shape)} pe{tuple(pe.shape)}")
+
+
+def _mask_ptr(name, key_padding_mask, q):
+    """(pointer, keep-alive tensor) of a (B, T) bool mask as uint8."""
+    if key_padding_mask is None:
+        return None, None
+    b, t = q.shape[:2]
+    if (key_padding_mask.shape != (b, t) or key_padding_mask.device != q.device
+            or key_padding_mask.dtype != torch.bool):
+        raise ValueError(f"{name}: key_padding_mask must be a (B, T) bool "
+                         f"tensor on {q.device}")
+    m = key_padding_mask.contiguous().view(torch.uint8)
+    return m.data_ptr(), m
 
 
 def _stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # zv_rel_probs(q, kt, pq, pe, mask, out, B, T, H, QD, PD, in_bf16, out_bf16, stream)
     "rel_probs": ("zv_rel_probs", [_P] * 6 + [_I] * 7 + [_P]),
     # zv_probs_apply(probs, v, out, B, T, H, VD, bf16, stream)
     "probs_apply": ("zv_probs_apply", [_P] * 3 + [_I] * 5 + [_P]),
+    # zv_rel_ds(q, kt, pq, pe, mask, g, ds, B, T, H, QD, PD, bf16, pen, limit, stream)
+    "rel_ds": ("zv_rel_ds", [_P] * 7 + [_I] * 6 + [_F, _F, _P]),
+    # zv_rel_apply_bwd(q, kt, pq, pe, mask, v, g, stats, dq, dk, dpq, dpe, dv,
+    #                  B, T, H, QD, PD, VD, bf16, const_gate, pen, limit, stream)
+    "rel_apply_bwd": ("zv_rel_apply_bwd", [_P] * 13 + [_I] * 8 + [_F, _F, _P]),
 }
-_entry_points = {}
 
 
 def _entry(name: str):
-    """The C entry point of one kernel library, typed once."""
-    fn = _entry_points.get(name)
-    if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(build.load(name), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _entry_points[name] = fn
-    return fn
+    return build.entry(name, *_SIGNATURES[name])
 
 
 def _raise_on(code: int, name: str, shape_note: str):
@@ -117,40 +220,18 @@ def _raise_on(code: int, name: str, shape_note: str):
                            f"for {shape_note}")
 
 
-def rel_attention_probs(
-    q: torch.Tensor,  # (B, T, H, qd)
-    k: torch.Tensor,  # (B, T, H, qd)
-    pq: torch.Tensor,  # (B, T, H, pd)
-    pe: torch.Tensor,  # (2T-1, H, pd) projected positional encodings
-    key_padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = pad
-    out_dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
-    """Attention probabilities (B, H, T, T) in ``out_dtype`` (default
-    q.dtype); scores and softmax in f32.  Any T."""
-    out_dtype = q.dtype if out_dtype is None else out_dtype
+def _rel_probs_forward(q, k, pq, pe, key_padding_mask, out_dtype):
     if q.device.type == "cpu":
         return rel_attention_probs_plain(q, k, pq, pe, key_padding_mask, out_dtype)
     _check_cuda("rel_attention_probs", q, k, pq, pe)
-    b, t, h, qd = q.shape
-    pd = pq.shape[-1]
-    if (k.shape != q.shape or pq.shape[:3] != (b, t, h)
-            or pe.shape != (2 * t - 1, h, pd)):
-        raise ValueError(f"rel_attention_probs: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} pq{tuple(pq.shape)} pe{tuple(pe.shape)}")
-    if len({q.dtype, k.dtype, pq.dtype, pe.dtype}) != 1:
-        raise ValueError("rel_attention_probs: q, k, pq, pe must share a dtype")
+    _check_rel_shapes("rel_attention_probs", q, k, pq, pe)
     if out_dtype not in _DTYPES:
         raise ValueError(f"rel_attention_probs: out_dtype {out_dtype}")
+    b, t, h, qd = q.shape
+    pd = pq.shape[-1]
     q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
     kt = k.permute(0, 2, 3, 1).contiguous()  # (B, H, qd, T): coalesced key reads
-    mask_ptr = None
-    if key_padding_mask is not None:
-        if (key_padding_mask.shape != (b, t) or key_padding_mask.device != q.device
-                or key_padding_mask.dtype != torch.bool):
-            raise ValueError("rel_attention_probs: key_padding_mask must be a "
-                             f"(B, T) bool tensor on {q.device}")
-        key_padding_mask = key_padding_mask.contiguous().view(torch.uint8)
-        mask_ptr = key_padding_mask.data_ptr()
+    mask_ptr, _keep = _mask_ptr("rel_attention_probs", key_padding_mask, q)
     out = torch.empty((b, h, t, t), dtype=out_dtype, device=q.device)
     code = _entry("rel_probs")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
@@ -161,12 +242,79 @@ def rel_attention_probs(
     return out
 
 
+def rel_attention_ds(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
+                     penalty_limit=25.0) -> torch.Tensor:
+    """B4: the score cotangent (B, H, T, T) in q.dtype from the
+    probabilities' cotangent g (same dtype as q), probabilities recomputed
+    in f32; the penalty acts on the pre-mask scores.  Any T."""
+    if q.device.type == "cpu":
+        return rel_attention_ds_plain(q, k, pq, pe, key_padding_mask, g,
+                                      score_penalty, penalty_limit)
+    _check_cuda("rel_attention_ds", q, k, pq, pe, g)
+    _check_rel_shapes("rel_attention_ds", q, k, pq, pe)
+    b, t, h, qd = q.shape
+    pd = pq.shape[-1]
+    if g.shape != (b, h, t, t):
+        raise ValueError(f"rel_attention_ds: g{tuple(g.shape)} for B={b} H={h} T={t}")
+    q, pq, pe, g = q.contiguous(), pq.contiguous(), pe.contiguous(), g.contiguous()
+    kt = k.permute(0, 2, 3, 1).contiguous()
+    mask_ptr, _keep = _mask_ptr("rel_attention_ds", key_padding_mask, q)
+    ds = torch.empty((b, h, t, t), dtype=q.dtype, device=q.device)
+    code = _entry("rel_ds")(
+        q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
+        g.data_ptr(), ds.data_ptr(), b, t, h, qd, pd, int(q.dtype == torch.bfloat16),
+        float(score_penalty), float(penalty_limit), _stream_ptr(q.device))
+    _raise_on(code, "rel_ds", f"B={b} T={t} H={h} qd={qd} pd={pd}")
+    rel_attention_ds.launches += 1
+    return ds
+
+
+rel_attention_ds.launches = 0
+
+
+class _RelProbs(torch.autograd.Function):
+    """B1 forward; backward = B4 (ds) then the four score adjoints as plain
+    PyTorch matmuls (as the JAX package leaves them to XLA)."""
+
+    @staticmethod
+    def forward(ctx, q, k, pq, pe, key_padding_mask, out_dtype, score_penalty,
+                penalty_limit):
+        ctx.save_for_backward(q, k, pq, pe, key_padding_mask)
+        ctx.penalty = (score_penalty, penalty_limit)
+        return _rel_probs_forward(q, k, pq, pe, key_padding_mask, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, pq, pe, mask = ctx.saved_tensors
+        ds = rel_attention_ds(q, k, pq, pe, mask, g.to(q.dtype), *ctx.penalty)
+        grads = score_adjoints(ds, q, k, pq, pe)
+        return (*(d.to(x.dtype) for d, x in zip(grads, (q, k, pq, pe))),
+                None, None, None, None)
+
+
+def rel_attention_probs(
+    q: torch.Tensor,  # (B, T, H, qd)
+    k: torch.Tensor,  # (B, T, H, qd)
+    pq: torch.Tensor,  # (B, T, H, pd)
+    pe: torch.Tensor,  # (2T-1, H, pd) projected positional encodings
+    key_padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = pad
+    out_dtype: Optional[torch.dtype] = None,
+    score_penalty: float = 0.0,
+    penalty_limit: float = 25.0,
+) -> torch.Tensor:
+    """Attention probabilities (B, H, T, T) in ``out_dtype`` (default
+    q.dtype); scores and softmax in f32.  Any T.  Differentiable: the
+    backward adds score_penalty * sign(s) * (|s| > penalty_limit) to the
+    pre-mask score cotangent (the attention-score failsafe)."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    return _RelProbs.apply(q, k, pq, pe, key_padding_mask, out_dtype,
+                           float(score_penalty), float(penalty_limit))
+
+
 rel_attention_probs.launches = 0
 
 
-def rel_attention_probs_apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """einsum('bhts,bshd->bthd', probs, v) accumulated in f32, returned in
-    v.dtype; probs (B, H, T, T), v (B, T, H, vd).  Any T."""
+def _probs_apply_forward(probs, v):
     if probs.device.type == "cpu":
         return rel_attention_probs_apply_plain(probs, v)
     _check_cuda("rel_attention_probs_apply", probs, v)
@@ -175,8 +323,6 @@ def rel_attention_probs_apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Ten
     if probs.shape != (b, h, t, t) or v.shape != (b, t, h, vd):
         raise ValueError(f"rel_attention_probs_apply: shapes probs"
                          f"{tuple(probs.shape)} v{tuple(v.shape)}")
-    if probs.dtype != v.dtype:
-        raise ValueError("rel_attention_probs_apply: probs and v must share a dtype")
     probs, v = probs.contiguous(), v.contiguous()
     out = torch.empty((b, t, h, vd), dtype=v.dtype, device=v.device)
     code = _entry("probs_apply")(probs.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -187,4 +333,121 @@ def rel_attention_probs_apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return out
 
 
+class _ProbsApply(torch.autograd.Function):
+    """B2 forward; backward = the two einsum adjoints, f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, probs, v):
+        ctx.save_for_backward(probs, v)
+        return _probs_apply_forward(probs, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, v = ctx.saved_tensors
+        g32 = g.float()
+        dprobs = torch.einsum("bthd,bshd->bhts", g32, v.float()).to(probs.dtype)
+        dv = torch.einsum("bhts,bthd->bshd", probs.float(), g32).to(v.dtype)
+        return dprobs, dv
+
+
+def rel_attention_probs_apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """einsum('bhts,bshd->bthd', probs, v) accumulated in f32, returned in
+    v.dtype; probs (B, H, T, T), v (B, T, H, vd) of the same dtype.  Any T;
+    vd in {4, 8, 12, 16}.  Differentiable."""
+    return _ProbsApply.apply(probs, v)
+
+
 rel_attention_probs_apply.launches = 0
+
+# value widths the B2 kernel takes; wider consumers contract with torch.matmul
+PROBS_APPLY_VD = (4, 8, 12, 16)
+
+
+def rel_attention_consume_bwd(q, k, pq, pe, key_padding_mask, v, g,
+                              score_penalty=0.0, penalty_limit=25.0,
+                              const_gate=False):
+    """B3: the flash backward of ``rel_attention_consume``.  Returns (dq,
+    dk, dpq, dpe, dv) in f32, dpe summed over the batch.  Any T; any vd."""
+    if q.device.type == "cpu":
+        return rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
+                                               score_penalty, penalty_limit, const_gate)
+    _check_cuda("rel_attention_consume_bwd", q, k, pq, pe, v, g)
+    _check_rel_shapes("rel_attention_consume_bwd", q, k, pq, pe)
+    b, t, h, qd = q.shape
+    pd, vd = pq.shape[-1], v.shape[-1]
+    if v.shape != (b, t, h, vd) or g.shape != v.shape:
+        raise ValueError(f"rel_attention_consume_bwd: v{tuple(v.shape)} "
+                         f"g{tuple(g.shape)}")
+    q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
+    v, g = v.contiguous(), g.contiguous()
+    kt = k.permute(0, 2, 3, 1).contiguous()
+    mask_ptr, _keep = _mask_ptr("rel_attention_consume_bwd", key_padding_mask, q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats = torch.empty((4, b, h, t), **f32)  # per row: max, 1/sum, sum(p dP), count(p > 0)
+    dq = torch.empty((b, t, h, qd), **f32)
+    dk = torch.empty((b, t, h, qd), **f32)
+    dpq = torch.empty((b, t, h, pd), **f32)
+    dpe = torch.zeros((2 * t - 1, h, pd), **f32)  # batch sum by atomics
+    dv = torch.empty((b, t, h, vd), **f32)
+    code = _entry("rel_apply_bwd")(
+        q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
+        v.data_ptr(), g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dpq.data_ptr(), dpe.data_ptr(), dv.data_ptr(), b, t, h, qd, pd, vd,
+        int(q.dtype == torch.bfloat16), int(bool(const_gate)), float(score_penalty),
+        float(penalty_limit), _stream_ptr(q.device))
+    _raise_on(code, "rel_apply_bwd", f"B={b} T={t} H={h} qd={qd} pd={pd} vd={vd}")
+    rel_attention_consume_bwd.launches += 1
+    return dq, dk, dpq, dpe, dv
+
+
+rel_attention_consume_bwd.launches = 0
+
+
+def consume_forward(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs (B, H, T, T) @ v (B, T, H, vd) -> (B, T, H, vd) in v.dtype:
+    the B2 kernel where it takes vd, torch.matmul otherwise (the head-0
+    NonlinAttention consumer, vd = 3D/4)."""
+    probs = probs.to(v.dtype)
+    if v.shape[-1] in PROBS_APPLY_VD:
+        return _probs_apply_forward(probs, v)
+    return torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
+
+
+class _RelConsume(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, pq, pe, key_padding_mask, probs, v, score_penalty,
+                penalty_limit, const_gate):
+        ctx.save_for_backward(q, k, pq, pe, key_padding_mask, v)
+        ctx.args = (score_penalty, penalty_limit, const_gate)
+        return consume_forward(probs, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, pq, pe, mask, v = ctx.saved_tensors
+        grads = rel_attention_consume_bwd(q, k, pq, pe, mask, v, g.to(v.dtype), *ctx.args)
+        dq, dk, dpq, dpe, dv = (d.to(x.dtype) for d, x in zip(grads, (q, k, pq, pe, v)))
+        return dq, dk, dpq, dpe, None, None, dv, None, None, None
+
+
+def rel_attention_consume(
+    q: torch.Tensor,  # (B, T, H, qd)
+    k: torch.Tensor,
+    pq: torch.Tensor,
+    pe: torch.Tensor,  # (2T-1, H, pd)
+    key_padding_mask: Optional[torch.Tensor],
+    probs: torch.Tensor,  # (B, H, T, T), shared, no gradient
+    v: torch.Tensor,  # (B, T, H, vd)
+    score_penalty: float = 0.0,
+    penalty_limit: float = 25.0,
+    const_gate: bool = False,
+) -> torch.Tensor:
+    """probs @ v with the flash backward (B3); any T.
+
+    probs must be the probabilities computed from exactly (q, k, pq, pe,
+    mask), or the const-attention replacement of them when const_gate is
+    set: the backward recomputes them, and no gradient reaches probs.
+    score_penalty attaches the failsafe gradient (one consumer per layer).
+    With const_gate the score cotangent is zero and dv flows through the
+    recomputed const probabilities."""
+    return _RelConsume.apply(q, k, pq, pe, key_padding_mask, probs, v,
+                             float(score_penalty), float(penalty_limit), bool(const_gate))

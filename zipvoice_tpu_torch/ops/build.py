@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/lib<name>-<hash>.so``, and
-loaded through ctypes.  The hash is of the source, so an edited kernel is
-rebuilt and a stale library is never loaded.  Nothing is compiled when the
+loaded through ctypes.  The hash is of the source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
+never loaded.  Nothing is compiled when the
 module is imported: the first kernel call (or ``build_all``) does it, and
 all sources compile in parallel.
 """
@@ -21,13 +22,14 @@ from typing import Dict
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("rel_probs", "probs_apply")
+SOURCES = ("rel_probs", "probs_apply", "rel_ds", "rel_apply_bwd", "log_mel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entry_points: Dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -41,7 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 
@@ -87,3 +92,13 @@ def load(name: str) -> ctypes.CDLL:
         _loaded[name] = lib
     return lib
 
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of kernel library ``name``, typed once
+    (argtypes; an int return code)."""
+    fn = _entry_points.get(name)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _entry_points[name] = fn
+    return fn

@@ -1,0 +1,104 @@
+"""The flow-matching training step and the validation step, on one device.
+
+Master weights stay f32 in the module; the forward runs in
+``compute_dtype`` (every op casts the weights it uses), and t and the noise
+are drawn in f32 before the compute dtype applies.  Randomness comes from a
+per-step integer seed (the trainer derives it from its seed and the batch
+index), so a step is reproducible.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel, compute_fm_loss
+from zipvoice_tpu_torch.train.lr_schedule import eden_lr, fixed_lr
+from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    base_lr: float = 0.02
+    lr_batches: float = 7500.0
+    lr_epochs: float = 10.0
+    warmup_batches: float = 500.0
+    condition_drop_ratio: float = 0.2
+    compute_dtype: str = "bfloat16"  # "float32" | "bfloat16"
+    schedule: str = "eden"  # "eden" | "fixed"
+    # training-time stochastic regularizers (dropout, layerdrop, balancers,
+    # whitening, ...); their schedule values are computed on the host per step
+    use_regularizers: bool = True
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """tokens / lengths (host numpy or tensors) and features on ``device``."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def learning_rate(train_cfg: TrainConfig, step_idx: int, epoch: float) -> float:
+    if train_cfg.schedule == "eden":
+        return eden_lr(train_cfg.base_lr, step_idx, epoch, lr_batches=train_cfg.lr_batches,
+                       lr_epochs=train_cfg.lr_epochs, warmup_batches=train_cfg.warmup_batches)
+    return fixed_lr(train_cfg.base_lr)
+
+
+def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfig = TrainConfig()):
+    """step(batch, seed, step_idx, epoch, schedules=None) -> metrics.
+
+    batch: tokens (B, S), tokens_lens (B,), features (B, T, F) f32,
+    features_lens (B,).  The metrics are device scalars (loss, the clip
+    diagnostics) and the float lr; reading them is the caller's sync."""
+    dtype = _DTYPES[train_cfg.compute_dtype]
+
+    def step(batch, seed: int, step_idx: int, epoch: float,
+             schedules: Optional[Dict] = None) -> Dict:
+        dev = next(model.parameters()).device
+        batch = batch_to_device(batch, dev)
+        features = batch["features"].to(dtype)
+        k_t, k_noise, k_loss = np.random.default_rng(seed).integers(0, 2**62, size=3)
+        gen = torch.Generator(device=dev)
+        t = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(k_t)),
+                       device=dev)
+        noise = torch.randn(features.shape, generator=gen.manual_seed(int(k_noise)),
+                            device=dev).to(dtype)
+        loss = compute_fm_loss(model, batch["tokens"], batch["tokens_lens"], features,
+                               batch["features_lens"], noise, t, int(k_loss),
+                               condition_drop_ratio=train_cfg.condition_drop_ratio,
+                               schedules=schedules)
+        opt.zero_grad()
+        loss.backward()
+        lr = learning_rate(train_cfg, step_idx, epoch)
+        diag = opt.step(lr)
+        return {"loss": loss.detach(), "lr": lr, **diag}
+
+    return step
+
+
+def make_eval_step(model: ZipVoiceModel, train_cfg: TrainConfig = TrainConfig()):
+    """Validation loss averaged over 4 fixed timesteps per utterance."""
+    dtype = _DTYPES[train_cfg.compute_dtype]
+
+    @torch.no_grad()
+    def eval_step(batch, seed: int) -> torch.Tensor:
+        dev = next(model.parameters()).device
+        batch = batch_to_device(batch, dev)
+        features = batch["features"].to(dtype)
+        b = features.shape[0]
+        losses = []
+        for i, tv in enumerate((0.1, 0.35, 0.65, 0.9)):
+            k_noise, k_loss = np.random.default_rng([seed, i]).integers(0, 2**62, size=2)
+            t = torch.full((b, 1, 1), tv, dtype=dtype, device=dev)
+            noise = torch.randn(features.shape, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(int(k_noise)))
+            losses.append(compute_fm_loss(model, batch["tokens"], batch["tokens_lens"],
+                                          features, batch["features_lens"], noise.to(dtype),
+                                          t, int(k_loss)))
+        return torch.mean(torch.stack(losses))
+
+    return eval_step
