@@ -20,10 +20,24 @@ Phases (each raises on failure; nothing is caught):
      padded row; B3 also at H=1 with vd 384 and 144; the failsafe penalty
      and the const-attention gate each on and off; B8 at 10 s and 1 s), f32
      and bf16, with times and bounds;
+  3c. the fused eval kernels against their plain versions, f32 and bf16:
+     B6 and B7 at the serving shapes (B=2, H=4; B7 at C 384, and 144 at
+     T=40), B9 against an f64 plain version (C = D = 512 with K 31/15/7 at
+     T 1024/512/256/288, C = D = 192 with K 9 at T=40), B5 at B=8 (H=4,
+     vd 12 and H=1, vd 384, the const gate on and off) and one gradient
+     through rel_attention_apply (B5 forward, B3 backward) against plain
+     autograd, with times and bounds;
+  5b. the same requests with the fused eval path on (set_fused_eval,
+     set_fused_conv): the wavs checked as in phase 5 and every request
+     launching B1 0, B2 260, B6 260, B7 260 and B9 520 times; then the flags
+     reset and one request re-checked at the unfused pins; the median warm
+     RTF of the ~8 s request fused and unfused, f32 and bf16, in turns;
   6. one full-width fm_decoder forward on the card (kernels) against the
-     CPU (plain versions) on the same weights and inputs;
-     with --profile: one warm request under torch.profiler (device busy
-     share, top kernels; the trace goes to chiprun_out/ if present);
+     CPU (plain versions) on the same weights and inputs; 6b. the same with
+     the fused eval path on the card against the unfused CPU forward;
+     with --profile: one warm request, unfused and fused, under
+     torch.profiler (device busy share, top kernels; the traces go to the
+     output directory if present);
   7. one full-width compute_fm_loss backward on the card against the CPU,
      same weights and inputs, no random draws, with and without the
      regularizers; relative L2 error per parameter group;
@@ -61,8 +75,13 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 N_STEP = 16
 # text-encoder layers + steps x fm_decoder layers (one 2B CFG batch a step)
-B1_PER_REQUEST = 4 + N_STEP * 16
-B2_PER_REQUEST = 2 * B1_PER_REQUEST
+LAYERS_PER_REQUEST = 4 + N_STEP * 16
+# kernel launches a request: unfused, B1 a layer and B2 in both
+# SelfAttention modules; fused, B7 (NonlinAttention) and B6 (SelfAttention-1)
+# a layer, B2 in SelfAttention-2 and B9 in both ConvolutionModules
+UNFUSED_PER_REQUEST = {"B1": LAYERS_PER_REQUEST, "B2": 2 * LAYERS_PER_REQUEST}
+FUSED_PER_REQUEST = {"B2": LAYERS_PER_REQUEST, "B6": LAYERS_PER_REQUEST,
+                     "B7": LAYERS_PER_REQUEST, "B9": 2 * LAYERS_PER_REQUEST}
 
 
 def card_line() -> str:
@@ -330,6 +349,213 @@ def check_training_kernels():
     return results
 
 
+# serving shapes of B6/B7 (B=2, H=4); B7 takes the fm_decoder's
+# NonlinAttention width (3D/4 = 384) and the text encoder's (144) at T=40
+FUSED_ATTN_CASES = [(1024, "main"), (512, "main"), (256, "main"), (288, "ragged"),
+                    (577, "ragged"), (40, "text")]
+# B9: (C = D, K, T); the fm_decoder's kernels 31/15/7 at its stack lengths,
+# the text encoder's C = 192, K = 9 at T=40
+CONV_CASES = [(512, kk, t) for kk in (31, 15, 7) for t in (1024, 512, 256, 288)] + [
+    (192, 9, 40)]
+# B5: (B, H, T, vd); the op's own entry point, no model path calls it
+APPLY_CASES = [(8, 4, 1024, 12), (8, 4, 577, 12), (8, 1, 1024, 384), (8, 1, 577, 384)]
+
+
+def _fused_attention_checks(gen, results):
+    """Phase 3c, attention part: B6 and B7 at the serving shapes."""
+    import torch
+
+    from zipvoice_tpu_torch.ops import attention as att
+
+    b, h, qd, pd, vd = 2, 4, 32, 4, 12
+    for t, kind in FUSED_ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            s = torch.finfo(dtype).bits // 8
+            q, k, pq, pe, mask, v, _ = _rel_inputs(gen, b, h, t, vd, dtype)
+            # f32: sums over T keys in another order; bf16: one unit in the
+            # last place of a probability <= 1 and of the output's scale
+            tol = 2e-5 if dtype == torch.float32 else 8e-3
+            in_bytes = s * (2 * b * t * h * qd + b * t * h * pd + (2 * t - 1) * h * pd) + b * t
+
+            probs, out = att.rel_attention_probs_consume(q, k, pq, pe, mask, v, out_dtype=dtype)
+            ref_p, ref_o = att.rel_attention_probs_consume_plain(q, k, pq, pe, mask, v, dtype)
+            same_as_b1 = torch.equal(probs, att.rel_attention_probs(q, k, pq, pe, mask,
+                                                                    out_dtype=dtype))
+            torch.cuda.synchronize()
+            err_p = float((probs.float() - ref_p.float()).abs().max())
+            abs_o, rel_o = _errs(out, ref_o)
+            r = dict(abs_err=max(err_p, abs_o), rel_err=max(err_p, rel_o), tol=tol,
+                     ms=time_ms(lambda: att.rel_attention_probs_consume(q, k, pq, pe, mask, v)),
+                     plain_ms=time_ms(lambda: att.rel_attention_probs_consume_plain(
+                         q, k, pq, pe, mask, v)), library_ms=None)
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                in_bytes + s * b * t * h * vd + s * b * h * t * t + s * b * t * h * vd,
+                2 * b * h * t * t * (qd + pd + vd), dn)
+            results["B6"][(t, dn)] = r
+            print(f"B6 probs_consume T={t} ({kind}) {dn}: probs err {err_p:.3g}, out rel_err "
+                  f"{rel_o:.3g} (tol {tol:g}), probs equal B1's: {same_as_b1}" + _times(r),
+                  flush=True)
+            if not (r["rel_err"] <= tol and same_as_b1):
+                raise AssertionError(f"B6 disagrees at T={t} {dn}: {r}, equal B1 {same_as_b1}")
+            del probs, out, ref_p, ref_o
+
+            c = 144 if kind == "text" else 384
+            v0 = torch.randn((b, t, c), generator=gen, device="cuda").to(dtype)
+            out = att.rel_attention_head0_consume(q, k, pq, pe, mask, v0)
+            ref = att.rel_attention_head0_consume_plain(q, k, pq, pe, mask, v0)
+            torch.cuda.synchronize()
+            abs_o, rel_o = _errs(out, ref)
+            r = dict(abs_err=abs_o, rel_err=rel_o, tol=tol,
+                     ms=time_ms(lambda: att.rel_attention_head0_consume(q, k, pq, pe, mask, v0)),
+                     plain_ms=time_ms(lambda: att.rel_attention_head0_consume_plain(
+                         q, k, pq, pe, mask, v0)), library_ms=None)
+            # head 0 of q, k, pq, pe is what the function reads
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                s * (2 * b * t * qd + b * t * pd + (2 * t - 1) * pd + 2 * b * t * c) + b * t,
+                2 * b * t * t * (qd + pd + c), dn)
+            results["B7"][(t, c, dn)] = r
+            print(f"B7 head0_consume T={t} C={c} ({kind}) {dn}: rel_err {rel_o:.3g} "
+                  f"(tol {tol:g}), max_abs_err {abs_o:.3g}" + _times(r), flush=True)
+            if not rel_o <= tol:
+                raise AssertionError(f"B7 disagrees at T={t} C={c} {dn}: {rel_o} > {tol}")
+            del q, k, pq, pe, mask, v, v0, out, ref
+
+
+def _scaled_errs(out, ref):
+    """(max |out - ref|, that over max |ref|)."""
+    err = float((out.double() - ref.double()).abs().max())
+    return err, err / float(ref.double().abs().max())
+
+
+def _conv_checks(gen, results):
+    """Phase 3c, B9: the kernel and its f32 plain version against an f64
+    plain version (cuDNN's TF32 off for the plain conv), bf16 against the
+    bf16 plain version."""
+    import torch
+
+    from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out, conv_glu_swoosh_out_plain
+
+    b = 2
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for c, kk, t in CONV_CASES:
+            w = torch.rand((c, 1, kk), generator=gen, device="cuda") * 2 / kk ** 0.5 - 1 / kk ** 0.5
+            bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            w_out = (torch.rand((c, c), generator=gen, device="cuda") * 2 - 1) / c ** 0.5
+            b_out = 0.01 * torch.randn((c,), generator=gen, device="cuda")
+            lens = torch.tensor([t, t - t // 3 - 1], device="cuda")
+            mask = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+            proj32 = torch.randn((b, t, 2 * c), generator=gen, device="cuda")
+            args = (w, bias, mask, w_out, b_out)
+            ref64 = conv_glu_swoosh_out_plain(proj32.double(), *args)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                s = torch.finfo(dtype).bits // 8
+                proj = proj32.to(dtype)
+                out = conv_glu_swoosh_out(proj, *args)
+                plain = conv_glu_swoosh_out_plain(proj, *args)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    # relative to the scale (max |.|) of the f64 output
+                    abs_err, err = _scaled_errs(out, ref64)
+                    plain_err = _scaled_errs(plain, ref64)[1]
+                    tol = 2e-5
+                else:  # one unit in the last place of the bf16 output's scale
+                    abs_err, err = _scaled_errs(out, plain)
+                    plain_err = None
+                    tol = 8e-3
+                r = dict(abs_err=abs_err, rel_err=err, plain_rel_err=plain_err, tol=tol,
+                         ms=time_ms(lambda: conv_glu_swoosh_out(proj, *args)),
+                         plain_ms=time_ms(lambda: conv_glu_swoosh_out_plain(proj, *args)),
+                         library_ms=None)
+                r["bound_ms"], r["bound_by"] = bound_ms(
+                    s * (b * t * 2 * c + c * c + b * t * c) + 4 * (c * kk + 2 * c) + b * t,
+                    2 * b * t * c * (kk + c), dn)
+                results["B9"][(c, kk, t, dn)] = r
+                print(f"B9 conv_glu C={c} K={kk} T={t} {dn}: rel_err {err:.3g}"
+                      + (f" (f32 plain {plain_err:.3g}) against f64" if plain_err is not None
+                         else " against the bf16 plain version")
+                      + f" (tol {tol:g}), max_abs_err {abs_err:.3g}" + _times(r), flush=True)
+                if not (err <= tol and (plain_err is None or plain_err <= tol)):
+                    raise AssertionError(f"B9 disagrees at C={c} K={kk} T={t} {dn}: {r}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _apply_checks(gen, results):
+    """Phase 3c, B5: forward against its plain version; returns the launches
+    of one forward + backward through rel_attention_apply, the op's entry
+    point, and the gradient's worst relative error against plain autograd."""
+    import torch
+
+    from zipvoice_tpu_torch.ops import attention as att
+
+    for b, h, t, vd in APPLY_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            s = torch.finfo(dtype).bits // 8
+            q, k, pq, pe, mask, v, _ = _rel_inputs(gen, b, h, t, vd, dtype)
+            tol = 2e-5 if dtype == torch.float32 else 8e-3
+            for gate in (False, True):
+                out = att.rel_attention_apply(q, k, pq, pe, mask, v, const_gate=gate)
+                ref = att.rel_attention_apply_plain(q, k, pq, pe, mask, v, const_gate=gate)
+                torch.cuda.synchronize()
+                abs_err, err = _errs(out, ref)
+                r = dict(abs_err=abs_err, rel_err=err, tol=tol, ms=None, plain_ms=None,
+                         library_ms=None, bound_ms=None, bound_by=None)
+                if not gate:
+                    r["ms"] = time_ms(lambda: att.rel_attention_apply(q, k, pq, pe, mask, v))
+                    r["plain_ms"] = time_ms(
+                        lambda: att.rel_attention_apply_plain(q, k, pq, pe, mask, v))
+                    bth = b * t * h
+                    r["bound_ms"], r["bound_by"] = bound_ms(
+                        s * (2 * bth * 32 + bth * 4 + (2 * t - 1) * h * 4 + 2 * bth * vd) + b * t,
+                        2 * b * h * t * t * (32 + 4 + vd), dn)
+                results["B5"][(b, h, t, vd, dn, gate)] = r
+                print(f"B5 rel_apply B={b} H={h} T={t} vd={vd} {dn} gate={int(gate)}: rel_err "
+                      f"{err:.3g} (tol {tol:g}), max_abs_err {abs_err:.3g}" + _times(r),
+                      flush=True)
+                if not err <= tol:
+                    raise AssertionError(f"B5 disagrees at B={b} H={h} T={t} vd={vd} {dn} "
+                                         f"gate={gate}: {err} > {tol}")
+            del q, k, pq, pe, mask, v, out, ref
+
+    # the op's path: one forward + backward through rel_attention_apply
+    # (B5, then B3), f32, against plain autograd
+    q, k, pq, pe, mask, v, g = _rel_inputs(gen, 8, 4, 577, 12, torch.float32)
+    xs = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
+    ys = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    (att.rel_attention_apply(*xs[:4], mask, xs[4]) * g).sum().backward()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    (att.rel_attention_apply_plain(*ys[:4], mask, ys[4]) * g).sum().backward()
+    grad_err = max(_errs(x.grad, y.grad)[1] for x, y in zip(xs, ys))
+    print(f"B5 + B3 through rel_attention_apply, B=8 H=4 T=577 f32: gradients' worst rel_err "
+          f"{grad_err:.3g} (tol 1e-4) against plain autograd; launches {launches}", flush=True)
+    if launches["B5"] != 1 or launches["B3"] != 1 or not grad_err <= 1e-4:
+        raise AssertionError(f"rel_attention_apply gradient: {grad_err}, launches {launches}")
+    return launches, grad_err
+
+
+def check_fused_kernels():
+    """Phase 3c: B6, B7, B9 and B5 against their plain versions on the card;
+    returns ({kernel: {case: numbers}}, the op path's launches, the op
+    path's gradient error)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {"B5": {}, "B6": {}, "B7": {}, "B9": {}}
+    _fused_attention_checks(gen, results)
+    _conv_checks(gen, results)
+    launches, grad_err = _apply_checks(gen, results)
+    return results, launches, grad_err
+
+
 def _times(r) -> str:
     if r["ms"] is None:
         return ""
@@ -385,47 +611,75 @@ def expected_samples(text: str, prompt_samples: int) -> int:
     return (int(total) - pf - 1) * 256
 
 
-def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None):
+class _FusedEval:
+    """Within the block: the fused eval path (set_fused_eval,
+    set_fused_conv) on; both flags off again on exit."""
+
+    def __enter__(self):
+        from zipvoice_tpu_torch.nn import zipformer as zf
+
+        zf.set_fused_eval(True)
+        zf.set_fused_conv(True)
+        return self
+
+    def __exit__(self, *exc):
+        from zipvoice_tpu_torch.nn import zipformer as zf
+
+        zf.set_fused_eval(False)
+        zf.set_fused_conv(False)
+        return False
+
+
+def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
+            fused: bool = False):
     """Phase 5 helper: one CLI run over `names` (with the model dir `root`,
-    or `model_dir`); returns its metrics after checking the wavs and the
-    per-request kernel launches."""
+    or `model_dir`; the fused eval path on when `fused`); returns its
+    metrics and launches after checking the wavs and the per-request
+    kernel launches."""
+    import contextlib
+
     import numpy as np
 
     from zipvoice_tpu_torch.audio.wav import read_wav
     from zipvoice_tpu_torch.bin.infer_zipvoice import main as cli_main
-    from zipvoice_tpu_torch.ops import attention as att
 
-    lst = root / f"list_{dtype}.tsv"
+    tag = f"{dtype}_fused" if fused else dtype
+    lst = root / f"list_{tag}.tsv"
     lst.write_text("".join(f"{n}\t{PROMPT_TEXT}\t{root / 'prompt.wav'}\t{TEXTS[n]}\n"
                            for n in names))
-    out_dir = root / f"out_{dtype}"
-    att.rel_attention_probs.launches = 0
-    att.rel_attention_probs_apply.launches = 0
-    metrics = cli_main([
-        "--model-dir", str(model_dir or root), "--vocoder-path", str(root / "vocos.bin"),
-        "--tokenizer", "simple", "--test-list", str(lst), "--res-dir", str(out_dir),
-        "--num-step", str(N_STEP), "--guidance-scale", "1.0", "--dtype", dtype,
-        "--device", "cuda",
-    ])
-    launches = (att.rel_attention_probs.launches, att.rel_attention_probs_apply.launches)
-    want = (B1_PER_REQUEST * len(names), B2_PER_REQUEST * len(names))
+    out_dir = root / f"out_{tag}"
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    with _FusedEval() if fused else contextlib.nullcontext():
+        metrics = cli_main([
+            "--model-dir", str(model_dir or root), "--vocoder-path", str(root / "vocos.bin"),
+            "--tokenizer", "simple", "--test-list", str(lst), "--res-dir", str(out_dir),
+            "--num-step", str(N_STEP), "--guidance-scale", "1.0", "--dtype", dtype,
+            "--device", "cuda",
+        ])
+    launches = {k: c.launches for k, c in counters.items()}
+    per_request = FUSED_PER_REQUEST if fused else UNFUSED_PER_REQUEST
+    want = {k: per_request.get(k, 0) * len(names) for k in counters}
     if launches != want:
-        raise AssertionError(f"{dtype}: kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected {want}")
     for n, m in zip(names, metrics):
         wav, sr = read_wav(out_dir / f"{n}.wav")
         exp = expected_samples(TEXTS[n], 3 * 24000)
         if sr != 24000 or wav.shape != (1, exp) or not np.isfinite(wav).all():
             raise AssertionError(f"{n} {dtype}: wav {wav.shape} sr {sr}, want (1, {exp})")
-        print(f"request {n} {dtype}: {m['wav_seconds']:.2f} s audio, "
+        print(f"request {n} {tag}: {m['wav_seconds']:.2f} s audio, "
               f"rtf {m['rtf']:.4f} (model {m['rtf_no_vocoder']:.4f}, vocoder "
               f"{m['rtf_vocoder']:.4f}) on {card}", flush=True)
     return metrics, launches
 
 
-def check_forward_against_cpu(root: Path):
+def check_forward_against_cpu(root: Path, fused: bool = False):
     """Phase 6: one full-width fm_decoder velocity on the card (kernels) and
-    on the CPU (plain versions), same weights and inputs, T=256 with a
-    padded tail."""
+    on the CPU (plain versions, unfused), same weights and inputs, T=256
+    with a padded tail; 6b (`fused`): the card runs the fused eval path."""
+    import contextlib
+
     import torch
 
     from zipvoice_tpu_torch.io.model_dir import load_model_dir
@@ -439,14 +693,16 @@ def check_forward_against_cpu(root: Path):
     with torch.no_grad():
         ref = forward_fm_decoder(model, 0.3, xt, tc, sc, mask)
         model = model.cuda()
-        out = forward_fm_decoder(model, 0.3, xt.cuda(), tc.cuda(), sc.cuda(),
-                                 mask.cuda()).cpu()
+        with _FusedEval() if fused else contextlib.nullcontext():
+            out = forward_fm_decoder(model, 0.3, xt.cuda(), tc.cuda(), sc.cuda(),
+                                     mask.cuda()).cpu()
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
-    print(f"fm_decoder forward, card vs CPU: max_abs_err {err:.3g} "
+    kind = "fused card vs unfused CPU" if fused else "card vs CPU"
+    print(f"fm_decoder forward, {kind}: max_abs_err {err:.3g} "
           f"(|ref| max {scale:.3g}, tol {1e-3 * scale:.3g})", flush=True)
     if not err <= 1e-3 * scale:
-        raise AssertionError(f"fm_decoder card vs CPU: {err}")
+        raise AssertionError(f"fm_decoder {kind}: {err}")
     return err
 
 
@@ -581,9 +837,13 @@ def _counters():
     from zipvoice_tpu_torch.ops import attention as att
     from zipvoice_tpu_torch.ops import melspec
 
+    from zipvoice_tpu_torch.ops import convglu
+
     return {"B1": att.rel_attention_probs, "B2": att.rel_attention_probs_apply,
             "B3": att.rel_attention_consume_bwd, "B4": att.rel_attention_ds,
-            "B8": melspec.fused_log_mel}
+            "B5": att.rel_attention_apply, "B6": att.rel_attention_probs_consume,
+            "B7": att.rel_attention_head0_consume, "B8": melspec.fused_log_mel,
+            "B9": convglu.conv_glu_swoosh_out}
 
 
 def run_training(root: Path, manifest: Path, card: str, regularizers: bool, steps: int):
@@ -613,7 +873,7 @@ def run_training(root: Path, manifest: Path, card: str, regularizers: bool, step
     launches = {k: c.launches for k, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n = len(res["steps"])
-    want = {k: v * n for k, v in PER_STEP.items()}
+    want = {k: PER_STEP.get(k, 0) * n for k in counters}
     if regularizers:
         want["B4"] = 0
     else:
@@ -713,29 +973,70 @@ def check_checkpoint_serves(root: Path, exp: Path, card: str):
     return metrics
 
 
-def profile_request(root: Path, card: str):
-    """Optional phase (--profile): one warm f32 ~8 s request under
-    torch.profiler; prints the device busy share and the kernels that take
-    the most device time, and writes the trace under chiprun_out/."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def _r8s_pipeline(root: Path, dtype: str):
+    """The CLI's pipeline for the model dir and the ~8 s request's kwargs."""
     from zipvoice_tpu_torch.audio.wav import read_wav
     from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline, get_parser
 
     args = get_parser().parse_args([
         "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
-        "--tokenizer", "simple", "--device", "cuda"])
+        "--tokenizer", "simple", "--dtype", dtype, "--device", "cuda"])
     pipeline, _, _ = build_pipeline(args)
     prompt, sr = read_wav(root / "prompt.wav")
     kw = dict(text=TEXTS["r8s"], prompt_text=PROMPT_TEXT, prompt_wav=prompt,
               prompt_sr=sr, num_step=N_STEP, guidance_scale=1.0)
-    pipeline.synthesize(**kw)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        res = pipeline.synthesize(**kw)
-        wall = time.monotonic() - t0
+    return pipeline, kw
+
+
+def compare_fused_rtf(root: Path, card: str):
+    """Phase 5b: warm RTF of the ~8 s request with the fused eval path off
+    and on, f32 and bf16: one warm request of each, then 8 in turns (off,
+    on, on, off, twice); returns {dtype: {"unfused"|"fused": median}}."""
+    import contextlib
+
+    import numpy as np
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pipeline, kw = _r8s_pipeline(root, dtype)
+
+        def rtf(fused):
+            with _FusedEval() if fused else contextlib.nullcontext():
+                return pipeline.synthesize(**kw).metrics["rtf"]
+
+        rtf(False)
+        rtf(True)
+        runs = {False: [], True: []}
+        for fused in (False, True, True, False) * 2:
+            runs[fused].append(rtf(fused))
+        out[dtype] = {"unfused": float(np.median(runs[False])),
+                      "fused": float(np.median(runs[True]))}
+        print(f"rtf r8s {dtype}: unfused {out[dtype]['unfused']:.5f} "
+              f"{[round(x, 5) for x in runs[False]]}, fused {out[dtype]['fused']:.5f} "
+              f"{[round(x, 5) for x in runs[True]]} (medians of 4 warm requests in turns) "
+              f"on {card}", flush=True)
+        del pipeline
+    return out
+
+
+def profile_request(root: Path, card: str, fused: bool = False):
+    """Optional phase (--profile): one warm f32 ~8 s request (the fused
+    eval path on when `fused`) under torch.profiler; prints the device busy
+    share and the kernels that take the most device time, and writes the
+    trace to the output directory if present."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pipeline, kw = _r8s_pipeline(root, "float32")
+    with _FusedEval() if fused else contextlib.nullcontext():
+        pipeline.synthesize(**kw)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            res = pipeline.synthesize(**kw)
+            wall = time.monotonic() - t0
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
@@ -747,13 +1048,14 @@ def profile_request(root: Path, card: str):
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e6
-    print(f"profile r8s f32: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+    tag = "r8s_f32_fused" if fused else "r8s_f32"
+    print(f"profile {tag}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
           f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f} on {card}")
     for e in events[:15]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     out = REPO / "chiprun_out"
     if out.is_dir():
-        prof.export_chrome_trace(str(out / "trace_r8s_f32.json"))
+        prof.export_chrome_trace(str(out / f"trace_{tag}.json"))
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -799,6 +1101,8 @@ def main() -> int:
 
     results = check_kernels()
     results.update(check_training_kernels())
+    fused_results, apply_launches, apply_grad_err = check_fused_kernels()
+    results.update(fused_results)
 
     build.BUILD.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="smoke-", dir=build.BUILD))
@@ -809,9 +1113,16 @@ def main() -> int:
               f"{time.monotonic() - t0:.1f} s", flush=True)
         metrics, serve_launches = run_cli(root, list(TEXTS), "float32", card)
         run_cli(root, ["r8s"], "bfloat16", card)
+        fused_metrics, fused_launches = run_cli(root, list(TEXTS), "float32", card,
+                                                fused=True)
+        run_cli(root, ["r8s"], "bfloat16", card, fused=True)
+        run_cli(root, ["r4s"], "float32", card)  # the flags reset: the unfused pins again
+        rtf_ab = compare_fused_rtf(root, card)
         fwd_err = check_forward_against_cpu(root)
+        fused_fwd_err = check_forward_against_cpu(root, fused=True)
         if "--profile" in sys.argv[1:]:
             profile_request(root, card)
+            profile_request(root, card, fused=True)
         grad_err = check_gradient_against_cpu(root)
         manifest = make_corpus(root)
         reg_step, reg_launches, reg_ms, reg_gib, exp, res = run_training(
@@ -824,17 +1135,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    n_req = len(TEXTS)
     kernels = [
         _kernel_entry(results, "B1", "rel_attention_probs", "zipvoice_tpu_torch/csrc/rel_probs.cu",
-                      "zipvoice_tpu/ops/attention.py:979", serve_launches[0],
+                      "zipvoice_tpu/ops/attention.py:979", serve_launches["B1"],
                       (1024, "float32"), "B=2 H=4 T=1024 f32",
-                      launches_per_request=serve_launches[0] // len(TEXTS),
+                      launches_per_request=serve_launches["B1"] // n_req,
                       launches_per_train_step=reg_step["B1"]),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
-                      "zipvoice_tpu/ops/attention.py:1110", serve_launches[1],
+                      "zipvoice_tpu/ops/attention.py:1110", serve_launches["B2"],
                       (1024, "float32"), "B=2 H=4 T=1024 f32",
-                      launches_per_request=serve_launches[1] // len(TEXTS),
+                      launches_per_request=serve_launches["B2"] // n_req,
+                      launches_per_fused_request=fused_launches["B2"] // n_req,
                       launches_per_train_step=reg_step["B2"]),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
@@ -845,14 +1158,40 @@ def main() -> int:
                       "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
                       ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 f32",
                       launches_per_train_step=noreg_step["B4"]),
+        _kernel_entry(results, "B5", "rel_attention_apply",
+                      "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
+                      "zipvoice_tpu/ops/attention.py:643", apply_launches["B5"],
+                      (8, 4, 1024, 12, "float32", False), "B=8 H=4 T=1024 vd=12 f32",
+                      launches_per_call=apply_launches["B5"],
+                      grad_max_rel_err=apply_grad_err),
+        _kernel_entry(results, "B6", "rel_attention_probs_consume",
+                      "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
+                      "zipvoice_tpu/ops/attention.py:1224", fused_launches["B6"],
+                      (1024, "float32"), "B=2 H=4 T=1024 vd=12 f32",
+                      launches_per_fused_request=fused_launches["B6"] // n_req),
+        _kernel_entry(results, "B7", "rel_attention_head0_consume",
+                      "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
+                      "zipvoice_tpu/ops/attention.py:1297", fused_launches["B7"],
+                      (1024, 384, "float32"), "B=2 T=1024 C=384 f32",
+                      launches_per_fused_request=fused_launches["B7"] // n_req),
         _kernel_entry(results, "B8", "fused_log_mel", "zipvoice_tpu_torch/csrc/log_mel.cu",
                       "zipvoice_tpu/ops/melspec.py:122", reg_launches["B8"],
                       next(k for k in results["B8"] if k[0] == 10), "B=8 10 s (938 frames)",
                       launches_per_train_step=reg_step["B8"]),
+        _kernel_entry(results, "B9", "conv_glu_swoosh_out", "zipvoice_tpu_torch/csrc/conv_glu.cu",
+                      "zipvoice_tpu/ops/convglu.py:143", fused_launches["B9"],
+                      (512, 31, 1024, "float32"), "B=2 T=1024 C=D=512 K=31 f32",
+                      launches_per_fused_request=fused_launches["B9"] // n_req),
     ]
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels not launched on their paths: {missing}")
     rtf = [round(m["rtf"], 5) for m in metrics]
+    fused_rtf = [round(m["rtf"], 5) for m in fused_metrics]
     worst_grad = max(max(v.values()) for v in grad_err.values())
-    print(f"f32 rtf per request {rtf}; fm_decoder card-vs-cpu err {fwd_err:.3g}; "
+    print(f"f32 rtf per request {rtf} (fused {fused_rtf}); r8s warm rtf unfused/fused: "
+          + ", ".join(f"{d} {v['unfused']:.5f}/{v['fused']:.5f}" for d, v in rtf_ab.items())
+          + f"; fm_decoder card-vs-cpu err {fwd_err:.3g} (fused {fused_fwd_err:.3g}); "
           f"gradient card-vs-cpu worst relative L2 {worst_grad:.3g}; train step "
           f"{reg_ms:.1f} ms (regularizers) / {noreg_ms:.1f} ms (no regularizers), "
           f"busy {100 * busy / wall:.1f}%, peak {max(reg_gib, noreg_gib):.2f} GiB; "

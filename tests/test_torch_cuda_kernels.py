@@ -1,5 +1,5 @@
-"""The CUDA kernels of zipvoice_tpu_torch.ops (B1-B4, B8) against their
-plain versions on the card.  Marked ``cuda``: without a CUDA card every test
+"""The CUDA kernels of zipvoice_tpu_torch.ops (B1-B9) against their plain
+versions on the card.  Marked ``cuda``: without a CUDA card every test
 skips.  On a machine with one (and nvcc), run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -134,3 +134,120 @@ def test_log_mel_kernel_matches_plain(gen, seconds):
     torch.cuda.synchronize()
     assert fused_log_mel.launches == n + 1
     assert out.shape == ref.shape and float((out - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("t", [1, 40, 577, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probs_consume_kernel_matches_plain(gen, t, dtype):
+    """B6: its probabilities are B1's bit for bit; the contraction of the
+    rounded probabilities within the tolerance of its scale."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype)
+    v = torch.randn((2, t, 4, 12), generator=gen, device="cuda").to(dtype)
+    n = att.rel_attention_probs_consume.launches
+    probs, out = att.rel_attention_probs_consume(q, k, pq, pe, mask, v)
+    ref_p, ref_o = att.rel_attention_probs_consume_plain(q, k, pq, pe, mask, v)
+    torch.cuda.synchronize()
+    assert att.rel_attention_probs_consume.launches == n + 1
+    assert torch.equal(probs, att.rel_attention_probs(q, k, pq, pe, mask))
+    assert float((probs.float() - ref_p.float()).abs().max()) <= TOL[dtype]
+    assert out.dtype == dtype and _rel(out, ref_o) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("t,c", [(1, 384), (40, 144), (577, 384), (1024, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head0_consume_kernel_matches_plain(gen, t, c, dtype):
+    """B7 at the NonlinAttention widths (fm_decoder 384, text encoder 144)."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype)
+    v = torch.randn((2, t, c), generator=gen, device="cuda").to(dtype)
+    n = att.rel_attention_head0_consume.launches
+    out = att.rel_attention_head0_consume(q, k, pq, pe, mask, v)
+    ref = att.rel_attention_head0_consume_plain(q, k, pq, pe, mask, v)
+    torch.cuda.synchronize()
+    assert att.rel_attention_head0_consume.launches == n + 1
+    assert out.shape == (2, t, c) and _rel(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("t,h,vd", [(1, 4, 12), (40, 4, 12), (577, 4, 12), (300, 1, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [False, True])
+def test_rel_apply_kernel_matches_plain(gen, t, h, vd, dtype, gate):
+    """B5 forward against its plain version, and (f32) its gradients, B3's,
+    against plain autograd: within 1e-4 of each gradient's scale."""
+    q, k, pq, pe, mask, v, g = _train_inputs(gen, t, dtype, h, vd)
+    n = att.rel_attention_apply.launches
+    out = att.rel_attention_apply(q, k, pq, pe, mask, v, out_dtype=torch.float32,
+                                  const_gate=gate)
+    ref = att.rel_attention_apply_plain(q, k, pq, pe, mask, v, torch.float32, gate)
+    torch.cuda.synchronize()
+    assert att.rel_attention_apply.launches == n + 1
+    assert out.dtype == torch.float32 and _rel(out, ref) <= TOL[dtype]
+    if dtype != torch.float32:
+        return
+    xs = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
+    ys = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
+    (att.rel_attention_apply(*xs[:4], mask, xs[4], const_gate=gate) * g).sum().backward()
+    (att.rel_attention_apply_plain(*ys[:4], mask, ys[4], const_gate=gate) * g).sum().backward()
+    for x, y in zip(xs, ys):  # the plain const branch leaves q, k, pq, pe without a grad
+        assert _rel(x.grad, torch.zeros_like(y) if y.grad is None else y.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("c,kernel,t", [(512, 31, 1024), (512, 15, 512), (512, 7, 288),
+                                        (192, 9, 40), (512, 31, 1)])
+@pytest.mark.parametrize("out_bias", [True, False])
+def test_conv_glu_kernel_matches_f64(gen, c, kernel, t, out_bias):
+    """B9 and its f32 plain version both within 2e-5 of an f64 plain version
+    (relative to its scale); bf16 within one unit in the last place of the
+    bf16 plain version."""
+    from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out, conv_glu_swoosh_out_plain
+
+    proj = torch.randn((2, t, 2 * c), generator=gen, device="cuda")
+    w = 0.2 * torch.randn((c, 1, kernel), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    w_out = 0.05 * torch.randn((c, c), generator=gen, device="cuda")
+    b_out = 0.1 * torch.randn((c,), generator=gen, device="cuda") if out_bias else None
+    mask = torch.arange(t, device="cuda")[None, :] >= torch.tensor(
+        [t, t - t // 3 - 1], device="cuda")[:, None]
+    args = (w, b, mask, w_out, b_out)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = conv_glu_swoosh_out_plain(proj.double(), *args)
+        plain = conv_glu_swoosh_out_plain(proj, *args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    n = conv_glu_swoosh_out.launches
+    out = conv_glu_swoosh_out(proj, *args)
+    out16 = conv_glu_swoosh_out(proj.bfloat16(), *args)
+    ref16 = conv_glu_swoosh_out_plain(proj.bfloat16(), *args)
+    torch.cuda.synchronize()
+    assert conv_glu_swoosh_out.launches == n + 2
+    assert out.shape == (2, t, c) and out16.dtype == torch.bfloat16
+    assert _rel(out, ref) <= 2e-5 and _rel(plain, ref) <= 2e-5
+    assert _rel(out16, ref16) <= TOL[torch.bfloat16]
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(gen):
+    from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
+
+    q, k, pq, pe, mask = _inputs(gen, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        att.rel_attention_probs_consume(q, k, pq, pe, mask, torch.zeros((2, 16, 4, 10),
+                                                                        device="cuda"))
+    with pytest.raises(ValueError, match="not supported"):
+        h = lambda x: x.half()  # noqa: E731
+        att.rel_attention_head0_consume(h(q), h(k), h(pq), h(pe), mask,
+                                        torch.zeros((2, 16, 384), device="cuda").half())
+    with pytest.raises(RuntimeError, match="launch failed"):  # qd = 12 is not built
+        att.rel_attention_apply(q[..., :12], k[..., :12], pq, pe, mask,
+                                torch.zeros((2, 16, 4, 12), device="cuda"))
+    with pytest.raises(ValueError, match="CUDA"):
+        att.rel_attention_apply(q, k.cpu(), pq, pe, mask,
+                                torch.zeros((2, 16, 4, 12), device="cuda"))
+    proj = torch.zeros((2, 16, 12), device="cuda")
+    w, b = torch.zeros((6, 1, 3), device="cuda"), torch.zeros((6,), device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):  # C = 6 is not a multiple of 4
+        conv_glu_swoosh_out(proj, w, b, mask, torch.zeros((6, 6), device="cuda"))
+    with pytest.raises(ValueError):
+        conv_glu_swoosh_out(proj.half(), w, b, mask, torch.zeros((6, 6), device="cuda"))
+    with pytest.raises(ValueError):
+        conv_glu_swoosh_out(proj, w.cpu(), b, mask, torch.zeros((6, 6), device="cuda"))

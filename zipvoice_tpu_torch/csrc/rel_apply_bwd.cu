@@ -8,7 +8,7 @@
 //   used = const_gate ? (p > 0) / count(p > 0) : p       (per row)
 //   dv   = used^T g
 //   ds   = const_gate ? 0 : p * (dP - D),  dP = g v^T, D_i = sum_j p_ij dP_ij
-//   ds  += pen * sign(s) * (|s| > limit)                  (pre-mask s, every key)
+//   ds  += pen * sign(s) * (|s| > limit)                  (pre-mask s, keys j < valid_cols)
 //   dq = ds k,  dk = ds^T q,  dpq_i = sum_j ds_ij pe[j-i+T-1],
 //   dpe[n] = sum_{b, i} ds_{i, n+i-T+1} pq_i              (summed over batch)
 //
@@ -92,7 +92,7 @@ bwd_rows_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                 const uint8_t* __restrict__ mask, const Tin* __restrict__ v,
                 const Tin* __restrict__ g, float* __restrict__ stats,
                 float* __restrict__ dq, float* __restrict__ dpq, int T, int H, int VD,
-                int rows, int const_gate, float pen, float limit) {
+                int rows, int const_gate, int valid_cols, float pen, float limit) {
   extern __shared__ float4 smem4[];
   const int VD4 = (int)round4(VD);
   float* qs = reinterpret_cast<float*>(smem4);
@@ -203,7 +203,7 @@ bwd_rows_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
       const float p = expf(s + mask_bias(mask, b, T, j) - rmx[r]) * rinv[r];
       d = p * (DP[idx] - rD[r]);
     }
-    S[idx] = d + penalty_term(s, pen, limit);
+    S[idx] = j < valid_cols ? d + penalty_term(s, pen, limit) : d;
   }
   for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
     const size_t o = (size_t)bh * T + i0 + r;
@@ -291,7 +291,8 @@ bwd_cols_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                 const uint8_t* __restrict__ mask, const Tin* __restrict__ v,
                 const Tin* __restrict__ g, const float* __restrict__ stats,
                 float* __restrict__ dk, float* __restrict__ dpe, float* __restrict__ dv,
-                int T, int H, int VD, int C, int const_gate, float pen, float limit) {
+                int T, int H, int VD, int C, int const_gate, int valid_cols, float pen,
+                float limit) {
   extern __shared__ float4 smem4[];
   constexpr int KS = QD / 4 % 2 == 0 ? QD + 4 : QD;
   const int VD4 = (int)round4(VD);
@@ -421,7 +422,7 @@ bwd_cols_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
           used = p;
           d = p * ((dp.x + dp.y) + (dp.z + dp.w) - rst[2 * kRowTile + r]);
         }
-        d += penalty_term(s, pen, limit);
+        if (j0 + c < valid_cols) d += penalty_term(s, pen, limit);
       }
       P[e] = used;
       DS[e] = d;
@@ -489,7 +490,7 @@ template <int QD, typename Tin>
 int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
                  const void* mask, const void* v, const void* g, float* stats, float* dq,
                  float* dk, float* dpq, float* dpe, float* dv, int B, int T, int H, int VD,
-                 int const_gate, float pen, float limit, cudaStream_t stream) {
+                 int const_gate, int valid_cols, float pen, float limit, cudaStream_t stream) {
   const int max_smem = max_optin_smem();
   const int rows =
       fit_rows(kMaxRows, max_smem, [&](int r) { return rows_smem_floats(T, r, QD, VD); });
@@ -511,11 +512,13 @@ int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
   const Tin* gi = static_cast<const Tin*>(g);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   kern_rows<<<dim3((T + rows - 1) / rows, B * H), kThreads, smem_rows, stream>>>(
-      qi, kti, pqi, pei, m, vi, gi, stats, dq, dpq, T, H, VD, rows, const_gate, pen, limit);
+      qi, kti, pqi, pei, m, vi, gi, stats, dq, dpq, T, H, VD, rows, const_gate, valid_cols, pen,
+      limit);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   kern_cols<<<dim3((T + cols - 1) / cols, B * H), kThreads, smem_cols, stream>>>(
-      qi, kti, pqi, pei, m, vi, gi, stats, dk, dpe, dv, T, H, VD, cols, const_gate, pen, limit);
+      qi, kti, pqi, pei, m, vi, gi, stats, dk, dpe, dv, T, H, VD, cols, const_gate, valid_cols,
+      pen, limit);
   return (int)cudaGetLastError();
 }
 
@@ -524,13 +527,14 @@ int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
 // Plain C entry point (loaded through ctypes).  Returns a cudaError_t code:
 // 0 on a clean launch; cudaErrorInvalidValue for a shape the kernel does not
 // take (QD not instantiated, PD != 4, T or VD too large for shared memory).
-// dpe must be zeroed by the caller (the batch sum is accumulated in it).
+// dpe must be zeroed by the caller (the batch sum is accumulated in it).  The
+// penalty acts on key columns j < valid_cols only.
 extern "C" int zv_rel_apply_bwd(const void* q, const void* kt, const void* pq,
                                 const void* pe, const void* mask, const void* v,
                                 const void* g, void* stats, void* dq, void* dk, void* dpq,
                                 void* dpe, void* dv, int B, int T, int H, int QD, int PD,
-                                int VD, int bf16, int const_gate, float pen, float limit,
-                                void* stream) {
+                                int VD, int bf16, int const_gate, int valid_cols, float pen,
+                                float limit, void* stream) {
   if (PD != kPD || B <= 0 || T <= 0 || H <= 0 || VD <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *st = static_cast<float*>(stats), *fq = static_cast<float*>(dq),
@@ -538,10 +542,10 @@ extern "C" int zv_rel_apply_bwd(const void* q, const void* kt, const void* pq,
         *fpe = static_cast<float*>(dpe), *fv = static_cast<float*>(dv);
 #define ZV_LAUNCH(QDV)                                                                     \
   return bf16 ? launch_typed<QDV, __nv_bfloat16>(q, kt, pq, pe, mask, v, g, st, fq, fk, fpq, \
-                                                 fpe, fv, B, T, H, VD, const_gate, pen,     \
-                                                 limit, s)                                  \
+                                                 fpe, fv, B, T, H, VD, const_gate,          \
+                                                 valid_cols, pen, limit, s)                 \
               : launch_typed<QDV, float>(q, kt, pq, pe, mask, v, g, st, fq, fk, fpq, fpe,   \
-                                         fv, B, T, H, VD, const_gate, pen, limit, s)
+                                         fv, B, T, H, VD, const_gate, valid_cols, pen, limit, s)
   switch (QD) {
     case 8: ZV_LAUNCH(8);
     case 16: ZV_LAUNCH(16);

@@ -1,5 +1,7 @@
 // Shared device code of the relative-position attention kernels B1
-// (rel_probs.cu), B3 (rel_apply_bwd.cu) and B4 (rel_ds.cu): the score of
+// (rel_probs.cu), B3 (rel_apply_bwd.cu), B4 (rel_ds.cu) and B5-B7
+// (rel_consume_fwd.cu); B9 (conv_glu.cu) takes its type and copy helpers.
+// The score of
 // query row i against key j is
 //
 //   s[i,j] = q_i . k_j + pq_i . pe[j - i + T - 1]
@@ -29,6 +31,16 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Four consecutive values as f32; p is 16-byte (f32) or 8-byte (bf16) aligned.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(p2[0]), b = __bfloat1622float2(p2[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -14,6 +14,15 @@ one per block of the reference architecture:
   ``_encoder_stack`` (a Python loop over layers), ``_downsample`` /
   ``_upsample`` and ``tts_zipformer_forward``.
 
+The fused eval path (``set_fused_eval``, ``set_fused_conv``; both off by
+default, as in the JAX package) serves each layer without gradient through
+three more kernels: NonlinAttention recomputes head 0's probabilities
+inside its contraction (B7), SelfAttention-1 computes the probabilities
+with its own contraction fused (B6) and hands them to SelfAttention-2
+(B2), and both ConvolutionModules run their gate, conv, SwooshR and
+out-projection as one kernel (B9).  Under autograd the flags have no
+effect: those kernels have no backward.
+
 Training passes a ``TrainCtx``: the regularizers (balancers, whitening,
 dropout, layerdrop, module skips, const attention, the score failsafe) are
 live, and the attention takes the shared-probabilities path: B1 once per
@@ -50,9 +59,12 @@ from zipvoice_tpu_torch.nn.functional import (
 )
 from zipvoice_tpu_torch.ops.attention import (
     rel_attention_consume,
+    rel_attention_head0_consume,
     rel_attention_probs,
     rel_attention_probs_apply,
+    rel_attention_probs_consume,
 )
+from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
 
 # Rematerialize each layer of a multi-layer stack under autograd (the JAX
 # package's default "full" policy: nothing but the layer input is saved).
@@ -62,6 +74,30 @@ _REMAT = True
 def set_remat(enabled: bool) -> None:
     global _REMAT
     _REMAT = bool(enabled)
+
+
+# The fused eval path (module docstring).  Off by default, as in the JAX
+# package, whose default rests on a TPU measurement; on this card the
+# trade-off is measured by chip_smoke.py.
+_FUSED_EVAL = False
+_FUSED_CONV = False
+
+
+def set_fused_eval(enabled: bool) -> None:
+    """Defer the attention probabilities of each eval layer to
+    SelfAttention-1 (B6) and recompute head 0 in NonlinAttention (B7)."""
+    global _FUSED_EVAL
+    _FUSED_EVAL = bool(enabled)
+
+
+def set_fused_conv(enabled: bool) -> None:
+    """Run each eval ConvolutionModule after its in_proj as one kernel (B9)."""
+    global _FUSED_CONV
+    _FUSED_CONV = bool(enabled)
+
+
+def _fused(flag: bool, ctx) -> bool:
+    return flag and ctx is None and not torch.is_grad_enabled()
 
 # ---------------------------------------------------------------------------
 # Modules (parameter containers under the published names)
@@ -304,6 +340,18 @@ def _attention_weights(m: AttentionWeights, cfg: ZipformerConfig,
     return rel_attention_probs(q, k, pq, pe, key_padding_mask, out_dtype=x.dtype)
 
 
+class _EvalAttn:
+    """Fused eval attention bundle: the shared projections, probabilities
+    not yet computed.  NonlinAttention contracts head 0 by recompute (B7);
+    SelfAttention-1 computes the probabilities with its contraction (B6)
+    and hands them to SelfAttention-2."""
+
+    __slots__ = ("q", "k", "pq", "pe", "mask")
+
+    def __init__(self, q, k, pq, pe, mask):
+        self.q, self.k, self.pq, self.pe, self.mask = q, k, pq, pe, mask
+
+
 class _SharedAttn:
     """Training attention bundle: the shared projections plus the layer's
     probabilities (computed once by B1, no gradient).  Each consumer
@@ -318,11 +366,16 @@ class _SharedAttn:
 
 
 def _self_attention(m: _InOut, cfg: ZipformerConfig, x: torch.Tensor, attn,
-                    ctx: Optional[TrainCtx] = None, use_pen: bool = False) -> torch.Tensor:
-    """attn: (B, H, T, T) probabilities, or a _SharedAttn (training)."""
+                    ctx: Optional[TrainCtx] = None, use_pen: bool = False):
+    """attn: (B, H, T, T) probabilities, a _SharedAttn (training) or an
+    _EvalAttn (fused eval: returns (out, probabilities))."""
     b, t, _ = x.shape
     h = cfg.num_heads
     v = _lin(m.in_proj, x).reshape(b, t, h, cfg.value_head_dim)
+    if isinstance(attn, _EvalAttn):
+        probs, o = rel_attention_probs_consume(attn.q, attn.k, attn.pq, attn.pe, attn.mask,
+                                               v, out_dtype=x.dtype)
+        return _lin(m.out_proj, o.reshape(b, t, h * cfg.value_head_dim)), probs
     if isinstance(attn, _SharedAttn):
         o = rel_attention_consume(attn.q, attn.k, attn.pq, attn.pe, attn.mask, attn.probs,
                                   v, score_penalty=attn.pen if use_pen else 0.0)
@@ -334,9 +387,9 @@ def _self_attention(m: _InOut, cfg: ZipformerConfig, x: torch.Tensor, attn,
 
 def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
                       ctx: Optional[TrainCtx] = None, const_gate: bool = False) -> torch.Tensor:
-    """NonlinAttention; head0: (B, T, T) head-0 probabilities, or a
+    """NonlinAttention; head0: (B, T, T) head-0 probabilities, a
     _SharedAttn whose head 0 is contracted (with the const-attention branch
-    when const_gate)."""
+    when const_gate), or an _EvalAttn whose head 0 is recomputed (B7)."""
     s, v, y = _lin(m.in_proj, x).chunk(3, dim=-1)
     if ctx is not None:
         s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
@@ -345,7 +398,10 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
                             min_abs=0.5, max_abs=5.0)
     v = _maybe_whiten(ctx, v, "whiten_5", 0.01)
     v = v * torch.tanh(s)
-    if isinstance(head0, _SharedAttn):
+    if isinstance(head0, _EvalAttn):
+        a = head0
+        v = rel_attention_head0_consume(a.q, a.k, a.pq, a.pe, a.mask, v)
+    elif isinstance(head0, _SharedAttn):
         a = head0
         probs0 = a.probs[:, :1]
         if const_gate:
@@ -364,8 +420,14 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
                  key_padding_mask: Optional[torch.Tensor],
                  ctx: Optional[TrainCtx] = None) -> torch.Tensor:
     """GLU gate -> key mask -> depthwise conv over time (SAME) -> SwooshR
-    -> out linear."""
-    v, s = _lin(m.in_proj, x).chunk(2, dim=-1)
+    -> out linear; with the fused conv path, everything after in_proj is
+    one kernel (B9)."""
+    proj = _lin(m.in_proj, x)
+    if _fused(_FUSED_CONV, ctx):
+        conv = m.depthwise_conv
+        return conv_glu_swoosh_out(proj, conv.weight, conv.bias, key_padding_mask,
+                                   m.out_proj.weight, m.out_proj.bias)
+    v, s = proj.chunk(2, dim=-1)
     if ctx is not None:
         s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
                             min_positive=ctx.s["conv_balancer1_min_pos"], max_positive=1.0,
@@ -425,6 +487,9 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         with torch.no_grad():
             probs = rel_attention_probs(q, k, pq, pe, key_padding_mask, out_dtype=src.dtype)
         attn = _SharedAttn(q, k, pq, pe, key_padding_mask, pen, probs)
+    elif _fused(_FUSED_EVAL, ctx):
+        q, k, pq, pe, _ = _attention_projections(m.self_attn_weights, cfg, src, pos_emb)
+        attn = _EvalAttn(q, k, pq, pe, key_padding_mask)
     else:
         attn = _attention_weights(m.self_attn_weights, cfg, src, pos_emb, key_padding_mask)
     te = None if time_emb is None else time_emb[:, None, :].to(src.dtype)
@@ -441,12 +506,15 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         na = _nonlin_attention(m.nonlin_attention, src, attn, ctx,
                                ctx.gate(ctx.s["const_attention_rate"]))
     else:
-        na = _nonlin_attention(m.nonlin_attention, src, attn[:, 0])
+        na = _nonlin_attention(m.nonlin_attention, src,
+                               attn if isinstance(attn, _EvalAttn) else attn[:, 0])
     na = _maybe_balancer(ctx, na, 0.05, min_positive=0.3, max_positive=0.7,
                          min_abs=ctx.s["balancer_na_min_abs"] if ctx else 0.0,
                          max_abs=100.0)
     src = src + (na if attn_keep is None else na * attn_keep)
     sa = _self_attention(m.self_attn1, cfg, src, attn, ctx, use_pen=True)
+    if isinstance(attn, _EvalAttn):
+        sa, attn = sa  # SelfAttention-2 contracts the probabilities B6 wrote
     src = src + (sa if attn_keep is None else sa * attn_keep)
     if cfg.use_conv:
         if te is not None:

@@ -1,6 +1,6 @@
 """Relative-position attention kernels (CUDA, Hopper) and their plain versions.
 
-Four kernels carry the Zipformer attention:
+Seven kernels carry the Zipformer attention:
 
 * ``rel_attention_probs`` (B1, ``csrc/rel_probs.cu``): softmax over keys of
   q.k + pq.pe[j - i + T - 1] + key-padding bias, (B, H, T, T).  It is
@@ -15,6 +15,15 @@ Four kernels carry the Zipformer attention:
   backward of ``rel_attention_consume``, which contracts a layer's shared
   stop-gradient probabilities with one consumer's values in the forward
   and recomputes them in the backward to emit dq, dk, dpq, dpe, dv.
+* ``rel_attention_probs_consume`` (B6, ``csrc/rel_consume_fwd.cu``): B1
+  with a fused epilogue, (probs, rounded probs @ v); the fused eval path's
+  SelfAttention-1, which hands the probabilities to SelfAttention-2.
+* ``rel_attention_head0_consume`` (B7, same source): head 0's
+  probabilities, recomputed and never written, @ the wide NonlinAttention
+  value stream (B, T, C); the fused eval path's NonlinAttention.
+* ``rel_attention_apply`` (B5, same source): softmax(scores) @ v with the
+  const-attention gate, differentiable through B3.  No model path calls
+  it; it is the op the JAX package exposes as ``rel_attention_apply``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version beside it only for CPU tensors.  ``launches`` on each
@@ -99,8 +108,18 @@ def rel_attention_probs_apply_plain(probs, v) -> torch.Tensor:
     return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(v.dtype)
 
 
-def _penalty_term(s_pre: torch.Tensor, score_penalty: float, penalty_limit: float):
-    return score_penalty * torch.sign(s_pre) * ((torch.abs(s_pre) - penalty_limit) > 0)
+def _penalty_term(s_pre: torch.Tensor, score_penalty: float, penalty_limit: float,
+                  valid_cols: Optional[int] = None):
+    term = score_penalty * torch.sign(s_pre) * ((torch.abs(s_pre) - penalty_limit) > 0)
+    if valid_cols is not None:
+        term = term * (torch.arange(s_pre.shape[-1], device=s_pre.device) < valid_cols)
+    return term
+
+
+def _const_probs(probs: torch.Tensor) -> torch.Tensor:
+    """The const-attention replacement: the row-normalised support (p > 0)."""
+    binary = (probs > 0.0).float()
+    return binary / torch.clamp(binary.sum(-1, keepdim=True), min=1e-20)
 
 
 def rel_attention_ds_plain(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
@@ -131,17 +150,17 @@ def score_adjoints(ds, q, k, pq, pe):
 
 def rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
                                     score_penalty=0.0, penalty_limit=25.0,
-                                    const_gate=False):
+                                    const_gate=False, penalty_valid_cols=None):
     """Plain B3: recompute the probabilities (the const-attention ones when
     the gate is open), dv = used^T g, the softmax VJP of dP = g v^T (zero
-    through the detached const branch), the penalty on pre-mask scores,
-    then the score adjoints.  Returns (dq, dk, dpq, dpe, dv) in f32."""
+    through the detached const branch), the penalty on pre-mask scores
+    (key columns < penalty_valid_cols, all when None), then the score
+    adjoints.  Returns (dq, dk, dpq, dpe, dv) in f32."""
     s_pre = rel_scores_plain(q, k, pq, pe)
     probs = _softmax_masked(s_pre, key_padding_mask)
     g32, v32 = g.float(), v.float()
     if const_gate:
-        binary = (probs > 0.0).float()
-        used = binary / torch.clamp(binary.sum(-1, keepdim=True), min=1e-20)
+        used = _const_probs(probs)
         ds = torch.zeros_like(probs)
     else:
         used = probs
@@ -149,8 +168,34 @@ def rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
         ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
     dv = torch.einsum("bhts,bthd->bshd", used, g32)
     if score_penalty:
-        ds = ds + _penalty_term(s_pre, score_penalty, penalty_limit)
+        ds = ds + _penalty_term(s_pre, score_penalty, penalty_limit, penalty_valid_cols)
     return (*score_adjoints(ds, q, k, pq, pe), dv)
+
+
+def rel_attention_probs_consume_plain(q, k, pq, pe, key_padding_mask, v, out_dtype=None):
+    """Plain B6: (B1's probabilities in out_dtype, those rounded
+    probabilities @ v accumulated in f32, in v.dtype)."""
+    probs = rel_attention_probs_plain(q, k, pq, pe, key_padding_mask, out_dtype)
+    return probs, rel_attention_probs_apply_plain(probs, v)
+
+
+def rel_attention_head0_consume_plain(q, k, pq, pe, key_padding_mask, v):
+    """Plain B7: head 0's f32 probabilities rounded to v.dtype, @ v (B, T, C)
+    accumulated in f32, in v.dtype."""
+    s0 = rel_scores_plain(q[:, :, :1], k[:, :, :1], pq[:, :, :1], pe[:, :1])
+    p0 = _softmax_masked(s0, key_padding_mask)[:, 0].to(v.dtype)
+    return torch.einsum("bts,bsc->btc", p0.float(), v.float()).to(v.dtype)
+
+
+def rel_attention_apply_plain(q, k, pq, pe, key_padding_mask, v, out_dtype=None,
+                              const_gate=False):
+    """Plain B5: the f32 probabilities (their const-attention replacement
+    when the gate is open) rounded to v.dtype, @ v accumulated in f32, in
+    out_dtype (default v.dtype)."""
+    probs = _softmax_masked(rel_scores_plain(q, k, pq, pe), key_padding_mask)
+    used = (_const_probs(probs) if const_gate else probs).to(v.dtype)
+    out = torch.einsum("bhts,bshd->bthd", used.float(), v.float())
+    return out.to(v.dtype if out_dtype is None else out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -197,21 +242,31 @@ def _stream_ptr(device: torch.device) -> ctypes.c_void_p:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> (kernel library, argtypes)
 _SIGNATURES = {
     # zv_rel_probs(q, kt, pq, pe, mask, out, B, T, H, QD, PD, in_bf16, out_bf16, stream)
-    "rel_probs": ("zv_rel_probs", [_P] * 6 + [_I] * 7 + [_P]),
+    "zv_rel_probs": ("rel_probs", [_P] * 6 + [_I] * 7 + [_P]),
     # zv_probs_apply(probs, v, out, B, T, H, VD, bf16, stream)
-    "probs_apply": ("zv_probs_apply", [_P] * 3 + [_I] * 5 + [_P]),
+    "zv_probs_apply": ("probs_apply", [_P] * 3 + [_I] * 5 + [_P]),
     # zv_rel_ds(q, kt, pq, pe, mask, g, ds, B, T, H, QD, PD, bf16, pen, limit, stream)
-    "rel_ds": ("zv_rel_ds", [_P] * 7 + [_I] * 6 + [_F, _F, _P]),
+    "zv_rel_ds": ("rel_ds", [_P] * 7 + [_I] * 6 + [_F, _F, _P]),
     # zv_rel_apply_bwd(q, kt, pq, pe, mask, v, g, stats, dq, dk, dpq, dpe, dv,
-    #                  B, T, H, QD, PD, VD, bf16, const_gate, pen, limit, stream)
-    "rel_apply_bwd": ("zv_rel_apply_bwd", [_P] * 13 + [_I] * 8 + [_F, _F, _P]),
+    #                  B, T, H, QD, PD, VD, bf16, const_gate, valid_cols, pen, limit, stream)
+    "zv_rel_apply_bwd": ("rel_apply_bwd", [_P] * 13 + [_I] * 9 + [_F, _F, _P]),
+    # zv_rel_probs_consume(q, kt, pq, pe, mask, v, probs, out,
+    #                      B, T, H, QD, PD, VD, bf16, probs_bf16, stream)
+    "zv_rel_probs_consume": ("rel_consume_fwd", [_P] * 8 + [_I] * 8 + [_P]),
+    # zv_rel_head0_consume(q, kt0, pq, pe, mask, v, out, B, T, H, QD, PD, C, bf16, stream)
+    "zv_rel_head0_consume": ("rel_consume_fwd", [_P] * 7 + [_I] * 7 + [_P]),
+    # zv_rel_apply(q, kt, pq, pe, mask, v, out, B, T, H, QD, PD, VD, bf16, out_bf16,
+    #              const_gate, stream)
+    "zv_rel_apply": ("rel_consume_fwd", [_P] * 7 + [_I] * 9 + [_P]),
 }
 
 
-def _entry(name: str):
-    return build.entry(name, *_SIGNATURES[name])
+def _entry(symbol: str):
+    lib, argtypes = _SIGNATURES[symbol]
+    return build.entry(lib, symbol, argtypes)
 
 
 def _raise_on(code: int, name: str, shape_note: str):
@@ -233,7 +288,7 @@ def _rel_probs_forward(q, k, pq, pe, key_padding_mask, out_dtype):
     kt = k.permute(0, 2, 3, 1).contiguous()  # (B, H, qd, T): coalesced key reads
     mask_ptr, _keep = _mask_ptr("rel_attention_probs", key_padding_mask, q)
     out = torch.empty((b, h, t, t), dtype=out_dtype, device=q.device)
-    code = _entry("rel_probs")(
+    code = _entry("zv_rel_probs")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
         out.data_ptr(), b, t, h, qd, pd, int(q.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), _stream_ptr(q.device))
@@ -260,7 +315,7 @@ def rel_attention_ds(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
     kt = k.permute(0, 2, 3, 1).contiguous()
     mask_ptr, _keep = _mask_ptr("rel_attention_ds", key_padding_mask, q)
     ds = torch.empty((b, h, t, t), dtype=q.dtype, device=q.device)
-    code = _entry("rel_ds")(
+    code = _entry("zv_rel_ds")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
         g.data_ptr(), ds.data_ptr(), b, t, h, qd, pd, int(q.dtype == torch.bfloat16),
         float(score_penalty), float(penalty_limit), _stream_ptr(q.device))
@@ -325,9 +380,9 @@ def _probs_apply_forward(probs, v):
                          f"{tuple(probs.shape)} v{tuple(v.shape)}")
     probs, v = probs.contiguous(), v.contiguous()
     out = torch.empty((b, t, h, vd), dtype=v.dtype, device=v.device)
-    code = _entry("probs_apply")(probs.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 b, t, h, vd, int(v.dtype == torch.bfloat16),
-                                 _stream_ptr(v.device))
+    code = _entry("zv_probs_apply")(probs.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                    b, t, h, vd, int(v.dtype == torch.bfloat16),
+                                    _stream_ptr(v.device))
     _raise_on(code, "probs_apply", f"B={b} T={t} H={h} vd={vd}")
     rel_attention_probs_apply.launches += 1
     return out
@@ -365,16 +420,20 @@ PROBS_APPLY_VD = (4, 8, 12, 16)
 
 def rel_attention_consume_bwd(q, k, pq, pe, key_padding_mask, v, g,
                               score_penalty=0.0, penalty_limit=25.0,
-                              const_gate=False):
-    """B3: the flash backward of ``rel_attention_consume``.  Returns (dq,
-    dk, dpq, dpe, dv) in f32, dpe summed over the batch.  Any T; any vd."""
+                              const_gate=False, penalty_valid_cols=None):
+    """B3: the flash backward of ``rel_attention_consume`` and
+    ``rel_attention_apply``.  Returns (dq, dk, dpq, dpe, dv) in f32, dpe
+    summed over the batch; the penalty acts on key columns <
+    penalty_valid_cols (every column when None).  Any T; any vd."""
     if q.device.type == "cpu":
         return rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
-                                               score_penalty, penalty_limit, const_gate)
+                                               score_penalty, penalty_limit, const_gate,
+                                               penalty_valid_cols)
     _check_cuda("rel_attention_consume_bwd", q, k, pq, pe, v, g)
     _check_rel_shapes("rel_attention_consume_bwd", q, k, pq, pe)
     b, t, h, qd = q.shape
     pd, vd = pq.shape[-1], v.shape[-1]
+    valid_cols = t if penalty_valid_cols is None else int(penalty_valid_cols)
     if v.shape != (b, t, h, vd) or g.shape != v.shape:
         raise ValueError(f"rel_attention_consume_bwd: v{tuple(v.shape)} "
                          f"g{tuple(g.shape)}")
@@ -389,12 +448,12 @@ def rel_attention_consume_bwd(q, k, pq, pe, key_padding_mask, v, g,
     dpq = torch.empty((b, t, h, pd), **f32)
     dpe = torch.zeros((2 * t - 1, h, pd), **f32)  # batch sum by atomics
     dv = torch.empty((b, t, h, vd), **f32)
-    code = _entry("rel_apply_bwd")(
+    code = _entry("zv_rel_apply_bwd")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
         v.data_ptr(), g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dpq.data_ptr(), dpe.data_ptr(), dv.data_ptr(), b, t, h, qd, pd, vd,
-        int(q.dtype == torch.bfloat16), int(bool(const_gate)), float(score_penalty),
-        float(penalty_limit), _stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16), int(bool(const_gate)), valid_cols,
+        float(score_penalty), float(penalty_limit), _stream_ptr(q.device))
     _raise_on(code, "rel_apply_bwd", f"B={b} T={t} H={h} qd={qd} pd={pd} vd={vd}")
     rel_attention_consume_bwd.launches += 1
     return dq, dk, dpq, dpe, dv
@@ -451,3 +510,152 @@ def rel_attention_consume(
     recomputed const probabilities."""
     return _RelConsume.apply(q, k, pq, pe, key_padding_mask, probs, v,
                              float(score_penalty), float(penalty_limit), bool(const_gate))
+
+
+# ---------------------------------------------------------------------------
+# Forwards with a fused probs @ V epilogue (B6, B7, B5)
+# ---------------------------------------------------------------------------
+
+
+def _consume_inputs(name, q, k, pq, pe, key_padding_mask, v, v_shape):
+    """Checks and device layouts shared by B5-B7: (q, pq, pe, v, mask
+    pointer, mask keep-alive)."""
+    _check_cuda(name, q, k, pq, pe, v)
+    _check_rel_shapes(name, q, k, pq, pe)
+    if v.shape != v_shape or v.shape[-1] % 4 != 0:
+        raise ValueError(f"{name}: v{tuple(v.shape)}, want {v_shape} with a width "
+                         "that is a multiple of 4")
+    mask_ptr, keep = _mask_ptr(name, key_padding_mask, q)
+    return (q.contiguous(), pq.contiguous(), pe.contiguous(), build.aligned(v.contiguous()),
+            mask_ptr, keep)
+
+
+def rel_attention_probs_consume(q, k, pq, pe, key_padding_mask, v, out_dtype=None):
+    """B6: (probs (B, H, T, T) in out_dtype (default q.dtype), probs @ v
+    (B, T, H, vd) in v.dtype); the contraction takes the probabilities as
+    rounded to out_dtype, with f32 sums.  q, k, pq, pe, v share a dtype;
+    vd a multiple of 4; any T.  Eval only (no backward)."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if q.device.type == "cpu":
+        return rel_attention_probs_consume_plain(q, k, pq, pe, key_padding_mask, v,
+                                                 out_dtype)
+    name = "rel_attention_probs_consume"
+    b, t, h, qd = q.shape
+    pd, vd = pq.shape[-1], v.shape[-1]
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"{name}: out_dtype {out_dtype}")
+    q, pq, pe, v, mask_ptr, _keep = _consume_inputs(name, q, k, pq, pe, key_padding_mask,
+                                                    v, (b, t, h, vd))
+    kt = k.permute(0, 2, 3, 1).contiguous()
+    probs = torch.empty((b, h, t, t), dtype=out_dtype, device=q.device)
+    out = torch.empty((b, t, h, vd), dtype=v.dtype, device=q.device)
+    code = _entry("zv_rel_probs_consume")(
+        q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr, v.data_ptr(),
+        probs.data_ptr(), out.data_ptr(), b, t, h, qd, pd, vd,
+        int(q.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        _stream_ptr(q.device))
+    _raise_on(code, "rel_probs_consume", f"B={b} T={t} H={h} qd={qd} pd={pd} vd={vd}")
+    rel_attention_probs_consume.launches += 1
+    return probs, out
+
+
+rel_attention_probs_consume.launches = 0
+
+
+def rel_attention_head0_consume(q, k, pq, pe, key_padding_mask, v):
+    """B7: head 0's probabilities (recomputed, never written), rounded to
+    v.dtype, @ v (B, T, C) with f32 sums, in v.dtype.  q, k, pq (B, T, H,
+    .) and pe (2T-1, H, pd) carry every head; only head 0 is read.  C a
+    multiple of 4; any T.  Eval only (no backward)."""
+    if q.device.type == "cpu":
+        return rel_attention_head0_consume_plain(q, k, pq, pe, key_padding_mask, v)
+    name = "rel_attention_head0_consume"
+    b, t, h, qd = q.shape
+    pd, c = pq.shape[-1], v.shape[-1]
+    q, pq, pe, v, mask_ptr, _keep = _consume_inputs(name, q, k, pq, pe, key_padding_mask,
+                                                    v, (b, t, c))
+    kt0 = k[:, :, 0].permute(0, 2, 1).contiguous()  # (B, qd, T): head 0's keys
+    out = torch.empty((b, t, c), dtype=v.dtype, device=q.device)
+    code = _entry("zv_rel_head0_consume")(
+        q.data_ptr(), kt0.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr, v.data_ptr(),
+        out.data_ptr(), b, t, h, qd, pd, c, int(q.dtype == torch.bfloat16),
+        _stream_ptr(q.device))
+    _raise_on(code, "rel_head0_consume", f"B={b} T={t} H={h} qd={qd} pd={pd} C={c}")
+    rel_attention_head0_consume.launches += 1
+    return out
+
+
+rel_attention_head0_consume.launches = 0
+
+
+def _rel_apply_forward(q, k, pq, pe, key_padding_mask, v, out_dtype, const_gate):
+    if q.device.type == "cpu":
+        return rel_attention_apply_plain(q, k, pq, pe, key_padding_mask, v, out_dtype,
+                                         const_gate)
+    name = "rel_attention_apply"
+    b, t, h, qd = q.shape
+    pd, vd = pq.shape[-1], v.shape[-1]
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"{name}: out_dtype {out_dtype}")
+    q, pq, pe, v, mask_ptr, _keep = _consume_inputs(name, q, k, pq, pe, key_padding_mask,
+                                                    v, (b, t, h, vd))
+    kt = k.permute(0, 2, 3, 1).contiguous()
+    out = torch.empty((b, t, h, vd), dtype=out_dtype, device=q.device)
+    code = _entry("zv_rel_apply")(
+        q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr, v.data_ptr(),
+        out.data_ptr(), b, t, h, qd, pd, vd, int(q.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), int(bool(const_gate)), _stream_ptr(q.device))
+    _raise_on(code, "rel_apply", f"B={b} T={t} H={h} qd={qd} pd={pd} vd={vd}")
+    rel_attention_apply.launches += 1
+    return out
+
+
+class _RelApply(torch.autograd.Function):
+    """B5 forward; backward = B3, which recomputes the probabilities (and
+    the const branch's support) from q, k, pq, pe."""
+
+    @staticmethod
+    def forward(ctx, q, k, pq, pe, key_padding_mask, v, out_dtype, score_penalty,
+                penalty_limit, penalty_valid_cols, const_gate):
+        ctx.save_for_backward(q, k, pq, pe, key_padding_mask, v)
+        ctx.args = (score_penalty, penalty_limit, const_gate, penalty_valid_cols)
+        return _rel_apply_forward(q, k, pq, pe, key_padding_mask, v, out_dtype, const_gate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, pq, pe, mask, v = ctx.saved_tensors
+        grads = rel_attention_consume_bwd(q, k, pq, pe, mask, v, g.to(v.dtype), *ctx.args)
+        dq, dk, dpq, dpe, dv = (d.to(x.dtype) for d, x in zip(grads, (q, k, pq, pe, v)))
+        return dq, dk, dpq, dpe, None, dv, None, None, None, None, None
+
+
+def rel_attention_apply(
+    q: torch.Tensor,  # (B, T, H, qd)
+    k: torch.Tensor,  # (B, T, H, qd)
+    pq: torch.Tensor,  # (B, T, H, pd)
+    pe: torch.Tensor,  # (2T-1, H, pd)
+    key_padding_mask: Optional[torch.Tensor],  # (B, T) bool, True = pad
+    v: torch.Tensor,  # (B, T, H, vd)
+    out_dtype: Optional[torch.dtype] = None,
+    score_penalty: float = 0.0,
+    penalty_limit: float = 25.0,
+    penalty_valid_cols: Optional[int] = None,
+    const_gate: bool = False,
+) -> torch.Tensor:
+    """softmax(rel-pos scores + mask bias) @ v -> (B, T, H, vd) in
+    out_dtype (default v.dtype), differentiable: B5 forward, B3 backward.
+
+    The probabilities are f32, rounded to v.dtype for an f32-accumulated
+    contraction.  With const_gate they are replaced by the row-normalised
+    support (p > 0) and the score gradient is zero (dv still flows).
+    score_penalty adds the failsafe gradient pen * sign(s) * (|s| > limit)
+    on the pre-mask scores of key columns < penalty_valid_cols (every
+    column when None).  Any T (no pad-to-128 twin is needed); vd a
+    multiple of 4 on the card."""
+    return _RelApply.apply(q, k, pq, pe, key_padding_mask, v,
+                           v.dtype if out_dtype is None else out_dtype,
+                           float(score_penalty), float(penalty_limit), penalty_valid_cols,
+                           bool(const_gate))
+
+
+rel_attention_apply.launches = 0

@@ -17,19 +17,20 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("rel_probs", "probs_apply", "rel_ds", "rel_apply_bwd", "log_mel")
+SOURCES = ("rel_probs", "probs_apply", "rel_ds", "rel_apply_bwd", "log_mel",
+           "rel_consume_fwd", "conv_glu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-_entry_points: Dict[str, object] = {}
+_entry_points: Dict[Tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -93,12 +94,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def aligned(x):
+    """x itself if its data is 16-byte aligned (the kernels' vector loads),
+    else an aligned copy."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def entry(name: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of kernel library ``name``, typed once
     (argtypes; an int return code)."""
-    fn = _entry_points.get(name)
+    fn = _entry_points.get((name, symbol))
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _entry_points[name] = fn
+        _entry_points[(name, symbol)] = fn
     return fn
