@@ -218,6 +218,21 @@ TRAIN_ATTN_CASES = [("main", 8, 4, 1024, 12), ("main", 8, 4, 512, 12), ("main", 
 TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
 
 
+# the redesigned kernels' symbols, as torch.profiler names them
+KERNEL_SYMBOLS = {"B2": ("probs_apply_f32", "probs_apply_bf16"),
+                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel")}
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _kernel_device_ms(events, kernel):
+    """(device ms, calls) of one kernel's symbols among profiler events."""
+    hits = [e for e in events if any(sym in e.key for sym in KERNEL_SYMBOLS[kernel])]
+    return sum(_dev_us(e) for e in hits) / 1e3, sum(e.count for e in hits)
+
+
 def _penalty_limit(q, k, pq, pe) -> float:
     """A failsafe limit that a few hundred of these scores cross, put in a
     gap of at least 1e-3 between two |scores|, so that f32 rounding
@@ -939,18 +954,18 @@ def profile_train_step(res, manifest: Path, card: str):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in events) / 1e6
+                    key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in events) / 1e6
     b, t = batch["features"].shape[:2]
+    b3_ms, b3_calls = _kernel_device_ms(events, "B3")
+    b2_ms, b2_calls = _kernel_device_ms(events, "B2")
     print(f"profile train step (regularizers, bf16, B={b} T={t}): wall {wall * 1e3:.1f} ms, "
-          f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%) on {card}", flush=True)
+          f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%); B3 "
+          f"{b3_ms:.3f} ms in {b3_calls} kernel calls, B2 {b2_ms:.3f} ms in {b2_calls} on {card}",
+          flush=True)
     for e in events[:15]:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+        print(f"  {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     # the host side: operators by their own CPU time
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
@@ -961,7 +976,7 @@ def profile_train_step(res, manifest: Path, card: str):
     out = REPO / "chiprun_out"
     if "--profile" in sys.argv[1:] and out.is_dir():
         prof.export_chrome_trace(str(out / "trace_train_step.json"))
-    return wall, busy
+    return wall, busy, b3_ms
 
 
 def check_checkpoint_serves(root: Path, exp: Path, card: str):
@@ -1020,10 +1035,11 @@ def compare_fused_rtf(root: Path, card: str):
 
 
 def profile_request(root: Path, card: str, fused: bool = False):
-    """Optional phase (--profile): one warm f32 ~8 s request (the fused
-    eval path on when `fused`) under torch.profiler; prints the device busy
-    share and the kernels that take the most device time, and writes the
-    trace to the output directory if present."""
+    """Phase 6c: one warm f32 ~8 s request (the fused eval path on when
+    `fused`, with --profile only) under torch.profiler; prints the device
+    busy share, B2's summed device time and the kernels that take the most
+    device time; with --profile the trace goes to the output directory if
+    present.  Returns B2's device ms."""
     import contextlib
 
     import torch
@@ -1038,24 +1054,23 @@ def profile_request(root: Path, card: str, fused: bool = False):
             res = pipeline.synthesize(**kw)
             wall = time.monotonic() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
     from torch.autograd import DeviceType
 
     # device-side entries only (CPU ops repeat their kernels' time)
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in events) / 1e6
+                    key=_dev_us, reverse=True)
+    busy = sum(_dev_us(e) for e in events) / 1e6
+    b2_ms, b2_calls = _kernel_device_ms(events, "B2")
     tag = "r8s_f32_fused" if fused else "r8s_f32"
     print(f"profile {tag}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-          f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f} on {card}")
+          f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f}; B2 {b2_ms:.3f} ms in "
+          f"{b2_calls} kernel calls on {card}", flush=True)
     for e in events[:15]:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+        print(f"  {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     out = REPO / "chiprun_out"
-    if out.is_dir():
+    if "--profile" in sys.argv[1:] and out.is_dir():
         prof.export_chrome_trace(str(out / f"trace_{tag}.json"))
+    return b2_ms
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -1095,8 +1110,12 @@ def main() -> int:
     logs = build.build_all()
     print(f"kernel build: {time.monotonic() - t0:.1f} s for {sorted(logs)}", flush=True)
     for name, log in logs.items():
+        # every entry point of the redesigned B2 and B3: registers, shared
+        # memory, spills; the other libraries' register lines
+        full = name in ("probs_apply", "rel_apply_bwd")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (full and "Compiling entry" in line)):
                 print(f"  {name}: {line.strip()}")
 
     results = check_kernels()
@@ -1120,8 +1139,8 @@ def main() -> int:
         rtf_ab = compare_fused_rtf(root, card)
         fwd_err = check_forward_against_cpu(root)
         fused_fwd_err = check_forward_against_cpu(root, fused=True)
+        b2_request_ms = profile_request(root, card)
         if "--profile" in sys.argv[1:]:
-            profile_request(root, card)
             profile_request(root, card, fused=True)
         grad_err = check_gradient_against_cpu(root)
         manifest = make_corpus(root)
@@ -1129,7 +1148,7 @@ def main() -> int:
             root, manifest, card, True, 6)
         noreg_step, noreg_launches, noreg_ms, noreg_gib, _, _ = run_training(
             root, manifest, card, False, 5)
-        wall, busy = profile_train_step(res, manifest, card)
+        wall, busy, b3_step_ms = profile_train_step(res, manifest, card)
         del res
         check_checkpoint_serves(root, exp, card)
     finally:
@@ -1195,6 +1214,7 @@ def main() -> int:
           f"gradient card-vs-cpu worst relative L2 {worst_grad:.3g}; train step "
           f"{reg_ms:.1f} ms (regularizers) / {noreg_ms:.1f} ms (no regularizers), "
           f"busy {100 * busy / wall:.1f}%, peak {max(reg_gib, noreg_gib):.2f} GiB; "
+          f"device ms B2 {b2_request_ms:.3f} a request, B3 {b3_step_ms:.3f} a step; "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

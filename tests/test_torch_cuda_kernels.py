@@ -46,13 +46,16 @@ def test_rel_probs_kernel_matches_plain(gen, t, dtype):
     assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("t", [1, 40, 577, 1152])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 577, 1152])
+@pytest.mark.parametrize("vd", [4, 8, 12, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_probs_apply_kernel_matches_plain(gen, t, dtype):
-    """Every row is written at any T (1152 = 9 x 128 included)."""
+def test_probs_apply_kernel_matches_plain(gen, t, vd, dtype):
+    """Every row is written at any T: the edges of a 64-row block and of a
+    16-row tile (63, 64, 65), rows not 16-byte aligned (577) and two staged
+    key chunks (1152 = 9 x 128)."""
     q, k, pq, pe, mask = _inputs(gen, t, dtype)
     probs = att.rel_attention_probs_plain(q, k, pq, pe, mask)
-    v = torch.randn((2, t, 4, 12), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((2, t, 4, vd), generator=gen, device="cuda").to(dtype)
     n = att.rel_attention_probs_apply.launches
     out = att.rel_attention_probs_apply(probs, v)
     ref = att.rel_attention_probs_apply_plain(probs, v)
@@ -85,8 +88,8 @@ def _rel(out, ref):
     return float((out.float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("t,h,vd", [(1, 4, 12), (40, 4, 12), (577, 4, 12), (300, 1, 384),
-                                    (120, 1, 144)])
+@pytest.mark.parametrize("t,h,vd", [(1, 4, 12), (40, 4, 12), (63, 4, 12), (65, 4, 12),
+                                    (577, 4, 12), (300, 1, 384), (120, 1, 144)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pen,gate", [(0.0, False), (1e-2, False), (0.0, True)])
 def test_rel_apply_bwd_kernel_matches_plain(gen, t, h, vd, dtype, pen, gate):
@@ -103,6 +106,20 @@ def test_rel_apply_bwd_kernel_matches_plain(gen, t, h, vd, dtype, pen, gate):
     assert att.rel_attention_consume_bwd.launches == n + 1
     for o, r in zip(outs, refs):
         assert o.shape == r.shape and _rel(o, r) <= 1e-4
+
+
+@pytest.mark.parametrize("t,h,vd", [(577, 4, 12), (300, 1, 384)])
+def test_rel_apply_bwd_const_gate_support_is_b1s(gen, t, h, vd):
+    """With the const gate, B3's dv is the normalised support (p > 0) of the
+    B1 kernel's own f32 probabilities, transposed, times g: B3 recomputes
+    the support with B1's operations (within f32 rounding of the sum)."""
+    q, k, pq, pe, mask, v, g = _train_inputs(gen, t, torch.float32, h, vd)
+    q, k = 1.5 * q, 1.5 * k  # a wide score range: some p underflow to 0
+    probs = att.rel_attention_probs(q, k, pq, pe, mask)
+    ref = torch.einsum("bhts,bthd->bshd", att._const_probs(probs), g)
+    dv = att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g, const_gate=True)[4]
+    torch.cuda.synchronize()
+    assert _rel(dv, ref) <= 1e-6
 
 
 @pytest.mark.parametrize("t", [1, 40, 577, 1024])

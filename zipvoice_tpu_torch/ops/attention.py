@@ -378,7 +378,7 @@ def _probs_apply_forward(probs, v):
     if probs.shape != (b, h, t, t) or v.shape != (b, t, h, vd):
         raise ValueError(f"rel_attention_probs_apply: shapes probs"
                          f"{tuple(probs.shape)} v{tuple(v.shape)}")
-    probs, v = probs.contiguous(), v.contiguous()
+    probs, v = build.aligned(probs.contiguous()), build.aligned(v.contiguous())
     out = torch.empty((b, t, h, vd), dtype=v.dtype, device=v.device)
     code = _entry("zv_probs_apply")(probs.data_ptr(), v.data_ptr(), out.data_ptr(),
                                     b, t, h, vd, int(v.dtype == torch.bfloat16),
@@ -424,7 +424,8 @@ def rel_attention_consume_bwd(q, k, pq, pe, key_padding_mask, v, g,
     """B3: the flash backward of ``rel_attention_consume`` and
     ``rel_attention_apply``.  Returns (dq, dk, dpq, dpe, dv) in f32, dpe
     summed over the batch; the penalty acts on key columns <
-    penalty_valid_cols (every column when None).  Any T; any vd."""
+    penalty_valid_cols (every column when None).  Any T; vd <= 384 on the
+    card (the kernel refuses a wider one)."""
     if q.device.type == "cpu":
         return rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
                                                score_penalty, penalty_limit, const_gate,
