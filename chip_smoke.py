@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 
 Phases (each raises on failure; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from zipvoice_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from zipvoice_tpu_torch/csrc with nvcc and print
+     the -Xptxas -v lines of B2's, B3's, B7's and B9's entry points;
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main-path shapes (B=2, H=4, T in 1024/512/256 with a
      padded tail in one batch row), ragged T (288, 577) and a text-encoder
@@ -22,8 +23,9 @@ Phases (each raises on failure; nothing is caught):
      and bf16, with times and bounds;
   3c. the fused eval kernels against their plain versions, f32 and bf16:
      B6 and B7 at the serving shapes (B=2, H=4; B7 at C 384, and 144 at
-     T=40), B9 against an f64 plain version (C = D = 512 with K 31/15/7 at
-     T 1024/512/256/288, C = D = 192 with K 9 at T=40), B5 at B=8 (H=4,
+     T=40; T also 1152 and 1408), B9 against an f64 plain version (C = D =
+     512 with K 31/15/7 at T 1024/512/256/288 and K 31 at T 1152, C = D =
+     192 with K 9 at T=40), B5 at B=8 (H=4,
      vd 12 and H=1, vd 384, the const gate on and off) and one gradient
      through rel_attention_apply (B5 forward, B3 backward) against plain
      autograd, with times and bounds;
@@ -35,9 +37,10 @@ Phases (each raises on failure; nothing is caught):
   6. one full-width fm_decoder forward on the card (kernels) against the
      CPU (plain versions) on the same weights and inputs; 6b. the same with
      the fused eval path on the card against the unfused CPU forward;
-     with --profile: one warm request, unfused and fused, under
-     torch.profiler (device busy share, top kernels; the traces go to the
-     output directory if present);
+     6c. one warm f32 ~8 s request, unfused and fused, under
+     torch.profiler (device busy share, top kernels, the device ms and
+     calls of B2, and fused of B7 and B9; with --profile the traces go to
+     the output directory if present);
   7. one full-width compute_fm_loss backward on the card against the CPU,
      same weights and inputs, no random draws, with and without the
      regularizers; relative L2 error per parameter group;
@@ -220,7 +223,13 @@ TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
 
 # the redesigned kernels' symbols, as torch.profiler names them
 KERNEL_SYMBOLS = {"B2": ("probs_apply_f32", "probs_apply_bf16"),
-                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel")}
+                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel"),
+                  "B7": ("rel_head0_consume_kernel",), "B9": ("conv_glu_kernel",)}
+# the redesigned kernels' entry points, by library, whose -Xptxas -v lines
+# the build prints in full
+ENTRY_KERNELS = {"probs_apply": ("probs_apply",), "rel_apply_bwd": ("bwd_",),
+                 "rel_consume_fwd": ("rel_head0_consume_kernel",),
+                 "conv_glu": ("conv_glu_kernel",)}
 
 
 def _dev_us(e):
@@ -365,13 +374,15 @@ def check_training_kernels():
 
 
 # serving shapes of B6/B7 (B=2, H=4); B7 takes the fm_decoder's
-# NonlinAttention width (3D/4 = 384) and the text encoder's (144) at T=40
+# NonlinAttention width (3D/4 = 384) and the text encoder's (144) at T=40;
+# T=1152 and 1408 are the ~8 s and the longest serving buckets (more row
+# blocks than SMs)
 FUSED_ATTN_CASES = [(1024, "main"), (512, "main"), (256, "main"), (288, "ragged"),
-                    (577, "ragged"), (40, "text")]
+                    (577, "ragged"), (40, "text"), (1152, "bucket"), (1408, "bucket")]
 # B9: (C = D, K, T); the fm_decoder's kernels 31/15/7 at its stack lengths,
-# the text encoder's C = 192, K = 9 at T=40
+# the text encoder's C = 192, K = 9 at T=40, and the ~8 s bucket
 CONV_CASES = [(512, kk, t) for kk in (31, 15, 7) for t in (1024, 512, 256, 288)] + [
-    (192, 9, 40)]
+    (192, 9, 40), (512, 31, 1152)]
 # B5: (B, H, T, vd); the op's own entry point, no model path calls it
 APPLY_CASES = [(8, 4, 1024, 12), (8, 4, 577, 12), (8, 1, 1024, 384), (8, 1, 577, 384)]
 
@@ -1036,10 +1047,11 @@ def compare_fused_rtf(root: Path, card: str):
 
 def profile_request(root: Path, card: str, fused: bool = False):
     """Phase 6c: one warm f32 ~8 s request (the fused eval path on when
-    `fused`, with --profile only) under torch.profiler; prints the device
-    busy share, B2's summed device time and the kernels that take the most
-    device time; with --profile the trace goes to the output directory if
-    present.  Returns B2's device ms."""
+    `fused`) under torch.profiler; prints the device busy share, the summed
+    device time and calls of B2 (and, fused, of B7 and B9) and the kernels
+    that take the most device time; with --profile the trace goes to the
+    output directory if present.  Returns {kernel: (device ms, calls)} and
+    the device busy ms."""
     import contextlib
 
     import torch
@@ -1060,17 +1072,18 @@ def profile_request(root: Path, card: str, fused: bool = False):
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                     key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in events) / 1e6
-    b2_ms, b2_calls = _kernel_device_ms(events, "B2")
+    dev = {k: _kernel_device_ms(events, k) for k in (("B2", "B7", "B9") if fused else ("B2",))}
     tag = "r8s_f32_fused" if fused else "r8s_f32"
     print(f"profile {tag}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-          f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f}; B2 {b2_ms:.3f} ms in "
-          f"{b2_calls} kernel calls on {card}", flush=True)
+          f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f}; "
+          + ", ".join(f"{k} {ms:.3f} ms in {n} kernel calls" for k, (ms, n) in dev.items())
+          + f" on {card}", flush=True)
     for e in events[:15]:
         print(f"  {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     out = REPO / "chiprun_out"
     if "--profile" in sys.argv[1:] and out.is_dir():
         prof.export_chrome_trace(str(out / f"trace_{tag}.json"))
-    return b2_ms
+    return dev, busy * 1e3
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -1110,10 +1123,14 @@ def main() -> int:
     logs = build.build_all()
     print(f"kernel build: {time.monotonic() - t0:.1f} s for {sorted(logs)}", flush=True)
     for name, log in logs.items():
-        # every entry point of the redesigned B2 and B3: registers, shared
-        # memory, spills; the other libraries' register lines
-        full = name in ("probs_apply", "rel_apply_bwd")
+        # every entry point of the redesigned B2, B3, B7 and B9 with its
+        # registers, shared memory and spills; the other kernels' register
+        # lines
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line
+            full = any(k in entry for k in ENTRY_KERNELS.get(name, ()))
             if ("registers" in line or "spill" in line
                     or (full and "Compiling entry" in line)):
                 print(f"  {name}: {line.strip()}")
@@ -1139,9 +1156,8 @@ def main() -> int:
         rtf_ab = compare_fused_rtf(root, card)
         fwd_err = check_forward_against_cpu(root)
         fused_fwd_err = check_forward_against_cpu(root, fused=True)
-        b2_request_ms = profile_request(root, card)
-        if "--profile" in sys.argv[1:]:
-            profile_request(root, card, fused=True)
+        unfused_dev, unfused_busy = profile_request(root, card)
+        fused_dev, fused_busy = profile_request(root, card, fused=True)
         grad_err = check_gradient_against_cpu(root)
         manifest = make_corpus(root)
         reg_step, reg_launches, reg_ms, reg_gib, exp, res = run_training(
@@ -1214,7 +1230,10 @@ def main() -> int:
           f"gradient card-vs-cpu worst relative L2 {worst_grad:.3g}; train step "
           f"{reg_ms:.1f} ms (regularizers) / {noreg_ms:.1f} ms (no regularizers), "
           f"busy {100 * busy / wall:.1f}%, peak {max(reg_gib, noreg_gib):.2f} GiB; "
-          f"device ms B2 {b2_request_ms:.3f} a request, B3 {b3_step_ms:.3f} a step; "
+          f"device ms a request: busy {unfused_busy:.1f} unfused / {fused_busy:.1f} fused, "
+          f"B2 {unfused_dev['B2'][0]:.3f} unfused; fused B2 {fused_dev['B2'][0]:.3f}, "
+          f"B7 {fused_dev['B7'][0]:.3f}, B9 {fused_dev['B9'][0]:.3f}; "
+          f"B3 {b3_step_ms:.3f} a step; "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

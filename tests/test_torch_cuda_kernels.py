@@ -170,10 +170,15 @@ def test_probs_consume_kernel_matches_plain(gen, t, dtype):
     assert out.dtype == dtype and _rel(out, ref_o) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("t,c", [(1, 384), (40, 144), (577, 384), (1024, 384)])
+@pytest.mark.parametrize("t", [1, 17, 40, 288, 577, 1024, 1408])
+@pytest.mark.parametrize("c", [384, 144, 100])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head0_consume_kernel_matches_plain(gen, t, c, dtype):
-    """B7 at the NonlinAttention widths (fm_decoder 384, text encoder 144)."""
+    """B7 at the NonlinAttention widths (fm_decoder 384, text encoder 144)
+    and a width that is a multiple of 4 but not of 8 (100: 8-byte copies in
+    bf16, a ragged last column tile); short T splits C over the grid, and
+    T = 1408 is the longest serving bucket.  The second batch row's last
+    third is padded."""
     q, k, pq, pe, mask = _inputs(gen, t, dtype)
     v = torch.randn((2, t, c), generator=gen, device="cuda").to(dtype)
     n = att.rel_attention_head0_consume.launches
@@ -208,20 +213,24 @@ def test_rel_apply_kernel_matches_plain(gen, t, h, vd, dtype, gate):
         assert _rel(x.grad, torch.zeros_like(y) if y.grad is None else y.grad) <= 1e-4
 
 
-@pytest.mark.parametrize("c,kernel,t", [(512, 31, 1024), (512, 15, 512), (512, 7, 288),
-                                        (192, 9, 40), (512, 31, 1)])
+@pytest.mark.parametrize("c,d,kernel,t", [(512, 512, 31, 1024), (512, 512, 15, 512),
+                                          (512, 512, 7, 288), (192, 192, 9, 40),
+                                          (512, 512, 31, 1), (512, 512, 31, 1408),
+                                          (512, 512, 7, 17), (512, 256, 31, 300),
+                                          (196, 196, 9, 100)])
 @pytest.mark.parametrize("out_bias", [True, False])
-def test_conv_glu_kernel_matches_f64(gen, c, kernel, t, out_bias):
+def test_conv_glu_kernel_matches_f64(gen, c, d, kernel, t, out_bias):
     """B9 and its f32 plain version both within 2e-5 of an f64 plain version
     (relative to its scale); bf16 within one unit in the last place of the
-    bf16 plain version."""
+    bf16 plain version.  Short T splits D over the grid; D != C; C = 196 is
+    a multiple of 4 but not of 8 (8-byte copies of w_out in bf16)."""
     from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out, conv_glu_swoosh_out_plain
 
     proj = torch.randn((2, t, 2 * c), generator=gen, device="cuda")
     w = 0.2 * torch.randn((c, 1, kernel), generator=gen, device="cuda")
     b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
-    w_out = 0.05 * torch.randn((c, c), generator=gen, device="cuda")
-    b_out = 0.1 * torch.randn((c,), generator=gen, device="cuda") if out_bias else None
+    w_out = 0.05 * torch.randn((d, c), generator=gen, device="cuda")
+    b_out = 0.1 * torch.randn((d,), generator=gen, device="cuda") if out_bias else None
     mask = torch.arange(t, device="cuda")[None, :] >= torch.tensor(
         [t, t - t // 3 - 1], device="cuda")[:, None]
     args = (w, b, mask, w_out, b_out)
@@ -238,7 +247,7 @@ def test_conv_glu_kernel_matches_f64(gen, c, kernel, t, out_bias):
     ref16 = conv_glu_swoosh_out_plain(proj.bfloat16(), *args)
     torch.cuda.synchronize()
     assert conv_glu_swoosh_out.launches == n + 2
-    assert out.shape == (2, t, c) and out16.dtype == torch.bfloat16
+    assert out.shape == (2, t, d) and out16.dtype == torch.bfloat16
     assert _rel(out, ref) <= 2e-5 and _rel(plain, ref) <= 2e-5
     assert _rel(out16, ref16) <= TOL[torch.bfloat16]
 

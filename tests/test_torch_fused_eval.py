@@ -45,7 +45,8 @@ def _rel_inputs(t, with_mask, seed, b=2, h=H, vd=VD):
     pq = r.standard_normal((b, t, h, PD)).astype(np.float32)
     pe = r.standard_normal((2 * t - 1, h, PD)).astype(np.float32)
     v = r.standard_normal((b, t, h, vd)).astype(np.float32)
-    mask = (np.arange(t)[None, :] >= np.array([t, t - 60][:b])[:, None]
+    pad_to = t - 60 if t > 60 else t - t // 3 - 1  # a short T keeps two thirds
+    mask = (np.arange(t)[None, :] >= np.array([t, pad_to][:b])[:, None]
             if with_mask else None)
     return q, k, pq, pe, v, mask
 
@@ -76,15 +77,16 @@ def test_probs_consume_matches_jax(t, with_mask):
     assert np.abs(out.numpy() - np.asarray(jout)).max() < 2e-5
 
 
-@pytest.mark.parametrize("t", [128, 200])
+@pytest.mark.parametrize("t,c", [(128, 96), (200, 96), (40, 144)])
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_head0_consume_matches_jax(t, with_mask):
-    """B7: head 0 against the wide value stream (C = 96)."""
+def test_head0_consume_matches_jax(t, c, with_mask):
+    """B7: head 0 against the wide value stream (C = 96; the text
+    encoder's C = 144 at T = 40)."""
     q, k, pq, pe, _, mask = _rel_inputs(t, with_mask, seed=t + 2)
-    v = np.random.default_rng(t).standard_normal((2, t, 96)).astype(np.float32)
+    v = np.random.default_rng(t).standard_normal((2, t, c)).astype(np.float32)
     out = ta.rel_attention_head0_consume(*map(_t, (q, k, pq, pe, mask, v)))
     ref = jatt.rel_attention_head0_consume(*map(_j, (q, k, pq, pe, mask, v)), interpret=True)
-    assert out.shape == (2, t, 96)
+    assert out.shape == (2, t, c)
     assert np.abs(out.numpy() - np.asarray(ref)).max() < 2e-5
 
 
