@@ -28,22 +28,57 @@ def _inputs(gen, t, dtype, b=2, h=4, qd=32, pd=4):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    # the last batch row padded from t - t // 3 - 1 on
     mask = torch.arange(t, device="cuda")[None, :] >= torch.tensor(
-        [t, t - t // 3 - 1], device="cuda")[:, None]
+        [t] * (b - 1) + [t - t // 3 - 1], device="cuda")[:, None]
     return rnd(b, t, h, qd), rnd(b, t, h, qd), rnd(b, t, h, pd), rnd(2 * t - 1, h, pd), mask
 
 
-@pytest.mark.parametrize("t", [1, 40, 577, 1024])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rel_probs_kernel_matches_plain(gen, t, dtype):
-    q, k, pq, pe, mask = _inputs(gen, t, dtype)
+_DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+def _check_rel_probs(gen, t, dtype, out_dtype, **shape):
+    """B1 against its plain version (the output type's tolerance) and
+    against B6's probabilities, which take the same operations: equal bit
+    for bit."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, **shape)
+    b, h = q.shape[0], q.shape[2]
     n = att.rel_attention_probs.launches
-    out = att.rel_attention_probs(q, k, pq, pe, mask)
-    ref = att.rel_attention_probs_plain(q, k, pq, pe, mask)
+    out = att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=out_dtype)
+    ref = att.rel_attention_probs_plain(q, k, pq, pe, mask, out_dtype=out_dtype)
+    v = torch.randn((b, t, h, 12), generator=gen, device="cuda").to(dtype)
+    probs6 = att.rel_attention_probs_consume(q, k, pq, pe, mask, v, out_dtype=out_dtype)[0]
     torch.cuda.synchronize()
     assert att.rel_attention_probs.launches == n + 1
-    assert out.dtype == dtype and out.shape == (2, 4, t, t)
-    assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
+    assert out.dtype == out_dtype and out.shape == (b, h, t, t)
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[out_dtype]
+    assert torch.equal(out, probs6)
+
+
+@pytest.mark.parametrize("t", [1, 17, 40, 127, 288, 577, 1024, 1408])
+@pytest.mark.parametrize("dtype,out_dtype", _DTYPE_PAIRS)
+def test_rel_probs_kernel_matches_plain(gen, t, dtype, out_dtype):
+    """Any T: rows that do not start 16-byte aligned (17, 127, 577), one
+    key group a thread (<= 1024) and more (1408)."""
+    _check_rel_probs(gen, t, dtype, out_dtype)
+
+
+@pytest.mark.parametrize("t", [4000, 8000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_probs_kernel_long_t(gen, t, dtype):
+    """Long T: the scores of 16 rows do not fit in shared memory, so the
+    kernel takes tiles of fewer rows (8 at T=4000) or of one row with an
+    unpadded band (T=8000)."""
+    _check_rel_probs(gen, t, dtype, dtype, b=1, h=1)
+
+
+@pytest.mark.parametrize("qd", [8, 16, 24, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_probs_kernel_other_head_dims(gen, qd, dtype):
+    """QD 8, 16, 24 (4 keys a thread; QD / 4 = 6 at 24) and 64 (2 keys a
+    thread)."""
+    _check_rel_probs(gen, 577, dtype, dtype, qd=qd)
 
 
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 577, 1152])
@@ -153,7 +188,7 @@ def test_log_mel_kernel_matches_plain(gen, seconds):
     assert out.shape == ref.shape and float((out - ref).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("t", [1, 40, 577, 1024])
+@pytest.mark.parametrize("t", [1, 17, 40, 288, 577, 1024, 1408])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_probs_consume_kernel_matches_plain(gen, t, dtype):
     """B6: its probabilities are B1's bit for bit; the contraction of the
