@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Phases (each raises on failure; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from zipvoice_tpu_torch/csrc with nvcc and print
-     the -Xptxas -v lines of B1's, B2's, B3's, B7's and B9's entry points;
+     the -Xptxas -v lines of B1's, B2's, B3's, B6's, B7's and B9's entry
+     points;
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main-path shapes (B=2, H=4, T in 1024/512/256 with a
      padded tail in one batch row), ragged T (288, 577) and a text-encoder
@@ -40,8 +41,8 @@ Phases (each raises on failure; nothing is caught):
      the fused eval path on the card against the unfused CPU forward;
      6c. one warm f32 ~8 s request, unfused and fused, under
      torch.profiler (device busy share, top kernels, the device ms and
-     calls of B1 and B2, and fused of B2, B7 and B9; with --profile the traces go to
-     the output directory if present);
+     calls of B1 and B2, and fused of B2, B6, B7 and B9; with --profile the
+     traces go to the output directory if present);
   7. one full-width compute_fm_loss backward on the card against the CPU,
      same weights and inputs, no random draws, with and without the
      regularizers; relative L2 error per parameter group;
@@ -243,11 +244,13 @@ TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
 
 # the redesigned kernels' symbols, as torch.profiler names them
 KERNEL_SYMBOLS = {"B1": ("rel_probs_kernel",), "B2": ("probs_apply_f32", "probs_apply_bf16"),
-                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel"),
+                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel"), "B6": ("rel_probs_consume_kernel",),
                   "B7": ("rel_head0_consume_kernel",), "B9": ("conv_glu_kernel",)}
 # the redesigned kernels' entry points, by library, whose -Xptxas -v lines
 # the build prints in full
-ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",), "probs_apply": ("probs_apply",),
+ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",),
+                 "rel_probs_consume": ("rel_probs_consume_kernel",),
+                 "probs_apply": ("probs_apply",),
                  "rel_apply_bwd": ("bwd_",),
                  "rel_consume_fwd": ("rel_head0_consume_kernel",),
                  "conv_glu": ("conv_glu_kernel",)}
@@ -1080,7 +1083,7 @@ def compare_fused_rtf(root: Path, card: str):
 def profile_request(root: Path, card: str, fused: bool = False):
     """Phase 6c: one warm f32 ~8 s request (the fused eval path on when
     `fused`) under torch.profiler; prints the device busy share, the summed
-    device time and calls of B1 and B2 (fused: B2, B7 and B9) and the kernels
+    device time and calls of B1 and B2 (fused: B2, B6, B7 and B9) and the kernels
     that take the most device time; with --profile the trace goes to the
     output directory if present.  Returns {kernel: (device ms, calls)} and
     the device busy ms."""
@@ -1105,7 +1108,7 @@ def profile_request(root: Path, card: str, fused: bool = False):
                     key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in events) / 1e6
     dev = {k: _kernel_device_ms(events, k)
-           for k in (("B2", "B7", "B9") if fused else ("B1", "B2"))}
+           for k in (("B2", "B6", "B7", "B9") if fused else ("B1", "B2"))}
     tag = "r8s_f32_fused" if fused else "r8s_f32"
     print(f"profile {tag}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
           f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f}; "
@@ -1158,7 +1161,7 @@ def main() -> int:
     logs = build.build_all()
     print(f"kernel build: {time.monotonic() - t0:.1f} s for {sorted(logs)}", flush=True)
     for name, log in logs.items():
-        # every entry point of the redesigned B1, B2, B3, B7 and B9 with its
+        # every entry point of the redesigned B1, B2, B3, B6, B7 and B9 with its
         # registers, shared memory and spills; the other kernels' register
         # lines
         entry = ""
@@ -1235,7 +1238,7 @@ def main() -> int:
                       launches_per_call=apply_launches["B5"],
                       grad_max_rel_err=apply_grad_err),
         _kernel_entry(results, "B6", "rel_attention_probs_consume",
-                      "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
+                      "zipvoice_tpu_torch/csrc/rel_probs_consume.cu",
                       "zipvoice_tpu/ops/attention.py:1224", fused_launches["B6"],
                       (1024, "float32"), "B=2 H=4 T=1024 vd=12 f32",
                       launches_per_fused_request=fused_launches["B6"] // n_req),
@@ -1267,7 +1270,7 @@ def main() -> int:
           f"busy {100 * busy / wall:.1f}%, peak {max(reg_gib, noreg_gib):.2f} GiB; "
           f"device ms a request: busy {unfused_busy:.1f} unfused / {fused_busy:.1f} fused, "
           f"B1 {unfused_dev['B1'][0]:.3f} and B2 {unfused_dev['B2'][0]:.3f} unfused; "
-          f"fused B2 {fused_dev['B2'][0]:.3f}, "
+          f"fused B2 {fused_dev['B2'][0]:.3f}, B6 {fused_dev['B6'][0]:.3f}, "
           f"B7 {fused_dev['B7'][0]:.3f}, B9 {fused_dev['B9'][0]:.3f}; "
           f"B3 {b3_step_ms:.3f} a step; "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)

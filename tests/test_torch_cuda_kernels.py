@@ -188,21 +188,40 @@ def test_log_mel_kernel_matches_plain(gen, seconds):
     assert out.shape == ref.shape and float((out - ref).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("t", [1, 17, 40, 288, 577, 1024, 1408])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_probs_consume_kernel_matches_plain(gen, t, dtype):
-    """B6: its probabilities are B1's bit for bit; the contraction of the
-    rounded probabilities within the tolerance of its scale."""
-    q, k, pq, pe, mask = _inputs(gen, t, dtype)
-    v = torch.randn((2, t, 4, 12), generator=gen, device="cuda").to(dtype)
+# B6's (T, VD, B, H): the serving T at the fm_decoder's VD = 12; other value
+# widths, with v staged once a block (T = 40, and VD 4 / 16 at T = 1024) or
+# streamed through a chunk of keys (VD 64 / 96 at T = 1024); long T at
+# B = H = 1 (v streamed, fewer rows a tile; the 1-row tile at T = 8000)
+_CONSUME_CASES = ([(t, 12, 2, 4) for t in (1, 17, 40, 288, 577, 1024, 1408)]
+                  + [(t, vd, 2, 4) for vd in (4, 16, 64, 96) for t in (40, 1024)]
+                  + [(4000, 12, 1, 1), (8000, 12, 1, 1)])
+
+
+@pytest.mark.parametrize("t,vd,b,h", _CONSUME_CASES)
+@pytest.mark.parametrize("dtype,out_dtype", _DTYPE_PAIRS)
+def test_probs_consume_kernel_matches_plain(gen, t, vd, b, h, dtype, out_dtype):
+    """B6: its probabilities are B1's bit for bit (and within the probs
+    dtype's tolerance of plain); its output within v's dtype's tolerance
+    (of the output's scale) of the plain contraction of those rounded
+    probabilities, and within the coarser of the two dtypes' tolerances of
+    the plain version end to end (bf16 probabilities that round the other
+    way than plain's move an f32 output by up to a bf16 unit); a second
+    launch on the same inputs gives the same bits (no atomics)."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, b=b, h=h)
+    v = torch.randn((b, t, h, vd), generator=gen, device="cuda").to(dtype)
     n = att.rel_attention_probs_consume.launches
-    probs, out = att.rel_attention_probs_consume(q, k, pq, pe, mask, v)
-    ref_p, ref_o = att.rel_attention_probs_consume_plain(q, k, pq, pe, mask, v)
+    probs, out = att.rel_attention_probs_consume(q, k, pq, pe, mask, v, out_dtype=out_dtype)
+    probs2, out2 = att.rel_attention_probs_consume(q, k, pq, pe, mask, v, out_dtype=out_dtype)
+    ref_p, ref_o = att.rel_attention_probs_consume_plain(q, k, pq, pe, mask, v, out_dtype)
     torch.cuda.synchronize()
-    assert att.rel_attention_probs_consume.launches == n + 1
-    assert torch.equal(probs, att.rel_attention_probs(q, k, pq, pe, mask))
-    assert float((probs.float() - ref_p.float()).abs().max()) <= TOL[dtype]
-    assert out.dtype == dtype and _rel(out, ref_o) <= TOL[dtype]
+    assert att.rel_attention_probs_consume.launches == n + 2
+    assert probs.dtype == out_dtype and probs.shape == (b, h, t, t)
+    assert torch.equal(probs, att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=out_dtype))
+    assert float((probs.float() - ref_p.float()).abs().max()) <= TOL[out_dtype]
+    assert out.dtype == dtype and out.shape == (b, t, h, vd)
+    assert _rel(out, att.rel_attention_probs_apply_plain(probs, v)) <= TOL[dtype]
+    assert _rel(out, ref_o) <= max(TOL[dtype], TOL[out_dtype])
+    assert torch.equal(probs2, probs) and torch.equal(out2, out)
 
 
 @pytest.mark.parametrize("t", [1, 17, 40, 288, 577, 1024, 1408])

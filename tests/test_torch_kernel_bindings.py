@@ -1,0 +1,94 @@
+"""The ctypes bindings and the build of the port's CUDA kernels, checked
+without a compiler: each C entry point that ``ops/attention.py`` binds
+lives in the library it is mapped to, and its argtypes follow the C
+parameter list (a pointer for each pointer, a 32-bit int for each int, a
+float for each float; a mismatch would pass pointers cut to 32 bits or
+arguments shifted by one, which only a run on the card would show
+otherwise); ``ops/build.py`` compiles every source of a library and links
+them into it, and names the library by all of them."""
+
+import ctypes
+import re
+import sys
+
+import pytest
+
+from zipvoice_tpu_torch.ops import attention as att
+from zipvoice_tpu_torch.ops import build
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_params(lib: str, symbol: str):
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert m, f"{symbol} is not defined in csrc/{lib}.cu"
+    kinds = []
+    for p in m.group(1).split(","):
+        p = re.sub(r"\bconst\b", "", p).split()
+        kinds.append("void*" if "*" in "".join(p) else p[0])
+    return kinds
+
+
+@pytest.mark.parametrize("symbol", sorted(att._SIGNATURES))
+def test_attention_entry_points_match_their_sources(symbol):
+    lib, argtypes = att._SIGNATURES[symbol]
+    assert lib in build.SOURCES
+    assert [_C_TYPES[k] for k in _c_params(lib, symbol)] == argtypes
+
+
+def test_probs_consume_shares_b1s_kernel_body():
+    """B6 is B1's kernel body with an epilogue: every source of both
+    libraries includes the header that holds it, and the old B6 of
+    rel_consume_fwd.cu is gone."""
+    for symbol in ("zv_rel_probs", "zv_rel_probs_consume"):
+        for src in build.sources(att._SIGNATURES[symbol][0]):
+            assert '#include "rel_probs.cuh"' in (build.CSRC / f"{src}.cu").read_text()
+    assert build.sources("rel_probs_consume") == ("rel_probs_consume", "rel_probs_consume_bf16")
+    assert "zv_rel_probs_consume" not in (build.CSRC / "rel_consume_fwd.cu").read_text()
+
+
+@pytest.fixture
+def fake_tree(tmp_path, monkeypatch):
+    """A csrc/ of two libraries, "a" of sources a.cu and b.cu and "c" of
+    c.cu, a header, and a stand-in nvcc that writes its -o file."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a", "b", "c"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    (csrc / "h.cuh").write_text("// header\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\na = sys.argv[1:]\n"
+                    "print(' '.join(a))\nopen(a[a.index('-o') + 1], 'w').write('x')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD", out)
+    monkeypatch.setattr(build, "SOURCES", ("a", "c"))
+    monkeypatch.setattr(build, "EXTRA_SOURCES", {"a": ("b",)})
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    return csrc, out
+
+
+def test_library_name_covers_every_source(fake_tree):
+    """Editing any source of a library, its extra ones too, or a header
+    renames it, so that a stale library is never loaded."""
+    csrc, _ = fake_tree
+    names = [build.library_path("a")]
+    for edited in ("b.cu", "h.cuh", "a.cu"):
+        (csrc / edited).write_text("// edited\n")
+        names.append(build.library_path("a"))
+    assert len(set(names)) == 4
+    assert build.library_path("c") != build.library_path("a")
+
+
+def test_build_all_links_every_source_into_its_library(fake_tree):
+    _, out = fake_tree
+    logs = build.build_all()
+    assert sorted(logs) == ["a", "c"]
+    assert "a.cu" in logs["a"] and "b.cu" in logs["a"] and "b.cu" not in logs["c"]
+    # one link a library, of the objects of all its sources
+    link_a = next(line for line in logs["a"].splitlines() if line.startswith("-shared"))
+    assert ".o" in link_a and link_a.count(".o") == 2
+    built = sorted(p.name for p in out.iterdir())
+    assert built == sorted([build.library_path("a").name, build.library_path("c").name])
+    assert build.build_all() == {}  # nothing stale, nothing built

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Device times of the port's rel-position attention kernels (B1, B5, B6,
+B7) on one NVIDIA card, at the shapes and with the timing of chip_smoke.py,
+for comparing two checkouts of this repository on one card in one run.
+
+    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B5,B6,B7]
+                                        [--tag NAME]
+
+--tree is the root of the checkout whose ``zipvoice_tpu_torch`` is timed
+(default: this one).  Only the kernel libraries that the chosen kernels
+need are built, with nvcc, into that checkout's build directory.  Shapes:
+B1 at chip_smoke.py's phase-3 cases (B=2, H=4, T 1024/512/256/288/577/40),
+B6 and B7 at its phase-3c cases (T also 1152 and 1408; B7 at C=384, 144 at
+T=40), B5 at its APPLY_CASES without the const gate; f32 and bf16 each.
+Times are chip_smoke.time_ms (mean of 10 launches, L2 flushed, the host
+hidden behind a device sleep), taken from this checkout's chip_smoke.py.
+
+Compare two versions in one call, in turns: parent, change, change,
+parent.  Each run prints one line a case and, last, a JSON object
+{"tag", "card", "ms": {"B6 T=1024 float32": ms, ...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+# the C entry point of each kernel, whose library the run builds
+SYMBOLS = {"B1": "zv_rel_probs", "B5": "zv_rel_apply", "B6": "zv_rel_probs_consume",
+           "B7": "zv_rel_head0_consume"}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", type=Path, default=HERE)
+    ap.add_argument("--kernels", default="B1,B5,B6,B7")
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args()
+    kernels = args.kernels.split(",")
+
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs  # shapes and timing; imports nothing of the port
+
+    sys.path.insert(0, str(args.tree.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_rel_attention: CUDA is not available", file=sys.stderr)
+        return 2
+    from zipvoice_tpu_torch.ops import attention as att
+    from zipvoice_tpu_torch.ops import build
+
+    build.SOURCES = tuple(sorted({att._SIGNATURES[SYMBOLS[k]][0] for k in kernels}))
+    build.build_all()
+    card = cs.card_line()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ms = {}
+
+    def record(name, fn):
+        ms[name] = cs.time_ms(fn)
+        print(f"{args.tag} {name}: {ms[name]:.4f} ms", flush=True)
+
+    dtypes = (torch.float32, torch.bfloat16)
+    if "B1" in kernels:
+        for t, _ in [(1024, 0), (512, 0), (256, 0), (288, 0), (577, 0), (40, 0)]:
+            for dtype in dtypes:
+                q, k, pq, pe, mask, _, _ = cs._rel_inputs(gen, 2, 4, t, 12, dtype)
+                record(f"B1 T={t} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=dtype))
+    for t, kind in cs.FUSED_ATTN_CASES:
+        for dtype in dtypes:
+            if not {"B6", "B7"} & set(kernels):
+                break
+            q, k, pq, pe, mask, v, _ = cs._rel_inputs(gen, 2, 4, t, 12, dtype)
+            if "B6" in kernels:
+                record(f"B6 T={t} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_probs_consume(q, k, pq, pe, mask, v))
+            if "B7" in kernels:
+                c = 144 if kind == "text" else 384
+                v0 = torch.randn((2, t, c), generator=gen, device="cuda").to(dtype)
+                record(f"B7 T={t} C={c} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_head0_consume(q, k, pq, pe, mask, v0))
+    if "B5" in kernels:
+        for b, h, t, vd in cs.APPLY_CASES:
+            for dtype in dtypes:
+                q, k, pq, pe, mask, v, _ = cs._rel_inputs(gen, b, h, t, vd, dtype)
+                record(f"B5 B={b} H={h} T={t} vd={vd} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_apply(q, k, pq, pe, mask, v,
+                                                       out_dtype=torch.float32))
+    print(json.dumps({"tag": args.tag, "card": card, "ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

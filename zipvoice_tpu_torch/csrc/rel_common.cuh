@@ -1,5 +1,5 @@
-// Shared device code of the relative-position attention kernels B1
-// (rel_probs.cu), B3 (rel_apply_bwd.cu), B4 (rel_ds.cu) and B5-B7
+// Shared device code of the relative-position attention kernels B1 and B6
+// (rel_probs.cu), B3 (rel_apply_bwd.cu), B4 (rel_ds.cu), B5 and B7
 // (rel_consume_fwd.cu); B9 (conv_glu.cu) takes its type and copy helpers.
 // The score of
 // query row i against key j is

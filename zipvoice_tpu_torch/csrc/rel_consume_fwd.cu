@@ -1,14 +1,11 @@
 // Relative-position attention forwards with a fused probs @ V epilogue:
-// B6, B7 and B5.
+// B7 and B5.  (B6, which also writes the probabilities, is B1's kernel with
+// an epilogue, in rel_probs.cu.)
 //
 // Each replaces a TPU kernel of zipvoice_tpu/ops/attention.py that is B1's
 // row tile (p = softmax_j(q_i.k_j + pq_i.pe[j-i+T-1] + bias_j), scores and
 // softmax in f32) followed by a contraction with a value stream:
 //
-//   B6 `rel_attention_probs_consume` (body `_probs_consume_kernel`): writes
-//      the probabilities (B,H,T,T) in the probs dtype and contracts the
-//      ROUNDED values with v (B,T,H,VD): out = round(p) @ v, f32 sums, out
-//      in v's dtype.  The probabilities equal B1's bit for bit.
 //   B7 `rel_attention_head0_consume` (body `_head0_consume_kernel`): head 0
 //      only; the probabilities, rounded to v's dtype, contract the wide gated
 //      value stream v (B,T,C) (C = 384 fm_decoder, 144 text encoder); they
@@ -26,10 +23,9 @@
 // nothing is padded (the TPU kernels pad T to 128 and the value width to
 // 128 lanes).  VD must be a multiple of 4.
 //
-// B6 and B5 (`consume_tile`): what bounds them on an H100 is B6's (B,H,T,T)
-// probabilities written (bytes) and B5's contraction at the head-0 width.
-// The epilogue splits the contraction over (4-wide column group, key
-// slice) work items: the column groups are padded to a power of two (12
+// B5 (`consume_tile`): what bounds it on an H100 is its contraction at the
+// head-0 width.  The epilogue splits the contraction over (4-wide column
+// group, key slice) work items: the column groups are padded to a power of two (12
 // wide: 4 groups, 64 key slices; 384 wide: 128 groups, 2 slices), a thread
 // reads float4s of v for kUnroll keys at once, the next kUnroll in flight
 // while it sums these, into rows x 4 f32 sums in registers against
@@ -84,13 +80,11 @@ constexpr int kNarrow = 256, kWide = 512;
 constexpr int kMaxRows = 16;
 constexpr int kUnroll = 4;  // keys a thread loads at once in the epilogue
 
-enum Mode { kProbsConsume, kApply };
-
 struct Args {
   const void *q, *kt, *pq, *pe, *v;
   const uint8_t* mask;
-  void *probs, *out;
-  int T, H, VD, rows, probs_bf16, out_bf16, const_gate;
+  void* out;
+  int T, H, VD, rows, out_bf16, const_gate;
 };
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
@@ -122,7 +116,7 @@ __device__ __forceinline__ void store(void* dst, size_t i, float x, int bf16) {
 
 // One row tile of (b, h): kt slice `kslice` of kt; v and out rows of key /
 // query j at ((b*T + j)*vH + vh)*VD.
-template <int QD, typename Tin, int kMode, int NT>
+template <int QD, typename Tin, int NT>
 __device__ __forceinline__ void consume_tile(const Args& a, int b, int h, int kslice, int vH,
                                              int vh) {
   constexpr int kInBf16 = std::is_same<Tin, __nv_bfloat16>::value;
@@ -159,14 +153,7 @@ __device__ __forceinline__ void consume_tile(const Args& a, int b, int h, int ks
       sum += e;
     }
     const float inv = 1.f / warp_sum(sum);
-    if (kMode == kProbsConsume) {
-      const size_t orow = ((size_t)(b * a.H + h) * T + i0 + r) * T;
-      for (int j = lane; j < T; j += 32) {
-        const float p = round_to(prow[j] * inv, a.probs_bf16);
-        store(a.probs, orow + j, p, a.probs_bf16);
-        prow[j] = p;
-      }
-    } else if (kMode == kApply && a.const_gate) {
+    if (a.const_gate) {
       // the const-attention branch: the row-normalised support indicator
       float cnt = 0.f;
       for (int j = lane; j < T; j += 32) cnt += (prow[j] * inv > 0.f) ? 1.f : 0.f;
@@ -271,46 +258,38 @@ __device__ __forceinline__ void consume_tile(const Args& a, int b, int h, int ks
   }
 }
 
-// B6: grid (row tiles, B*H)
-template <int QD, typename Tin, int NT>
-__global__ void __launch_bounds__(NT) rel_probs_consume_kernel(Args a) {
-  const int bh = blockIdx.y;
-  consume_tile<QD, Tin, kProbsConsume, NT>(a, bh / a.H, bh % a.H, bh, a.H, bh % a.H);
-}
-
 // B5: grid (row tiles, B*H)
 template <int QD, typename Tin, int NT>
 __global__ void __launch_bounds__(NT) rel_apply_kernel(Args a) {
   const int bh = blockIdx.y;
-  consume_tile<QD, Tin, kApply, NT>(a, bh / a.H, bh % a.H, bh, a.H, bh % a.H);
+  consume_tile<QD, Tin, NT>(a, bh / a.H, bh % a.H, bh, a.H, bh % a.H);
 }
 
 template <int QD, typename Tin, int NT>
-int launch_typed(int mode, Args a, int grid_y, cudaStream_t stream) {
+int launch_typed(Args a, int grid_y, cudaStream_t stream) {
   const int max_smem = max_optin_smem();
   // 16 rows as B1; fewer only where a long T's score rows do not fit
   a.rows = fit_rows(kMaxRows, max_smem, [&](int r) { return smem_floats(a.T, r, QD, a.VD); });
   const size_t smem = smem_floats(a.T, a.rows, QD, a.VD) * sizeof(float);
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  auto kern = mode == kProbsConsume ? rel_probs_consume_kernel<QD, Tin, NT>
-                                    : rel_apply_kernel<QD, Tin, NT>;
+  auto kern = rel_apply_kernel<QD, Tin, NT>;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3((a.T + a.rows - 1) / a.rows, grid_y), NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int launch(int mode, const Args& a, int grid_y, int QD, int PD, int bf16, void* stream) {
+int launch(const Args& a, int grid_y, int QD, int PD, int bf16, void* stream) {
   if (PD != kPD || a.T <= 0 || a.H <= 0 || grid_y <= 0 || a.VD <= 0 || a.VD % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = a.VD > 64;
 #define ZV_LAUNCH(QDV)                                                                  \
   if (bf16)                                                                             \
-    return wide ? launch_typed<QDV, __nv_bfloat16, kWide>(mode, a, grid_y, s)           \
-                : launch_typed<QDV, __nv_bfloat16, kNarrow>(mode, a, grid_y, s);        \
-  return wide ? launch_typed<QDV, float, kWide>(mode, a, grid_y, s)                     \
-              : launch_typed<QDV, float, kNarrow>(mode, a, grid_y, s)
+    return wide ? launch_typed<QDV, __nv_bfloat16, kWide>(a, grid_y, s)                 \
+                : launch_typed<QDV, __nv_bfloat16, kNarrow>(a, grid_y, s);              \
+  return wide ? launch_typed<QDV, float, kWide>(a, grid_y, s)                           \
+              : launch_typed<QDV, float, kNarrow>(a, grid_y, s)
   switch (QD) {
     case 8: ZV_LAUNCH(8);
     case 16: ZV_LAUNCH(16);
@@ -672,17 +651,6 @@ int launch_head0(const H0Args& a, int QD, int PD, int bf16, void* stream) {
 // long for shared memory).  q, pq: (B,T,H,QD/PD); pe: (2T-1,H,PD); mask:
 // (B,T) uint8 or null; bf16: q, k, pq, pe and v are bf16 (else f32).
 
-// B6: kt (B,H,QD,T); v (B,T,H,VD); probs (B,H,T,T) in bf16 if probs_bf16;
-// out (B,T,H,VD) in v's dtype.
-extern "C" int zv_rel_probs_consume(const void* q, const void* kt, const void* pq, const void* pe,
-                                    const void* mask, const void* v, void* probs, void* out,
-                                    int B, int T, int H, int QD, int PD, int VD, int bf16,
-                                    int probs_bf16, void* stream) {
-  const Args a{q, kt, pq, pe, v, static_cast<const uint8_t*>(mask), probs, out,
-               T, H, VD, 0, probs_bf16, bf16, 0};
-  return launch(kProbsConsume, a, B * H, QD, PD, bf16, stream);
-}
-
 // B7: kt0 (B,QD,T), head 0's keys; v (B,T,C); out (B,T,C) in v's dtype.
 extern "C" int zv_rel_head0_consume(const void* q, const void* kt0, const void* pq,
                                     const void* pe, const void* mask, const void* v, void* out,
@@ -708,7 +676,7 @@ extern "C" int zv_rel_apply(const void* q, const void* kt, const void* pq, const
                             const void* mask, const void* v, void* out, int B, int T, int H,
                             int QD, int PD, int VD, int bf16, int out_bf16, int const_gate,
                             void* stream) {
-  const Args a{q, kt, pq, pe, v, static_cast<const uint8_t*>(mask), nullptr, out,
-               T, H, VD, 0, 0, out_bf16, const_gate};
-  return launch(kApply, a, B * H, QD, PD, bf16, stream);
+  const Args a{q, kt, pq, pe, v, static_cast<const uint8_t*>(mask), out,
+               T, H, VD, 0, out_bf16, const_gate};
+  return launch(a, B * H, QD, PD, bf16, stream);
 }

@@ -1,6 +1,7 @@
-// Tensor-core and asynchronous-copy building blocks of the redesigned B7
-// (rel_consume_fwd.cu) and B9 (conv_glu.cu): inline PTX for `cp.async`,
-// `ldmatrix` and `mma.sync` (sm_80 and later, built here for sm_90a).
+// Tensor-core and asynchronous-copy building blocks of the redesigned B6
+// (rel_probs.cu), B7 (rel_consume_fwd.cu) and B9 (conv_glu.cu): inline PTX
+// for `cp.async`, `ldmatrix` and `mma.sync` (sm_80 and later, built here
+// for sm_90a).
 //
 // Fragment layouts are those of the PTX ISA for m16n8k16 (bf16) and m16n8k8
 // (tf32), with g = lane / 4 and t = lane % 4:
@@ -27,7 +28,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Asynchronous global -> shared copy of 16 (or 8) bytes; src_bytes = 0
+// Asynchronous global -> shared copy of 16 (or 8, or 4) bytes; src_bytes = 0
 // writes zeros and reads nothing (the ragged edges).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
@@ -36,6 +37,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>

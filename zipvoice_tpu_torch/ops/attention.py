@@ -2,9 +2,10 @@
 
 Seven kernels carry the Zipformer attention:
 
-* ``rel_attention_probs`` (B1, ``csrc/rel_probs.cu``): softmax over keys of
-  q.k + pq.pe[j - i + T - 1] + key-padding bias, (B, H, T, T).  It is
-  differentiable: its backward is B4 plus four matmul adjoints.
+* ``rel_attention_probs`` (B1, ``csrc/rel_probs.cu``, its kernel in
+  ``csrc/rel_probs.cuh``): softmax over keys of q.k + pq.pe[j - i + T - 1]
+  + key-padding bias, (B, H, T, T).  It is differentiable: its backward is
+  B4 plus four matmul adjoints.
 * ``rel_attention_ds`` (B4, ``csrc/rel_ds.cu``): the score cotangent
   ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit), with the
   probabilities recomputed from q, k, pq, pe.
@@ -15,13 +16,14 @@ Seven kernels carry the Zipformer attention:
   backward of ``rel_attention_consume``, which contracts a layer's shared
   stop-gradient probabilities with one consumer's values in the forward
   and recomputes them in the backward to emit dq, dk, dpq, dpe, dv.
-* ``rel_attention_probs_consume`` (B6, ``csrc/rel_consume_fwd.cu``): B1
-  with a fused epilogue, (probs, rounded probs @ v); the fused eval path's
+* ``rel_attention_probs_consume`` (B6, ``csrc/rel_probs_consume.cu``):
+  B1's kernel with a fused epilogue on the tensor cores, (probs, rounded
+  probs @ v), its probabilities B1's bit for bit; the fused eval path's
   SelfAttention-1, which hands the probabilities to SelfAttention-2.
-* ``rel_attention_head0_consume`` (B7, same source): head 0's
+* ``rel_attention_head0_consume`` (B7, ``csrc/rel_consume_fwd.cu``): head 0's
   probabilities, recomputed and never written, @ the wide NonlinAttention
   value stream (B, T, C); the fused eval path's NonlinAttention.
-* ``rel_attention_apply`` (B5, same source): softmax(scores) @ v with the
+* ``rel_attention_apply`` (B5, B7's source): softmax(scores) @ v with the
   const-attention gate, differentiable through B3.  No model path calls
   it; it is the op the JAX package exposes as ``rel_attention_apply``.
 
@@ -255,7 +257,7 @@ _SIGNATURES = {
     "zv_rel_apply_bwd": ("rel_apply_bwd", [_P] * 13 + [_I] * 9 + [_F, _F, _P]),
     # zv_rel_probs_consume(q, kt, pq, pe, mask, v, probs, out,
     #                      B, T, H, QD, PD, VD, bf16, probs_bf16, stream)
-    "zv_rel_probs_consume": ("rel_consume_fwd", [_P] * 8 + [_I] * 8 + [_P]),
+    "zv_rel_probs_consume": ("rel_probs_consume", [_P] * 8 + [_I] * 8 + [_P]),
     # zv_rel_head0_consume(q, kt0, pq, pe, mask, v, out, B, T, H, QD, PD, C, bf16, stream)
     "zv_rel_head0_consume": ("rel_consume_fwd", [_P] * 7 + [_I] * 7 + [_P]),
     # zv_rel_apply(q, kt, pq, pe, mask, v, out, B, T, H, QD, PD, VD, bf16, out_bf16,

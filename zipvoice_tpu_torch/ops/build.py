@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, ``build/lib<name>-<hash>.so``, and
-loaded through ctypes.  The hash is of the source and of the shared headers
-(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
-never loaded.  Nothing is compiled when the
-module is imported: the first kernel call (or ``build_all``) does it, and
-all sources compile in parallel.
+Each library ``<name>`` is ``csrc/<name>.cu`` (and the sources that
+``EXTRA_SOURCES`` adds to it), compiled by ``nvcc`` for ``sm_90a`` and
+linked into a shared library with a plain C interface,
+``build/lib<name>-<hash>.so``, loaded through ctypes.  The hash is of the
+library's sources and of the shared headers (``csrc/*.cuh``), so an edited
+kernel is rebuilt and a stale library is never loaded.  Nothing is compiled
+when the module is imported: the first kernel call (or ``build_all``) does
+it, and all sources compile in parallel.
 """
 
 from __future__ import annotations
@@ -22,11 +23,14 @@ from typing import Dict, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("rel_probs", "probs_apply", "rel_ds", "rel_apply_bwd", "log_mel",
-           "rel_consume_fwd", "conv_glu")
+SOURCES = ("rel_probs", "rel_probs_consume", "probs_apply", "rel_ds", "rel_apply_bwd",
+           "log_mel", "rel_consume_fwd", "conv_glu")
+# further sources of a library, each its own nvcc process: B6's instantiations
+# for bf16 inputs build beside those for f32 inputs
+EXTRA_SOURCES = {"rel_probs_consume": ("rel_probs_consume_bf16",)}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -43,8 +47,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def sources(name: str) -> Tuple[str, ...]:
+    """The source files (without ``.cu``) of library ``name``."""
+    return (name,) + EXTRA_SOURCES.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for src in sources(name):
+        h.update((CSRC / f"{src}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
@@ -59,27 +70,37 @@ def build_all() -> Dict[str, str]:
         return {}
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(name)
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, library_path(name))
+
+    def run(cmds):
+        """Run the commands side by side: ({key: output}, [failed keys])."""
+        procs = {key: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True) for key, cmd in cmds.items()}
+        outs = {key: proc.communicate()[0] for key, proc in procs.items()}
+        return outs, [key for key, proc in procs.items() if proc.returncode != 0]
+
+    # every source to an object, all at once; then each library linked
+    tag = f"{os.getpid()}.tmp"
+    objs = {(name, src): BUILD / f"{src}.{tag}.o" for name in todo for src in sources(name)}
+    outs, bad = run({key: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / f"{key[1]}.cu")]
+                     for key, obj in objs.items()})
+    logs = {name: "".join(outs[(name, src)] for src in sources(name)) for name in todo}
+    failed = sorted({name for name, _ in bad})
+    if not failed:
+        tmps = {name: library_path(name).with_suffix(f".{tag}") for name in todo}
+        links, failed = run({name: [nvcc, "-shared", "-o", str(tmps[name]),
+                                    *(str(objs[(name, src)]) for src in sources(name))]
+                             for name in todo})
+        for name in todo:
+            logs[name] += links[name]
+            if name in failed:
+                tmps[name].unlink(missing_ok=True)
+            else:
+                os.replace(tmps[name], library_path(name))
+    for obj in objs.values():
+        obj.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
-            + "\n".join(logs[n] for n in failed)
-        )
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
     return logs
 
 
