@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Phases (each raises on failure; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from zipvoice_tpu_torch/csrc with nvcc and print
-     the -Xptxas -v lines of B1's, B2's, B3's, B6's, B7's and B9's entry
-     points;
+     the -Xptxas -v lines of B1's, B2's, B3's, B4's, B6's, B7's and B9's
+     entry points;
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main-path shapes (B=2, H=4, T in 1024/512/256 with a
      padded tail in one batch row), ragged T (288, 577) and a text-encoder
@@ -51,8 +51,10 @@ Phases (each raises on failure; nothing is caught):
      losses, every parameter tensor changed, launches pinned per step (B1
      40, B2 80, B3 60 or B4 20, B8 1), warm step ms (median of the
      intervals after the first) and peak memory;
-  9. one warm training step under torch.profiler (device busy share, top
-     kernels; with --profile the trace goes to chiprun_out/ if present);
+  9. one warm training step with the regularizers and one without under
+     torch.profiler (device busy share, top kernels, B2's and B3's device ms
+     a step, B4's without the regularizers; with --profile the traces go to
+     the output directory if present);
   10. the training checkpoint, as a model dir's model.pt, drives the
      inference CLI.
 
@@ -244,12 +246,14 @@ TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
 
 # the redesigned kernels' symbols, as torch.profiler names them
 KERNEL_SYMBOLS = {"B1": ("rel_probs_kernel",), "B2": ("probs_apply_f32", "probs_apply_bf16"),
-                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel"), "B6": ("rel_probs_consume_kernel",),
-                  "B7": ("rel_head0_consume_kernel",), "B9": ("conv_glu_kernel",)}
+                  "B3": ("bwd_rows_kernel", "bwd_cols_kernel"), "B4": ("rel_ds_kernel",),
+                  "B6": ("rel_probs_consume_kernel",), "B7": ("rel_head0_consume_kernel",),
+                  "B9": ("conv_glu_kernel",)}
 # the redesigned kernels' entry points, by library, whose -Xptxas -v lines
 # the build prints in full
 ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",),
                  "rel_probs_consume": ("rel_probs_consume_kernel",),
+                 "rel_ds": ("rel_ds_kernel",),
                  "probs_apply": ("probs_apply",),
                  "rel_apply_bwd": ("bwd_",),
                  "rel_consume_fwd": ("rel_head0_consume_kernel",),
@@ -969,10 +973,13 @@ def run_training(root: Path, manifest: Path, card: str, regularizers: bool, step
     return per_step, launches, step_ms, peak_gib, exp, res
 
 
-def profile_train_step(res, manifest: Path, card: str):
-    """Phase 9: one warm training step (regularizers, bf16) under
-    torch.profiler: device busy share and the kernels that take the most
-    device time; with --profile the trace goes to chiprun_out/ if present."""
+def profile_train_step(res, manifest: Path, card: str, regularizers: bool = True):
+    """Phase 9: one warm training step (bf16; the trainer of `res` runs with
+    or without the regularizers) under torch.profiler: device busy share,
+    the device ms and calls of B2 and B3 (with the regularizers) or B4
+    (without), and the kernels that take the most device time; with
+    --profile the trace goes to the output directory if present.  Returns (wall s,
+    device busy s, {kernel: (device ms, calls)})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1004,12 +1011,13 @@ def profile_train_step(res, manifest: Path, card: str):
                     key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in events) / 1e6
     b, t = batch["features"].shape[:2]
-    b3_ms, b3_calls = _kernel_device_ms(events, "B3")
-    b2_ms, b2_calls = _kernel_device_ms(events, "B2")
-    print(f"profile train step (regularizers, bf16, B={b} T={t}): wall {wall * 1e3:.1f} ms, "
-          f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%); B3 "
-          f"{b3_ms:.3f} ms in {b3_calls} kernel calls, B2 {b2_ms:.3f} ms in {b2_calls} on {card}",
-          flush=True)
+    kind = "regularizers" if regularizers else "no-regularizers"
+    dev = {k: _kernel_device_ms(events, k) for k in (("B3", "B2") if regularizers else ("B4",))}
+    print(f"profile train step ({kind}, bf16, B={b} T={t}): wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%); "
+          + ", ".join(f"{k} {ms:.3f} ms in {n} kernel calls ({100 * ms / 1e3 / busy:.1f}% of "
+                      "busy)" for k, (ms, n) in dev.items())
+          + f" on {card}", flush=True)
     for e in events[:15]:
         print(f"  {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     # the host side: operators by their own CPU time
@@ -1021,8 +1029,8 @@ def profile_train_step(res, manifest: Path, card: str):
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     out = REPO / "chiprun_out"
     if "--profile" in sys.argv[1:] and out.is_dir():
-        prof.export_chrome_trace(str(out / "trace_train_step.json"))
-    return wall, busy, b3_ms
+        prof.export_chrome_trace(str(out / f"trace_train_step_{kind}.json"))
+    return wall, busy, dev
 
 
 def check_checkpoint_serves(root: Path, exp: Path, card: str):
@@ -1200,10 +1208,12 @@ def main() -> int:
         manifest = make_corpus(root)
         reg_step, reg_launches, reg_ms, reg_gib, exp, res = run_training(
             root, manifest, card, True, 6)
-        noreg_step, noreg_launches, noreg_ms, noreg_gib, _, _ = run_training(
+        noreg_step, noreg_launches, noreg_ms, noreg_gib, _, noreg_res = run_training(
             root, manifest, card, False, 5)
-        wall, busy, b3_step_ms = profile_train_step(res, manifest, card)
+        wall, busy, reg_dev = profile_train_step(res, manifest, card)
         del res
+        _, noreg_busy, noreg_dev = profile_train_step(noreg_res, manifest, card, False)
+        del noreg_res
         check_checkpoint_serves(root, exp, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1272,7 +1282,8 @@ def main() -> int:
           f"B1 {unfused_dev['B1'][0]:.3f} and B2 {unfused_dev['B2'][0]:.3f} unfused; "
           f"fused B2 {fused_dev['B2'][0]:.3f}, B6 {fused_dev['B6'][0]:.3f}, "
           f"B7 {fused_dev['B7'][0]:.3f}, B9 {fused_dev['B9'][0]:.3f}; "
-          f"B3 {b3_step_ms:.3f} a step; "
+          f"B3 {reg_dev['B3'][0]:.3f} a step, B4 {noreg_dev['B4'][0]:.3f} a step without "
+          f"the regularizers ({100 * noreg_dev['B4'][0] / 1e3 / noreg_busy:.1f}% of busy); "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

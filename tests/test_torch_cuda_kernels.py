@@ -157,19 +157,83 @@ def test_rel_apply_bwd_const_gate_support_is_b1s(gen, t, h, vd):
     assert _rel(dv, ref) <= 1e-6
 
 
-@pytest.mark.parametrize("t", [1, 40, 577, 1024])
+# B4's shapes (B, H, T, QD): rows that do not start 16-byte aligned (1, 17,
+# 40, 577), the training shape, a bucket with fewer rows a block (1152), the
+# long T of 8-, 4- and 1-row tiles with g staged (2000, 4000, 8000) and of
+# 1-row tiles with g read from device memory (10000), and the other head
+# dims
+_DS_CASES = ([(2, 4, t, 32) for t in (1, 17, 40, 577, 1024, 1152)] + [(8, 4, 1024, 32)]
+             + [(1, 1, t, 32) for t in (2000, 4000, 8000, 10000)]
+             + [(2, 4, 577, qd) for qd in (8, 16, 24, 64)])
+
+
+@pytest.mark.parametrize("b,h,t,qd", _DS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rel_ds_kernel_matches_plain(gen, t, dtype):
-    """B4 with the failsafe on: f32 within 2e-5, bf16 one unit in the last
-    place of ds (relative to its max)."""
-    q, k, pq, pe, mask = _inputs(gen, t, dtype)
-    gp = torch.randn((2, 4, t, t), generator=gen, device="cuda").to(dtype)
+@pytest.mark.parametrize("pen", [0.0, 1e-2])
+def test_rel_ds_kernel_matches_plain(gen, b, h, t, qd, dtype, pen):
+    """B4 with the failsafe off and on: f32 within 2e-5, bf16 one unit in
+    the last place of ds (relative to its max)."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, b=b, h=h, qd=qd)
+    gp = torch.randn((b, h, t, t), generator=gen, device="cuda").to(dtype)
     n = att.rel_attention_ds.launches
-    ds = att.rel_attention_ds(q, k, pq, pe, mask, gp, 1e-2, 25.0)
-    ref = att.rel_attention_ds_plain(q, k, pq, pe, mask, gp, 1e-2, 25.0)
+    ds = att.rel_attention_ds(q, k, pq, pe, mask, gp, pen, 25.0)
+    ref = att.rel_attention_ds_plain(q, k, pq, pe, mask, gp, pen, 25.0)
     torch.cuda.synchronize()
     assert att.rel_attention_ds.launches == n + 1
     assert ds.dtype == dtype and _rel(ds, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("b,h,t", [(2, 4, 577), (1, 1, 10000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_ds_kernel_twice_equal_bits(gen, b, h, t, dtype):
+    """No atomics and no order that changes between launches: two launches
+    give the same bits."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, b=b, h=h)
+    gp = torch.randn((b, h, t, t), generator=gen, device="cuda").to(dtype)
+    first = att.rel_attention_ds(q, k, pq, pe, mask, gp, 1e-2, 25.0)
+    assert torch.equal(first, att.rel_attention_ds(q, k, pq, pe, mask, gp, 1e-2, 25.0))
+
+
+def _gap_limit(q, k, pq, pe) -> float:
+    """A penalty limit that a few hundred |scores| cross, in a gap of at
+    least 1e-3 between two of them, so that the kernel's and the plain
+    version's f32 rounding cannot put a score on different sides."""
+    top = torch.topk(att.rel_scores_plain(q, k, pq, pe).abs().flatten(), 1000).values
+    for i in range(200, 999):
+        if float(top[i] - top[i + 1]) > 1e-3:
+            return float(top[i] + top[i + 1]) / 2
+    raise AssertionError("no gap in the top scores")
+
+
+@pytest.mark.parametrize("b,h,t", [(2, 4, 40), (2, 4, 577), (2, 4, 1024), (1, 1, 10000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_ds_kernel_penalty_alone(gen, b, h, t, dtype):
+    """With g = 0, ds is exactly the failsafe penalty pen * sign(s) * (|s| >
+    limit) on the pre-mask scores, padded keys included."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, b=b, h=h)
+    limit = _gap_limit(q, k, pq, pe)
+    ds = att.rel_attention_ds(q, k, pq, pe, mask, torch.zeros((b, h, t, t), device="cuda",
+                                                               dtype=dtype), 1e-2, limit)
+    want = att._penalty_term(att.rel_scores_plain(q, k, pq, pe), 1e-2, limit).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(ds, want)
+    assert bool((want != 0)[mask[:, None, None, :].expand_as(want)].any())  # padded keys
+
+
+@pytest.mark.parametrize("b,h,t", [(2, 4, 17), (2, 4, 577), (2, 4, 1024), (1, 1, 10000)])
+def test_rel_ds_kernel_one_hot_cotangent(gen, b, h, t):
+    """With g one-hot at key j of each row and no penalty, ds = p_j (delta_j
+    - p), p being B1's kernel's probabilities at the same inputs: B4 takes
+    B1's scores and softmax, and dot = p_j exactly, so only the two f32
+    roundings of the product remain."""
+    q, k, pq, pe, mask = _inputs(gen, t, torch.float32, b=b, h=h)
+    j = torch.randint(0, t, (b, h, t, 1), generator=gen, device="cuda")
+    g = torch.zeros((b, h, t, t), device="cuda").scatter_(-1, j, 1.0)
+    ds = att.rel_attention_ds(q, k, pq, pe, mask, g)
+    p = att.rel_attention_probs(q, k, pq, pe, mask)
+    want = p * (g - torch.gather(p, -1, j))
+    torch.cuda.synchronize()
+    assert float((ds - want).abs().max()) <= 2 ** -24 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("seconds", [0.05, 1.0, 10.0])

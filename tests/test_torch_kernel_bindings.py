@@ -48,6 +48,15 @@ def test_probs_consume_shares_b1s_kernel_body():
     assert "zv_rel_probs_consume" not in (build.CSRC / "rel_consume_fwd.cu").read_text()
 
 
+def test_rel_ds_shares_b1s_kernel_body():
+    """B4 is B1's kernel body with a score-cotangent epilogue: its one
+    source includes the header that holds the body and defines no kernel of
+    its own."""
+    src = (build.CSRC / "rel_ds.cu").read_text()
+    assert build.sources(att._SIGNATURES["zv_rel_ds"][0]) == ("rel_ds",)
+    assert '#include "rel_probs.cuh"' in src and "__global__" not in src
+
+
 @pytest.fixture
 def fake_tree(tmp_path, monkeypatch):
     """A csrc/ of two libraries, "a" of sources a.cu and b.cu and "c" of

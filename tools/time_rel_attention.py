@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Device times of the port's rel-position attention kernels (B1, B5, B6,
-B7) on one NVIDIA card, at the shapes and with the timing of chip_smoke.py,
-for comparing two checkouts of this repository on one card in one run.
+"""Device times of the port's rel-position attention kernels (B1, B4, B5,
+B6, B7) on one NVIDIA card, at the shapes and with the timing of
+chip_smoke.py, for comparing two checkouts of this repository on one card in
+one run.
 
     python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B5,B6,B7]
-                                        [--tag NAME]
+                                        [--tag NAME] [--ptxas FILE] [--sass FILE]
+    python3 tools/time_rel_attention.py [--tree DIR] --full-build
 
 --tree is the root of the checkout whose ``zipvoice_tpu_torch`` is timed
 (default: this one).  Only the kernel libraries that the chosen kernels
 need are built, with nvcc, into that checkout's build directory.  Shapes:
 B1 at chip_smoke.py's phase-3 cases (B=2, H=4, T 1024/512/256/288/577/40),
 B6 and B7 at its phase-3c cases (T also 1152 and 1408; B7 at C=384, 144 at
-T=40), B5 at its APPLY_CASES without the const gate; f32 and bf16 each.
+T=40), B5 at its APPLY_CASES without the const gate, B4 without the penalty
+at phase 3b's H=4 training cases (B=8, T 1024/512/256/288/577/120) and B1
+at the same shapes beside it; f32 and bf16 each.  --ptxas writes the
+-Xptxas -v lines of the libraries it built to FILE, and --sass their
+machine code (cuobjdump -sass), so that two checkouts' compiled code can be
+compared.  --full-build times the build of every
+kernel library of the checkout (as chip_smoke.py's phase 2 builds them)
+into a fresh directory, and times nothing else.
 Times are chip_smoke.time_ms (mean of 10 launches, L2 flushed, the host
 hidden behind a device sleep), taken from this checkout's chip_smoke.py.
 
@@ -24,14 +33,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 
 # the C entry point of each kernel, whose library the run builds
-SYMBOLS = {"B1": "zv_rel_probs", "B5": "zv_rel_apply", "B6": "zv_rel_probs_consume",
-           "B7": "zv_rel_head0_consume"}
+SYMBOLS = {"B1": "zv_rel_probs", "B4": "zv_rel_ds", "B5": "zv_rel_apply",
+           "B6": "zv_rel_probs_consume", "B7": "zv_rel_head0_consume"}
 
 
 def main() -> int:
@@ -39,8 +52,13 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, default=HERE)
     ap.add_argument("--kernels", default="B1,B5,B6,B7")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--ptxas", type=Path, default=None)
+    ap.add_argument("--sass", type=Path, default=None)
+    ap.add_argument("--full-build", action="store_true")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
+    if "B4" in kernels and "B1" not in kernels:
+        kernels.append("B1")  # B4 is timed beside B1 at its shapes
 
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs  # shapes and timing; imports nothing of the port
@@ -54,8 +72,30 @@ def main() -> int:
     from zipvoice_tpu_torch.ops import attention as att
     from zipvoice_tpu_torch.ops import build
 
+    if args.full_build:
+        build.BUILD.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build.BUILD) as tmp:
+            build.BUILD = Path(tmp)
+            t0 = time.monotonic()
+            build.build_all()
+            seconds = time.monotonic() - t0
+        print(json.dumps({"tag": args.tag, "card": cs.card_line(), "full_build_s": seconds,
+                          "libraries": len(build.SOURCES)}), flush=True)
+        return 0
     build.SOURCES = tuple(sorted({att._SIGNATURES[SYMBOLS[k]][0] for k in kernels}))
-    build.build_all()
+    logs = build.build_all()
+    if args.ptxas:  # without the compile times and the per-file namespace hashes
+        args.ptxas.write_text("".join(
+            f"{name}: {re.sub(r'_GLOBAL__N__[0-9a-f]+_', '_GLOBAL__N__', line.strip())}\n"
+            for name, log in sorted(logs.items()) for line in log.splitlines()
+            if ("ptxas" in line or "spill" in line) and "Compile time" not in line))
+    if args.sass:
+        cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+        args.sass.write_text("".join(
+            f"{name}: {re.sub(r'_GLOBAL__N__[0-9a-f]+_', '_GLOBAL__N__', line.rstrip())}\n"
+            for name in build.SOURCES for line in subprocess.run(
+                [str(cuobjdump), "-sass", str(build.library_path(name))], check=True,
+                capture_output=True, text=True).stdout.splitlines()))
     card = cs.card_line()
     gen = torch.Generator(device="cuda").manual_seed(0)
     ms = {}
@@ -65,6 +105,18 @@ def main() -> int:
         print(f"{args.tag} {name}: {ms[name]:.4f} ms", flush=True)
 
     dtypes = (torch.float32, torch.bfloat16)
+    if "B4" in kernels:
+        for _, b, h, t, vd in cs.TRAIN_ATTN_CASES:
+            if h != 4:
+                continue
+            for dtype in dtypes:
+                q, k, pq, pe, mask, _, _ = cs._rel_inputs(gen, b, h, t, vd, dtype, scale=1.5)
+                gp = torch.randn((b, h, t, t), generator=gen, device="cuda").to(dtype)
+                record(f"B4 B={b} T={t} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_ds(q, k, pq, pe, mask, gp))
+                record(f"B1 B={b} T={t} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=dtype))
+                del gp
     if "B1" in kernels:
         for t, _ in [(1024, 0), (512, 0), (256, 0), (288, 0), (577, 0), (40, 0)]:
             for dtype in dtypes:

@@ -1,6 +1,6 @@
-// Shared device code of the relative-position attention kernels B1 and B6
-// (rel_probs.cu), B3 (rel_apply_bwd.cu), B4 (rel_ds.cu), B5 and B7
-// (rel_consume_fwd.cu); B9 (conv_glu.cu) takes its type and copy helpers.
+// Shared device code of the relative-position attention kernels B1, B4 and
+// B6 (rel_probs.cuh), B3 (rel_apply_bwd.cu), B5 and B7 (rel_consume_fwd.cu);
+// B9 (conv_glu.cu) takes its type and copy helpers.
 // The score of
 // query row i against key j is
 //
@@ -117,10 +117,10 @@ __device__ __forceinline__ void stage_row_tile(const Tin* __restrict__ q,
       [&](int idx, float x) { band[idx] = x; });
 }
 
-// scores[r*T + j] = s[i0 + r, j] (+ the key's mask bias when kAddBias) for
-// r < nrows and every key j: lane = key, k column in registers, q rows as
-// shared-memory float4 broadcasts.  ktb is kt of this (b, h).
-template <int QD, typename Tin, bool kAddBias>
+// scores[r*T + j] = s[i0 + r, j] + the key's mask bias for r < nrows and
+// every key j: lane = key, k column in registers, q rows as shared-memory
+// float4 broadcasts.  ktb is kt of this (b, h).
+template <int QD, typename Tin>
 __device__ __forceinline__ void row_tile_scores(const Tin* __restrict__ ktb,
                                                 const uint8_t* __restrict__ mask,
                                                 const float* qs, const float* pqs,
@@ -133,7 +133,7 @@ __device__ __forceinline__ void row_tile_scores(const Tin* __restrict__ ktb,
     float kr[QD];
 #pragma unroll
     for (int d = 0; d < QD; ++d) kr[d] = to_f32(ktb[(size_t)d * T + j]);
-    const float bias = kAddBias ? mask_bias(mask, b, T, j) : 0.f;
+    const float bias = mask_bias(mask, b, T, j);
     for (int r = 0; r < nrows; ++r) {
       float s = 0.f;
 #pragma unroll
@@ -153,22 +153,6 @@ __device__ __forceinline__ void row_tile_scores(const Tin* __restrict__ ktb,
       scores[(size_t)r * T + j] = s + bias;
     }
   }
-}
-
-// Softmax statistics of one pre-mask score row, by one warp: the max of
-// s + bias and the inverse of sum(exp(s + bias - max)), so that
-// p_j = exp(s_j + bias_j - mx) * inv.
-__device__ __forceinline__ void row_softmax_stats(const float* srow, const uint8_t* mask,
-                                                  int b, int T, float* mx_out,
-                                                  float* inv_out) {
-  const int lane = threadIdx.x & 31;
-  float mx = -INFINITY;
-  for (int j = lane; j < T; j += 32) mx = fmaxf(mx, srow[j] + mask_bias(mask, b, T, j));
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < T; j += 32) sum += expf(srow[j] + mask_bias(mask, b, T, j) - mx);
-  *mx_out = mx;
-  *inv_out = 1.f / warp_sum(sum);
 }
 
 // The failsafe penalty's share of a score cotangent: pen * sign(s) where

@@ -136,7 +136,7 @@ __device__ __forceinline__ void consume_tile(const Args& a, int b, int h, int ks
   stage_row_tile<QD>(q, static_cast<const Tin*>(a.pq), static_cast<const Tin*>(a.pe), qs, pqs,
                      band, b, h, T, a.H, i0, rows);
   __syncthreads();
-  row_tile_scores<QD, Tin, true>(ktb, a.mask, qs, pqs, band, P, b, T, rows, nrows);
+  row_tile_scores<QD, Tin>(ktb, a.mask, qs, pqs, band, P, b, T, rows, nrows);
   __syncthreads();
 
   // softmax, one warp a row (B1's operations), then the values the
@@ -434,7 +434,7 @@ __global__ void __launch_bounds__(kH0Threads, 1) rel_head0_consume_kernel(H0Args
   stage_row_tile<QD>(static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.pq),
                      static_cast<const Tin*>(a.pe), qs, pqs, band, b, 0, T, a.H, i0, rows);
   __syncthreads();
-  row_tile_scores<QD, Tin, true>(static_cast<const Tin*>(a.kt) + (size_t)b * QD * T, a.mask,
+  row_tile_scores<QD, Tin>(static_cast<const Tin*>(a.kt) + (size_t)b * QD * T, a.mask,
                                  qs, pqs, band, S, b, T, rows, nrows);
   __syncthreads();
 

@@ -1,6 +1,7 @@
 // B1: relative-position attention probabilities (TPU kernel
 // zipvoice_tpu/ops/attention.py `_pallas_rel_probs`).  The kernel and its
-// design are in rel_probs.cuh, which B6 (rel_probs_consume.cu) shares.
+// design are in rel_probs.cuh, which B6 (rel_probs_consume.cu) and B4
+// (rel_ds.cu) share.
 
 #include "rel_probs.cuh"
 
@@ -13,8 +14,9 @@
 extern "C" int zv_rel_probs(const void* q, const void* kt, const void* pq, const void* pe,
                             const void* mask, void* out, int B, int T, int H, int QD,
                             int PD, int in_bf16, int out_bf16, void* stream) {
-  return in_bf16 ? launch_in<false, __nv_bfloat16>(q, kt, pq, pe, mask, out, B, T, H, QD, PD,
-                                                   out_bf16, ConsumeArgs{}, stream)
-                 : launch_in<false, float>(q, kt, pq, pe, mask, out, B, T, H, QD, PD,
-                                           out_bf16, ConsumeArgs{}, stream);
+  return in_bf16 ? launch_in<Epi::kProbs, __nv_bfloat16>(q, kt, pq, pe, mask, out, B, T, H, QD,
+                                                         PD, out_bf16, ConsumeArgs{}, DsArgs{},
+                                                         stream)
+                 : launch_in<Epi::kProbs, float>(q, kt, pq, pe, mask, out, B, T, H, QD, PD,
+                                                 out_bf16, ConsumeArgs{}, DsArgs{}, stream);
 }

@@ -1,7 +1,8 @@
-// Relative-position attention probabilities for the Zipformer (B1), and the
-// same probabilities with a fused probs @ V epilogue (B6): the kernel body
-// both share, their kernels and launch code.  rel_probs.cu builds B1's
-// entry point, rel_probs_consume.cu B6's, as two libraries that nvcc
+// Relative-position attention probabilities for the Zipformer (B1), the
+// same probabilities with a fused probs @ V epilogue (B6), and their score
+// cotangent (B4): the kernel body the three share (one epilogue mode each),
+// their kernels and launch code.  rel_probs.cu builds B1's entry point,
+// rel_probs_consume.cu B6's, rel_ds.cu B4's, as libraries that nvcc
 // compiles side by side.
 //
 // B1 replaces the TPU kernel zipvoice_tpu/ops/attention.py `_pallas_rel_probs`
@@ -88,6 +89,33 @@
 // `mma.sync` a 16-key step and warp bounds it, in bf16 the latency of the
 // steps.  Overlapping it with the next tile's scores (a second score
 // buffer, the warps split between the two) measured slower.
+//
+// B4's epilogue.  B4 replaces `_pallas_rel_ds` (body `_bwd_kernel`), B1's
+// backward with the probabilities recomputed:
+//
+//   ds[i,j] = p[i,j] * (g[i,j] - sum_j' g[i,j'] p[i,j'])
+//             + pen * sign(s[i,j]) * (|s[i,j]| > limit)
+//
+// with s the pre-mask score (padded keys get the penalty too); g and ds
+// (B,H,T,T) in the input type.  What bounds it on an H100: B1's score FMAs
+// and the two (B,H,T,T) streams, g read and ds written (at B=8, H=4, T=1024
+// in f32: 268 MB, 80 us at 3.35 TB/s).  On B1's body:
+//   * the score rows hold the pre-mask s; the running row max is still
+//     over s + bias, and the row passes add the bias (staged once a block)
+//     with the same floating-point add, so p keeps B1's bits;
+//   * the tile's R rows of g go to shared memory by 16-byte `cp.async`,
+//     issued before the tile's scores (the first tile's before the rows
+//     are staged), so that the g stream lands while the FMAs run; each row
+//     keeps its offset from a 16-byte boundary, so the copies and the write
+//     pass's vectors are aligned;
+//   * one warp a row: B1's sum pass (the same e, order and 1 / sum) also
+//     takes sum(g * e), so dot = inv * sum(g * e) and one expf an element;
+//     the write pass writes ds = e * inv * (g - dot) 16 bytes a lane.  With
+//     pen != 0 (no model path) the scores stay for the penalty and the
+//     write pass takes expf again, the same bits;
+//   * where R rows of g do not fit beside the scores even at one row a
+//     tile (the longest T), the row passes read g and the mask from device
+//     memory instead, so B4 takes every T that B1 does.
 
 #pragma once
 
@@ -277,12 +305,12 @@ __device__ __forceinline__ void load_keys(const Tin* __restrict__ ktb,
 }
 
 // The scores s + bias of keys j0.. against one query row (q row q4r, pq
-// pv, pe window win: band rows of keys j0..): one fmaf chain a score, q.k
-// in d order, then the four pe terms.
+// pv, pe window win: band rows of keys j0..), and the pre-mask s (B4): one
+// fmaf chain a score, q.k in d order, then the four pe terms.
 template <int QD, int KPT>
 __device__ __forceinline__ void score_row(const float (&kr)[QD][KPT], const float (&bias)[KPT],
                                           const float4 (&win)[KPT], const float4* q4r,
-                                          float4 pv, float (&sc)[KPT]) {
+                                          float4 pv, float (&pre)[KPT], float (&sc)[KPT]) {
   float s[KPT];
 #pragma unroll
   for (int u = 0; u < KPT; ++u) s[u] = 0.f;
@@ -303,6 +331,7 @@ __device__ __forceinline__ void score_row(const float (&kr)[QD][KPT], const floa
     s[u] = fmaf(pv.y, win[u].y, s[u]);
     s[u] = fmaf(pv.z, win[u].z, s[u]);
     s[u] = fmaf(pv.w, win[u].w, s[u]);
+    pre[u] = s[u];
     sc[u] = s[u] + bias[u];
   }
 }
@@ -579,17 +608,181 @@ __device__ __forceinline__ void reduce_out(float* red, const float (&acc)[2][4],
   }
 }
 
+// ---------------------------------------------------------------------------
+// B4's epilogue: the score cotangent from the tile's scores and g
+// ---------------------------------------------------------------------------
+
+// g (B,H,T,T), 16-byte aligned like ds, pen and limit; staged: the tiles'
+// g rows and the keys' bias go through shared memory, else (the longest T)
+// the row passes read g and the mask from device memory
+struct DsArgs {
+  const void* g;
+  float pen, limit;
+  int staged;
+};
+
+// Row stride (elements) of the staged g: a row's 16-byte chunks from the
+// boundary at or before its first key
+__host__ __device__ inline int g_stride(int T, int elem) {
+  const int V = 16 / elem;
+  return (T + 2 * V - 2) / V * V;
+}
+
+// B4's staged shared memory after the scores (floats): R rows of g from a
+// 16-byte boundary, then the keys' bias row
+__host__ __device__ inline size_t ds_floats(int T, int R, int stride, int elem) {
+  return (size_t)(round4(R * stride) - R * stride) + (size_t)R * g_stride(T, elem) * elem / 4 + T;
+}
+
+// Rows row0 .. row0+n-1 of g (rows of T keys) into gbuf by 16-byte
+// `cp.async`, one warp a row: key j of row r lands at gbuf[r * gs + mis + j],
+// mis being the row's offset (elements) from a 16-byte boundary, so every
+// copy is aligned on both sides; the first chunk reads the end of the row
+// before (g starts aligned), bytes past the row are zeroed, not read.
+// Committed as one group.
+template <typename Tin>
+__device__ __forceinline__ void copy_g(const Tin* __restrict__ g, Tin* gbuf, int gs, size_t row0,
+                                       int n, int T) {
+  constexpr int V = 16 / sizeof(Tin);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < n; r += kWarps) {
+    const size_t off = (row0 + r) * T;
+    const int mis = (int)(off % V);
+    const Tin* src = g + off - mis;
+    const int bytes = (T + mis) * (int)sizeof(Tin);
+    for (int c = lane; 16 * c < bytes; c += 32)
+      cp_async16_n(gbuf + (size_t)r * gs + c * V, src + c * V, min(16, bytes - 16 * c));
+  }
+  cp_async_commit();
+}
+
+// 16 bytes of g (4 f32 or 8 bf16) as f32
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv[u]));
+    x[2 * u] = f.x;
+    x[2 * u + 1] = f.y;
+  }
+}
+
+// One row of ds by one warp, from the pre-mask scores in srow, the row of g
+// (grow[j] is key j, 16-byte aligned where orow is) and the keys' bias
+// (bias(j)); mx is the row max of s + bias (kScan, the 1-row tile: this
+// pass takes it).  The sum pass is row_sum's, e = expf((s + bias) - mx)
+// summed in the same order, with sum(g * e) beside it; then ds = e * inv *
+// (g - inv * sum(g * e)) (+ the penalty on s), written as write_row writes
+// p.  !kPen: the sum pass leaves e in srow; kPen keeps s and the write
+// pass takes expf again.
+template <bool kScan, bool kPen, typename Tin, typename Bias>
+__device__ __forceinline__ void ds_row(float* srow, const Tin* grow, Bias bias, float mx,
+                                       Tin* __restrict__ orow, int T, float pen, float limit) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kScan) {
+    for (int j = lane; j < T; j += 32) mx = fmaxf(mx, srow[j] + bias(j));
+    mx = warp_max(mx);
+  }
+  constexpr int kU = 16;
+  float sum = 0.f, gd = 0.f;
+  int j = lane;
+  for (; j + 32 * (kU - 1) < T; j += 32 * kU) {
+    float e[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) e[u] = expf(srow[j + 32 * u] + bias(j + 32 * u) - mx);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if constexpr (!kPen) srow[j + 32 * u] = e[u];
+      sum += e[u];
+      gd = fmaf(to_f32(grow[j + 32 * u]), e[u], gd);
+    }
+  }
+  for (; j < T; j += 32) {
+    const float e = expf(srow[j] + bias(j) - mx);
+    if constexpr (!kPen) srow[j] = e;
+    sum += e;
+    gd = fmaf(to_f32(grow[j]), e, gd);
+  }
+  const float inv = 1.f / warp_sum(sum);
+  const float dot = inv * warp_sum(gd);
+  __syncwarp();
+
+  auto ds = [&](int k, float x, float gv) {
+    if constexpr (kPen) {
+      const float p = expf(x + bias(k) - mx) * inv;
+      return p * (gv - dot) + penalty_term(x, pen, limit);
+    } else {
+      return x * inv * (gv - dot);
+    }
+  };
+  constexpr int V = 16 / sizeof(Tin);
+  const int mis = (int)((reinterpret_cast<uintptr_t>(orow) & 15) / sizeof(Tin));
+  const int head = min(T, mis ? V - mis : 0);  // elements before a 16-byte boundary
+  const int nvec = (T - head) / V;
+  const int tail = head + nvec * V;
+  if (lane < head) orow[lane] = from_f32<Tin>(ds(lane, srow[lane], to_f32(grow[lane])));
+  if (lane < T - tail) {
+    const int k = tail + lane;
+    orow[k] = from_f32<Tin>(ds(k, srow[k], to_f32(grow[k])));
+  }
+  auto vec = [&](int k, const float (&x)[V]) {  // keys k .. k+V-1
+    float gv[V], o[V];
+    load16(grow + k, gv);
+#pragma unroll
+    for (int u = 0; u < V; ++u) o[u] = ds(k + u, x[u], gv[u]);
+    store16(orow + k, o);
+  };
+  if ((head & 3) == 0) {  // the score side is 16-byte aligned too
+#pragma unroll 4
+    for (int v = lane; v < nvec; v += 32) {
+      const int k = head + v * V;
+      float x[V];
+#pragma unroll
+      for (int u = 0; u < V; u += 4) {
+        const float4 y = *reinterpret_cast<const float4*>(srow + k + u);
+        x[u] = y.x;
+        x[u + 1] = y.y;
+        x[u + 2] = y.z;
+        x[u + 3] = y.w;
+      }
+      vec(k, x);
+    }
+  } else {
+    for (int v = lane; v < nvec; v += 32) {
+      const int k = head + v * V;
+      float x[V];
+#pragma unroll
+      for (int u = 0; u < V; ++u) x[u] = srow[k + u];
+      vec(k, x);
+    }
+  }
+}
+
+// The epilogue modes of the shared body: B1's probabilities, B6's
+// contraction, B4's score cotangent
+enum class Epi { kProbs, kConsume, kDs };
+
 // grid (row blocks, B*H); block x owns rows [x*rpb, min(T, x*rpb + rpb)) in
 // tiles of R rows (the last one may be short): the scores of a tile, a
 // barrier, its softmax, a barrier; with kConsume (B6), then the tile's
-// round(p) @ v.
-template <int QD, int R, typename Tin, typename Tout, bool kConsume>
+// round(p) @ v; with kDs (B4), the softmax passes write ds instead of p.
+template <int QD, int R, typename Tin, typename Tout, Epi kE>
 __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                                            const Tin* __restrict__ pq,
                                            const Tin* __restrict__ pe,
                                            const uint8_t* __restrict__ mask,
                                            Tout* __restrict__ out, int T, int H, int rpb,
-                                           const ConsumeArgs& c) {
+                                           const ConsumeArgs& c, const DsArgs& d) {
+  constexpr bool kConsume = kE == Epi::kConsume;
+  constexpr bool kDs = kE == Epi::kDs;
   constexpr int KPT = KeysPerThread<QD>::value;
   constexpr int kShift = BandPad<R>::shift;
   constexpr bool kBf16Mma =
@@ -625,6 +818,19 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
   const Tin* vb = static_cast<const Tin*>(c.v) + ((size_t)b * T * H + h) * c.VD;
   if constexpr (kConsume) {
     if (c.all) copy_v(vb, (size_t)H * c.VD, vbuf, vs, 0, Tk, 0, c.VD, T);
+  }
+
+  // B4: g's rows and the keys' bias after the scores; the first tile's g
+  // rows requested now, landing while the rows and keys load
+  const int gs = g_stride(T, (int)sizeof(Tin));
+  Tin* gbuf = reinterpret_cast<Tin*>(scores + round4(R * stride));
+  float* brow = reinterpret_cast<float*>(gbuf + (size_t)R * gs);
+  const Tin* gb = static_cast<const Tin*>(d.g);
+  if constexpr (kDs) {
+    if (d.staged) {
+      copy_g(gb, gbuf, gs, (size_t)bh * T + i0b, min(R, i_end - i0b), T);
+      for (int j = tid; j < T; j += kThreads) brow[j] = mask_bias(mask, b, T, j);
+    }
   }
 
   stage_rows<QD, R>(q, pq, pe, qs, pqs, band, b, h, T, H, i0b, RB);
@@ -672,17 +878,18 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
           const int idx = idx0 - rr;
           win[0] = band4[idx + (idx >> kShift)];
         }
-        float sc[KPT];
-        score_row<QD, KPT>(kr, bias, win, q4 + (rb + r) * (QD / 4), pq4[rb + r], sc);
+        float pre[KPT], sc[KPT];
+        score_row<QD, KPT>(kr, bias, win, q4 + (rb + r) * (QD / 4), pq4[rb + r], pre, sc);
 #pragma unroll
         for (int u = 0; u < KPT; ++u) m[rr] = fmaxf(m[rr], sc[u]);
         float* dst = scores + (size_t)r * stride + j0;
+        const float(&st)[KPT] = kDs ? pre : sc;  // B4 keeps the pre-mask score
         if constexpr (R > 1) {
-          store_scores<KPT>(dst, sc);
+          store_scores<KPT>(dst, st);
         } else {
 #pragma unroll
           for (int u = 0; u < KPT; ++u)
-            if (j0 + u < T) dst[u] = sc[u];
+            if (j0 + u < T) dst[u] = st[u];
         }
       }
     }
@@ -691,6 +898,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
       for (int rr = 0; rr < R; ++rr)
         if (rr < rps) part[(r0 + rr) * nts + gl] = m[rr];
     }
+    if constexpr (kDs) cp_async_wait<0>();  // this thread's g copies have landed
     __syncthreads();
 
     // the softmax, one warp a row
@@ -705,18 +913,42 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
           for (int k = 0; k < 4; ++k)
             if (x + 32 * k < nts) mx[k] = fmaxf(mx[k], pr[x + 32 * k]);
         }
-      } else {
+      } else if constexpr (!kDs) {  // B4's 1-row tile adds the bias first
         for (int j = lane; j < T; j += 32) mx[0] = fmaxf(mx[0], srow[j]);
       }
-      const float inv =
-          row_sum(srow, warp_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))), T);
-      write_row<Tout, kConsume>(srow, inv, out + ((size_t)bh * T + i0 + r) * T, T);
+      const float rmax = warp_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+      if constexpr (kDs) {
+        const size_t off = ((size_t)bh * T + i0 + r) * T;
+        constexpr int V = 16 / sizeof(Tin);
+        if (d.staged) {
+          const Tin* grow = gbuf + (size_t)r * gs + (int)(off % V);
+          auto bias_of = [&](int j) { return brow[j]; };
+          if (d.pen != 0.f)
+            ds_row<R == 1, true>(srow, grow, bias_of, rmax, out + off, T, d.pen, d.limit);
+          else
+            ds_row<R == 1, false>(srow, grow, bias_of, rmax, out + off, T, 0.f, 0.f);
+        } else if constexpr (R == 1) {
+          auto bias_of = [&](int j) { return mask_bias(mask, b, T, j); };
+          if (d.pen != 0.f)
+            ds_row<true, true>(srow, gb + off, bias_of, rmax, out + off, T, d.pen, d.limit);
+          else
+            ds_row<true, false>(srow, gb + off, bias_of, rmax, out + off, T, 0.f, 0.f);
+        }
+      } else {
+        const float inv = row_sum(srow, rmax, T);
+        write_row<Tout, kConsume>(srow, inv, out + ((size_t)bh * T + i0 + r) * T, T);
+      }
       if constexpr (kConsume) {
         for (int j = T + lane; j < Tk; j += 32) srow[j] = 0.f;  // keys past T
       }
     }
     if constexpr (kConsume) cp_async_wait<0>();  // the staged v has landed
     __syncthreads();
+
+    if constexpr (kDs) {  // the next tile's g rows, landing while its scores are made
+      if (d.staged && t + 1 < ntb)
+        copy_g(gb, gbuf, gs, (size_t)bh * T + i0 + R, min(R, i_end - i0 - R), T);
+    }
 
     if constexpr (kConsume) {
       // round(p) @ v, 16 columns at a time
@@ -753,7 +985,8 @@ rel_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                  const Tin* __restrict__ pq, const Tin* __restrict__ pe,
                  const uint8_t* __restrict__ mask, Tout* __restrict__ out, int T, int H,
                  int rpb) {
-  probs_body<QD, R, Tin, Tout, false>(q, kt, pq, pe, mask, out, T, H, rpb, ConsumeArgs{});
+  probs_body<QD, R, Tin, Tout, Epi::kProbs>(q, kt, pq, pe, mask, out, T, H, rpb, ConsumeArgs{},
+                                            DsArgs{});
 }
 
 // B6: B1's probabilities in `out`, round(p) @ v in c.out
@@ -763,19 +996,29 @@ rel_probs_consume_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                          const Tin* __restrict__ pq, const Tin* __restrict__ pe,
                          const uint8_t* __restrict__ mask, Tout* __restrict__ out, int T, int H,
                          int rpb, ConsumeArgs c) {
-  probs_body<QD, R, Tin, Tout, true>(q, kt, pq, pe, mask, out, T, H, rpb, c);
+  probs_body<QD, R, Tin, Tout, Epi::kConsume>(q, kt, pq, pe, mask, out, T, H, rpb, c, DsArgs{});
+}
+
+// B4: the score cotangent of B1's probabilities in `ds`, from d.g
+template <int QD, int R, typename Tin>
+__global__ void __launch_bounds__(kThreads, 1)
+rel_ds_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt, const Tin* __restrict__ pq,
+              const Tin* __restrict__ pe, const uint8_t* __restrict__ mask,
+              Tin* __restrict__ ds, int T, int H, int rpb, DsArgs d) {
+  probs_body<QD, R, Tin, Tin, Epi::kDs>(q, kt, pq, pe, mask, ds, T, H, rpb, ConsumeArgs{}, d);
 }
 
 // Launch with R-row tiles and rpb rows a block (fewer if the shared memory
 // asks for it); 1 if launched (or the launch failed: *code), 0 if R does not
-// fit.  B6 (kConsume) counts its v buffer and partial sums too: all of v
-// where that fits, else a chunk of kChunkKeys keys and 16 columns.
-template <int QD, int R, typename Tin, typename Tout, bool kConsume>
+// fit.  B6 counts its v buffer and partial sums too: all of v where that
+// fits, else a chunk of kChunkKeys keys and 16 columns.  B4 counts its
+// staged g rows and bias row; where they do not fit at one row a tile, the
+// kernel reads g from device memory instead.
+template <int QD, int R, typename Tin, typename Tout, Epi kE>
 int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
                const void* mask, void* out, int B, int T, int H, int rpb0, ConsumeArgs c,
-               cudaStream_t stream, int* code) {
-  constexpr bool kBf16Mma =
-      std::is_same<Tin, __nv_bfloat16>::value && std::is_same<Tout, __nv_bfloat16>::value;
+               DsArgs d, cudaStream_t stream, int* code) {
+  constexpr bool kConsume = kE == Epi::kConsume, kDs = kE == Epi::kDs;
   const int max_smem = max_optin_smem();
   const int Tk = keys16(T);
   const int stride = kConsume ? stride16(Tk) : score_stride(T, R);
@@ -785,14 +1028,15 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
       f += (all ? v_floats(c.VD, Tk, (int)sizeof(Tin))
                 : v_floats(std::min(c.VD, 16), std::min(Tk, kChunkKeys), (int)sizeof(Tin))) +
            kRedFloats;
+    if (kDs && all) f += ds_floats(T, R, stride, (int)sizeof(Tin));
     return f * sizeof(float);
   };
   // fewer rows a block until it fits
   int rpb = rpb0;
   bool all = true;
   while (rpb > R && bytes(rpb, all) > (size_t)max_smem) rpb = std::max(R, (rpb + 1) / 2);
-  if (kConsume && bytes(rpb, all) > (size_t)max_smem) {  // stream v instead
-    all = false;
+  if ((kConsume || (kDs && R == 1)) && bytes(rpb, all) > (size_t)max_smem) {
+    all = false;  // B6: stream v; B4: g from device memory
     rpb = rpb0;
     while (rpb > R && bytes(rpb, all) > (size_t)max_smem) rpb = std::max(R, (rpb + 1) / 2);
   }
@@ -800,69 +1044,77 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
   const size_t smem = bytes(rpb, all);
   c.kc = all ? Tk : std::min(Tk, kChunkKeys);
   c.all = all;
+  d.staged = all;
   dim3 grid((T + rpb - 1) / rpb, B * H);
+  const Tin* qi = static_cast<const Tin*>(q);
+  const Tin* kti = static_cast<const Tin*>(kt);
+  const Tin* pqi = static_cast<const Tin*>(pq);
+  const Tin* pei = static_cast<const Tin*>(pe);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaError_t e;
   if constexpr (kConsume) {
     auto kern = rel_probs_consume_kernel<QD, R, Tin, Tout>;
     e = allow_smem(kern, smem);
-    if (e == cudaSuccess) {
-      kern<<<grid, kThreads, smem, stream>>>(
-          static_cast<const Tin*>(q), static_cast<const Tin*>(kt), static_cast<const Tin*>(pq),
-          static_cast<const Tin*>(pe), static_cast<const uint8_t*>(mask),
-          static_cast<Tout*>(out), T, H, rpb, c);
-      e = cudaGetLastError();
-    }
+    if (e == cudaSuccess)
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), T, H,
+                                             rpb, c);
+  } else if constexpr (kDs) {
+    auto kern = rel_ds_kernel<QD, R, Tin>;
+    e = allow_smem(kern, smem);
+    if (e == cudaSuccess)
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tin*>(out), T, H,
+                                             rpb, d);
   } else {
     auto kern = rel_probs_kernel<QD, R, Tin, Tout>;
     e = allow_smem(kern, smem);
-    if (e == cudaSuccess) {
-      kern<<<grid, kThreads, smem, stream>>>(
-          static_cast<const Tin*>(q), static_cast<const Tin*>(kt), static_cast<const Tin*>(pq),
-          static_cast<const Tin*>(pe), static_cast<const uint8_t*>(mask),
-          static_cast<Tout*>(out), T, H, rpb);
-      e = cudaGetLastError();
-    }
+    if (e == cudaSuccess)
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), T, H,
+                                             rpb);
   }
-  *code = (int)e;
+  *code = (int)(e == cudaSuccess ? cudaGetLastError() : e);
   return 1;
 }
 
-template <int QD, bool kConsume, typename Tin, typename Tout>
+template <int QD, Epi kE, typename Tin, typename Tout>
 int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
                  const void* mask, void* out, int B, int T, int H, const ConsumeArgs& c,
-                 cudaStream_t stream) {
+                 const DsArgs& d, cudaStream_t stream) {
   // one block an SM: the rows of each (b, h) split evenly over SMs / (B*H)
   // blocks; tiles of 16 rows, or of 8 / 4 where a block has no more rows
   // (short T), or where long rows fill shared memory (then 1)
   const int blocks = std::max(1, sm_count() / (B * H));
   const int rpb = (T + blocks - 1) / blocks;
   int code = 0;
-  if ((rpb > 8 && try_launch<QD, 16, Tin, Tout, kConsume>(q, kt, pq, pe, mask, out, B, T, H,
-                                                           rpb, c, stream, &code)) ||
-      (rpb > 4 && try_launch<QD, 8, Tin, Tout, kConsume>(q, kt, pq, pe, mask, out, B, T, H,
-                                                          rpb, c, stream, &code)) ||
-      try_launch<QD, 4, Tin, Tout, kConsume>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, stream,
-                                             &code) ||
-      try_launch<QD, 1, Tin, Tout, kConsume>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, stream,
-                                             &code))
+  if ((rpb > 8 && try_launch<QD, 16, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c,
+                                                     d, stream, &code)) ||
+      (rpb > 4 && try_launch<QD, 8, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, d,
+                                                    stream, &code)) ||
+      try_launch<QD, 4, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, d, stream,
+                                       &code) ||
+      try_launch<QD, 1, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, d, stream,
+                                       &code))
     return code;
   return (int)cudaErrorInvalidValue;
 }
 
-// QD, PD and the probs type dispatched, for Tin inputs
-template <bool kConsume, typename Tin>
+// QD, PD and the output type dispatched, for Tin inputs (B4's output type
+// is its input type)
+template <Epi kE, typename Tin>
 int launch_in(const void* q, const void* kt, const void* pq, const void* pe, const void* mask,
               void* out, int B, int T, int H, int QD, int PD, int out_bf16, const ConsumeArgs& c,
-              void* stream) {
+              const DsArgs& d, void* stream) {
   if (PD != kPD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (QD) {
-#define ZV_QD(QDV)                                                                          \
-  case QDV:                                                                                 \
-    return out_bf16 ? launch_typed<QDV, kConsume, Tin, __nv_bfloat16>(q, kt, pq, pe, mask, \
-                                                                      out, B, T, H, c, s)  \
-                    : launch_typed<QDV, kConsume, Tin, float>(q, kt, pq, pe, mask, out, B, \
-                                                              T, H, c, s);
+#define ZV_QD(QDV)                                                                           \
+  case QDV:                                                                                  \
+    if constexpr (kE == Epi::kDs)                                                            \
+      return launch_typed<QDV, kE, Tin, Tin>(q, kt, pq, pe, mask, out, B, T, H, c, d, s);    \
+    else                                                                                     \
+      return out_bf16 ? launch_typed<QDV, kE, Tin, __nv_bfloat16>(q, kt, pq, pe, mask, out, \
+                                                                  B, T, H, c, d, s)          \
+                      : launch_typed<QDV, kE, Tin, float>(q, kt, pq, pe, mask, out, B, T, H, \
+                                                          c, d, s);
     ZV_QD(8)
     ZV_QD(16)
     ZV_QD(24)

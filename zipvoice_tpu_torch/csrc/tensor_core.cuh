@@ -1,5 +1,5 @@
-// Tensor-core and asynchronous-copy building blocks of the redesigned B6
-// (rel_probs.cu), B7 (rel_consume_fwd.cu) and B9 (conv_glu.cu): inline PTX
+// Tensor-core and asynchronous-copy building blocks of the redesigned B4 and
+// B6 (rel_probs.cuh), B7 (rel_consume_fwd.cu) and B9 (conv_glu.cu): inline PTX
 // for `cp.async`, `ldmatrix` and `mma.sync` (sm_80 and later, built here
 // for sm_90a).
 //
@@ -41,6 +41,11 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0));
+}
+// 16 bytes of which the first src_bytes (1..16) are read, the rest zeroed
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>

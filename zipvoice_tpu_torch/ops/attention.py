@@ -8,7 +8,8 @@ Seven kernels carry the Zipformer attention:
   B4 plus four matmul adjoints.
 * ``rel_attention_ds`` (B4, ``csrc/rel_ds.cu``): the score cotangent
   ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit), with the
-  probabilities recomputed from q, k, pq, pe.
+  probabilities recomputed from q, k, pq, pe: B1's kernel with an epilogue
+  that reads g behind the scores, its probabilities B1's bit for bit.
 * ``rel_attention_probs_apply`` (B2, ``csrc/probs_apply.cu``): the
   SelfAttention contraction einsum('bhts,bshd->bthd', probs, v), with its
   einsum adjoints as the backward.
@@ -313,7 +314,8 @@ def rel_attention_ds(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
     pd = pq.shape[-1]
     if g.shape != (b, h, t, t):
         raise ValueError(f"rel_attention_ds: g{tuple(g.shape)} for B={b} H={h} T={t}")
-    q, pq, pe, g = q.contiguous(), pq.contiguous(), pe.contiguous(), g.contiguous()
+    q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
+    g = build.aligned(g.contiguous())  # its rows are staged in 16-byte copies
     kt = k.permute(0, 2, 3, 1).contiguous()
     mask_ptr, _keep = _mask_ptr("rel_attention_ds", key_padding_mask, q)
     ds = torch.empty((b, h, t, t), dtype=q.dtype, device=q.device)
