@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Phases (each raises on failure; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from zipvoice_tpu_torch/csrc with nvcc and print
-     the -Xptxas -v lines of B1's, B2's, B3's, B4's, B6's, B7's and B9's
-     entry points;
+     the -Xptxas -v lines of B1's, B2's, B3's, B4's, B6's, B7's, B8's and
+     B9's entry points;
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main-path shapes (B=2, H=4, T in 1024/512/256 with a
      padded tail in one batch row), ragged T (288, 577) and a text-encoder
@@ -21,8 +21,9 @@ Phases (each raises on failure; nothing is caught):
   3b. the training kernels B3, B4 and B8 against their plain versions at
      the training shapes (B=8, H=4, T in 1024/512/256/288/577/120 with one
      padded row; B3 also at H=1 with vd 384 and 144; the failsafe penalty
-     and the const-attention gate each on and off; B8 at 10 s and 1 s), f32
-     and bf16, with times and bounds;
+     and the const-attention gate each on and off; B8 at 10 s, 1 s and the
+     training shape, B=8 and 1153 frames, beside the same function through
+     torch.stft, cufft_ms), f32 and bf16, with times and bounds;
   3c. the fused eval kernels against their plain versions, f32 and bf16:
      B6 and B7 at the serving shapes (B=2, H=4; B7 at C 384, and 144 at
      T=40; T also 1152 and 1408), B9 against an f64 plain version (C = D =
@@ -248,7 +249,7 @@ TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
 KERNEL_SYMBOLS = {"B1": ("rel_probs_kernel",), "B2": ("probs_apply_f32", "probs_apply_bf16"),
                   "B3": ("bwd_rows_kernel", "bwd_cols_kernel"), "B4": ("rel_ds_kernel",),
                   "B6": ("rel_probs_consume_kernel",), "B7": ("rel_head0_consume_kernel",),
-                  "B9": ("conv_glu_kernel",)}
+                  "B8": ("log_mel_kernel",), "B9": ("conv_glu_kernel",)}
 # the redesigned kernels' entry points, by library, whose -Xptxas -v lines
 # the build prints in full
 ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",),
@@ -257,6 +258,7 @@ ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",),
                  "probs_apply": ("probs_apply",),
                  "rel_apply_bwd": ("bwd_",),
                  "rel_consume_fwd": ("rel_head0_consume_kernel",),
+                 "log_mel": ("log_mel_kernel",),
                  "conv_glu": ("conv_glu_kernel",)}
 
 
@@ -268,6 +270,34 @@ def _kernel_device_ms(events, kernel):
     """(device ms, calls) of one kernel's symbols among profiler events."""
     hits = [e for e in events if any(sym in e.key for sym in KERNEL_SYMBOLS[kernel])]
     return sum(_dev_us(e) for e in hits) / 1e3, sum(e.count for e in hits)
+
+
+# B8's (label, samples, zero rows) at B=8 and 24 kHz: ~10 s and 1 s, and the
+# training shape (1153 frames: the 64-frame bucket of 1152 frames, the batch
+# bucket's last rows zero)
+LOG_MEL_CASES = [("10 s", 240000, 0), ("1 s", 24000, 0), ("train", 1152 * 256, 3)]
+
+
+def log_mel_input(gen, n, zero_rows):
+    """B8's input: (8, n) audio, one row zero after 2/3 and the last
+    zero_rows rows zero, reflect-padded by n_fft/2 = 512."""
+    import torch
+
+    wav = 0.1 * torch.randn((8, n), generator=gen, device="cuda")
+    wav[-1, 2 * n // 3:] = 0.0
+    if zero_rows:
+        wav[-zero_rows:] = 0.0
+    return torch.nn.functional.pad(wav[:, None, :], (512, 512), mode="reflect")[:, 0]
+
+
+def log_mel_cufft(wp, fb, window):
+    """B8's function through torch.stft (cuFFT), a dense mel product, the
+    clamp and the log: a yardstick of several library calls, no part of the
+    port (n_fft 1024, hop 256)."""
+    import torch
+
+    spec = torch.stft(wp, 1024, 256, window=window, center=False, return_complex=True)
+    return torch.log(torch.clamp(spec.abs().transpose(1, 2) @ fb, min=1e-7))
 
 
 def _penalty_limit(q, k, pq, pe) -> float:
@@ -294,6 +324,7 @@ def _errs(out, ref):
 def check_training_kernels():
     """Phase 3b: B3, B4 and B8 against their plain versions on the card at
     the training shapes, f32 and bf16; returns {kernel: {case: numbers}}."""
+    import numpy as np
     import torch
 
     from zipvoice_tpu_torch.ops import attention as att
@@ -374,32 +405,41 @@ def check_training_kernels():
                     raise AssertionError(f"B3 disagrees at {key}: {errs} > {tol}")
                 del outs, refs
             del q, k, pq, pe, mask, v, g
-    # B8 at ~10 s and 1 s of 24 kHz audio, B=8, one row zero after 2/3
-    for seconds in (10, 1):
-        n = 24000 * seconds
-        wav = 0.1 * torch.randn((8, n), generator=gen, device="cuda")
-        wav[-1, 2 * n // 3:] = 0.0
-        wp = torch.nn.functional.pad(wav[:, None, :], (512, 512), mode="reflect")[:, 0]
+    # B8 (LOG_MEL_CASES)
+    from zipvoice_tpu_torch.audio.mel import mel_filterbank
+
+    n_fft, hop, n_mels = 1024, 256, 100
+    fb = mel_filterbank(24000, n_fft, n_mels)
+    # a frame's least work: the window, a real-input FFT of 1024 points
+    # (2.5 N log2 N, the usual count for real data), |.| of 513 bins (3
+    # each), the mel product over the filterbank's nonzeros (2 each; 1008 of
+    # 513 x 100 at 100 mels, the rest multiply zeros) and 100 logs
+    nnz = int(np.count_nonzero(fb))
+    per_frame = n_fft + 2.5 * n_fft * 10 + 3 * (n_fft // 2 + 1) + 2 * nnz + n_mels
+    fb = torch.from_numpy(fb).cuda()
+    hann = torch.hann_window(n_fft, device="cuda")
+    for label, n, zero_rows in LOG_MEL_CASES:
+        wp = log_mel_input(gen, n, zero_rows)
         out = fused_log_mel(wp)
         ref = fused_log_mel_plain(wp)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        # log-mel: f32 DFT sums in another order; 1e-3 in log is 0.1 % of the mel energy
+        # log-mel: f32 FFT sums in another order than the plain DFT products;
+        # 1e-3 in log is 0.1 % of the mel energy
         tol = 1e-3
         frames = out.shape[1]
-        # a frame's least work: the window, a real-input FFT of 1024 points
-        # (2.5 N log2 N, the usual count for real data), |.| of 513 bins
-        # (3 each), the 513 x 100 mel product and 100 logs
-        per_frame = 1024 + 2.5 * 1024 * 10 + 3 * 513 + 2 * 513 * 100 + 100
         bnd, by = bound_ms(4 * wp.numel() + 4 * out.numel(), 8 * frames * per_frame, "float32")
+        cufft = lambda: log_mel_cufft(wp, fb, hann)  # noqa: E731
+        cufft_err = float((cufft() - ref).abs().max())
         r = dict(abs_err=err, tol=tol, ms=time_ms(lambda: fused_log_mel(wp)),
                  plain_ms=time_ms(lambda: fused_log_mel_plain(wp)), library_ms=None,
-                 bound_ms=bnd, bound_by=by)
-        results["B8"][(seconds, frames)] = r
-        print(f"B8 log_mel B=8 {seconds} s ({frames} frames): max_abs_err {err:.3g} "
-              f"(tol {tol:g})" + _times(r), flush=True)
-        if out.shape != (8, frames, 100) or not err <= tol:
-            raise AssertionError(f"B8 disagrees at {seconds} s: {err} > {tol}")
+                 cufft_ms=time_ms(cufft), bound_ms=bnd, bound_by=by)
+        results["B8"][(label, frames)] = r
+        print(f"B8 log_mel B=8 {label} ({frames} frames, {nnz} filterbank nonzeros): "
+              f"max_abs_err {err:.3g} (tol {tol:g}) cufft_ms {r['cufft_ms']:.4f} "
+              f"(its err {cufft_err:.3g})" + _times(r), flush=True)
+        if out.shape != (8, frames, n_mels) or not err <= tol:
+            raise AssertionError(f"B8 disagrees at {label}: {err} > {tol}")
     return results
 
 
@@ -1169,7 +1209,7 @@ def main() -> int:
     logs = build.build_all()
     print(f"kernel build: {time.monotonic() - t0:.1f} s for {sorted(logs)}", flush=True)
     for name, log in logs.items():
-        # every entry point of the redesigned B1, B2, B3, B6, B7 and B9 with its
+        # every entry point of the redesigned B1-B4 and B6-B9 with its
         # registers, shared memory and spills; the other kernels' register
         # lines
         entry = ""
@@ -1259,8 +1299,10 @@ def main() -> int:
                       launches_per_fused_request=fused_launches["B7"] // n_req),
         _kernel_entry(results, "B8", "fused_log_mel", "zipvoice_tpu_torch/csrc/log_mel.cu",
                       "zipvoice_tpu/ops/melspec.py:122", reg_launches["B8"],
-                      next(k for k in results["B8"] if k[0] == 10), "B=8 10 s (938 frames)",
-                      launches_per_train_step=reg_step["B8"]),
+                      next(k for k in results["B8"] if k[0] == "10 s"), "B=8 10 s (938 frames)",
+                      launches_per_train_step=reg_step["B8"],
+                      cufft_ms=next(r["cufft_ms"] for k, r in results["B8"].items()
+                                    if k[0] == "10 s")),
         _kernel_entry(results, "B9", "conv_glu_swoosh_out", "zipvoice_tpu_torch/csrc/conv_glu.cu",
                       "zipvoice_tpu/ops/convglu.py:143", fused_launches["B9"],
                       (512, 31, 1024, "float32"), "B=2 T=1024 C=D=512 K=31 f32",

@@ -236,20 +236,78 @@ def test_rel_ds_kernel_one_hot_cotangent(gen, b, h, t):
     assert float((ds - want).abs().max()) <= 2 ** -24 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("seconds", [0.05, 1.0, 10.0])
-def test_log_mel_kernel_matches_plain(gen, seconds):
-    """B8 at any frame count: log-mel within 1e-3 (f32 DFT sums in another
-    order)."""
+def _log_mel_input(gen, b, samples, n_fft, zero_rows=0):
+    """(b, samples) audio, its last zero_rows rows zero (a padded batch),
+    reflect-padded by n_fft/2 on both sides as the fbank collator pads it."""
+    wav = 0.1 * torch.randn((b, samples), generator=gen, device="cuda")
+    if zero_rows:
+        wav[-zero_rows:] = 0.0
+    return torch.nn.functional.pad(wav[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+
+
+# B8's (B, samples, n_fft, hop, n_mels, zero rows): 0.05, 1 and 10 s; the
+# training shape, B=8 and 1153 frames (1152 * 256 samples) with the batch
+# bucket's zero rows; an odd sample count (rows start off a 16-byte
+# boundary); other FFT sizes and mel counts, down to n_fft 16
+_LOG_MEL_CASES = [(3, 1200, 1024, 256, 100, 0), (3, 24000, 1024, 256, 100, 0),
+                  (3, 240000, 1024, 256, 100, 0), (8, 1152 * 256, 1024, 256, 100, 3),
+                  (3, 24001, 1024, 256, 100, 0), (3, 24000, 1024, 256, 20, 0),
+                  (3, 24000, 512, 128, 80, 0), (3, 24000, 256, 64, 40, 0),
+                  (3, 4001, 16, 4, 4, 0)]
+
+
+@pytest.mark.parametrize("b,samples,n_fft,hop,n_mels,zero_rows", _LOG_MEL_CASES)
+def test_log_mel_kernel_matches_plain(gen, b, samples, n_fft, hop, n_mels, zero_rows):
+    """B8 at any frame count, FFT size and mel count: log-mel within 1e-3
+    (f32 FFT sums in another order than the plain DFT products)."""
     from zipvoice_tpu_torch.ops.melspec import fused_log_mel, fused_log_mel_plain
 
-    wav = 0.1 * torch.randn((3, int(24000 * seconds)), generator=gen, device="cuda")
-    wp = torch.nn.functional.pad(wav[:, None], (512, 512), mode="reflect")[:, 0]
+    wp = _log_mel_input(gen, b, samples, n_fft, zero_rows)
     n = fused_log_mel.launches
-    out = fused_log_mel(wp)
-    ref = fused_log_mel_plain(wp)
+    out = fused_log_mel(wp, 24000, n_fft, hop, n_mels)
+    ref = fused_log_mel_plain(wp, 24000, n_fft, hop, n_mels)
     torch.cuda.synchronize()
     assert fused_log_mel.launches == n + 1
-    assert out.shape == ref.shape and float((out - ref).abs().max()) <= 1e-3
+    assert out.shape == ref.shape == (b, (wp.shape[1] - n_fft) // hop + 1, n_mels)
+    assert float((out - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("b,samples", [(3, 24001), (8, 1152 * 256)])
+def test_log_mel_kernel_twice_equal_bits(gen, b, samples):
+    from zipvoice_tpu_torch.ops.melspec import fused_log_mel
+
+    wp = _log_mel_input(gen, b, samples, 1024)
+    assert torch.equal(fused_log_mel(wp), fused_log_mel(wp))
+
+
+def test_log_mel_kernel_zero_rows_are_clamped(gen):
+    """Every frame of an all-zero row is log(1e-7) to one f32 unit in the
+    last place, in the kernel and in the plain version."""
+    from zipvoice_tpu_torch.ops.melspec import fused_log_mel, fused_log_mel_plain
+
+    wp = _log_mel_input(gen, 8, 1152 * 256, 1024, zero_rows=3)
+    want = torch.log(torch.tensor(1e-7, dtype=torch.float32)).item()
+    ulp = float(torch.finfo(torch.float32).eps) * abs(want)
+    for out in (fused_log_mel(wp), fused_log_mel_plain(wp)):
+        zero = out[-3:]
+        assert float((zero - want).abs().max()) <= ulp
+        assert float(out[:-3].min()) > want + 1.0
+
+
+def test_log_mel_kernel_refuses_what_it_does_not_take(gen):
+    from zipvoice_tpu_torch.ops.melspec import fused_log_mel
+
+    wp = _log_mel_input(gen, 2, 4000, 1024)
+    with pytest.raises(RuntimeError, match="launch failed"):  # not a power of two
+        fused_log_mel(wp, 24000, 1000, 256, 100)
+    with pytest.raises(RuntimeError, match="launch failed"):  # above 1024
+        fused_log_mel(wp, 24000, 2048, 256, 100)
+    with pytest.raises(ValueError):
+        fused_log_mel(wp[:, :1000])
+    with pytest.raises(ValueError):
+        fused_log_mel(wp.double())
+    with pytest.raises(ValueError):
+        fused_log_mel(wp[0])
 
 
 # B6's (T, VD, B, H): the serving T at the fm_decoder's VD = 12; other value

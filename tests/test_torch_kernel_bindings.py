@@ -11,10 +11,12 @@ import ctypes
 import re
 import sys
 
+import numpy as np
 import pytest
 
+from zipvoice_tpu_torch.audio.mel import mel_filterbank
 from zipvoice_tpu_torch.ops import attention as att
-from zipvoice_tpu_torch.ops import build
+from zipvoice_tpu_torch.ops import build, melspec
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
 
@@ -35,6 +37,44 @@ def test_attention_entry_points_match_their_sources(symbol):
     lib, argtypes = att._SIGNATURES[symbol]
     assert lib in build.SOURCES
     assert [_C_TYPES[k] for k in _c_params(lib, symbol)] == argtypes
+
+
+def test_log_mel_entry_point_matches_its_source():
+    assert "log_mel" in build.SOURCES
+    assert [_C_TYPES[k] for k in _c_params("log_mel", "zv_log_mel")] == melspec._ARGTYPES
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(1024, 100), (1024, 20), (16, 8)])
+def test_sparse_filterbank_gives_back_the_dense_one(n_fft, n_mels):
+    """B8's mel product runs over each mel's range of bins with the packed
+    weights that the wrapper builds: put back, they are the dense
+    filterbank bit for bit, and the ranges hold every nonzero."""
+    fb = mel_filterbank(24000, n_fft, n_mels)
+    weights, ranges = melspec.sparse_filterbank(24000, n_fft, n_mels)
+    assert weights.dtype == np.float32 and ranges.dtype == np.int32
+    assert ranges.shape == (n_mels, 3)
+    dense = np.zeros_like(fb)
+    offset = 0
+    for m, (lo, hi, off) in enumerate(ranges):
+        assert 0 <= lo <= hi <= n_fft // 2 + 1 and off == offset
+        dense[lo:hi, m] = weights[off:off + hi - lo]
+        offset += hi - lo
+    assert offset == weights.size
+    assert np.array_equal(dense, fb)
+    assert weights.size < 2 * (n_fft // 2 + 1) + n_mels  # each bin in at most two mels
+
+
+@pytest.mark.parametrize("n_fft", [2 ** p for p in range(11)])
+def test_log_mel_twiddle_table_is_symmetric(n_fft):
+    """B8's split reads the twiddle of bin M - k (M = n_fft/2) as the
+    (-cos, sin) of bin k for 0 < k < M/2: the wrapper's f32 table holds
+    exactly that, at every n_fft the kernel takes."""
+    cos_t, sin_t = melspec.twiddle_table(n_fft)
+    assert cos_t.dtype == sin_t.dtype == np.float32 and cos_t.shape == (n_fft,)
+    m = n_fft // 2
+    k = np.arange(1, (m + 1) // 2)
+    k = k[k != m - k]
+    assert np.array_equal(cos_t[m - k], -cos_t[k]) and np.array_equal(sin_t[m - k], sin_t[k])
 
 
 def test_probs_consume_shares_b1s_kernel_body():

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Device times of the port's rel-position attention kernels (B1, B4, B5,
-B6, B7) on one NVIDIA card, at the shapes and with the timing of
-chip_smoke.py, for comparing two checkouts of this repository on one card in
-one run.
+B6, B7) and of the log-mel kernel (B8) on one NVIDIA card, at the shapes
+and with the timing of chip_smoke.py, for comparing two checkouts of this
+repository on one card in one run.
 
-    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B5,B6,B7]
+    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B5,B6,B7,B8]
                                         [--tag NAME] [--ptxas FILE] [--sass FILE]
     python3 tools/time_rel_attention.py [--tree DIR] --full-build
 
@@ -15,7 +15,9 @@ B1 at chip_smoke.py's phase-3 cases (B=2, H=4, T 1024/512/256/288/577/40),
 B6 and B7 at its phase-3c cases (T also 1152 and 1408; B7 at C=384, 144 at
 T=40), B5 at its APPLY_CASES without the const gate, B4 without the penalty
 at phase 3b's H=4 training cases (B=8, T 1024/512/256/288/577/120) and B1
-at the same shapes beside it; f32 and bf16 each.  --ptxas writes the
+at the same shapes beside it; f32 and bf16 each; B8 at phase 3b's
+LOG_MEL_CASES (B=8, f32), with its plain version and the same function
+through torch.stft beside it.  --ptxas writes the
 -Xptxas -v lines of the libraries it built to FILE, and --sass their
 machine code (cuobjdump -sass), so that two checkouts' compiled code can be
 compared.  --full-build times the build of every
@@ -42,9 +44,11 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 
-# the C entry point of each kernel, whose library the run builds
+# the C entry point of each attention kernel, whose library the run builds
 SYMBOLS = {"B1": "zv_rel_probs", "B4": "zv_rel_ds", "B5": "zv_rel_apply",
            "B6": "zv_rel_probs_consume", "B7": "zv_rel_head0_consume"}
+# the library of each other kernel
+LIBRARIES = {"B8": "log_mel"}
 
 
 def main() -> int:
@@ -82,7 +86,8 @@ def main() -> int:
         print(json.dumps({"tag": args.tag, "card": cs.card_line(), "full_build_s": seconds,
                           "libraries": len(build.SOURCES)}), flush=True)
         return 0
-    build.SOURCES = tuple(sorted({att._SIGNATURES[SYMBOLS[k]][0] for k in kernels}))
+    build.SOURCES = tuple(sorted({LIBRARIES.get(k) or att._SIGNATURES[SYMBOLS[k]][0]
+                                  for k in kernels}))
     logs = build.build_all()
     if args.ptxas:  # without the compile times and the per-file namespace hashes
         args.ptxas.write_text("".join(
@@ -143,6 +148,17 @@ def main() -> int:
                 record(f"B5 B={b} H={h} T={t} vd={vd} {str(dtype)[6:]}",
                        lambda: att.rel_attention_apply(q, k, pq, pe, mask, v,
                                                        out_dtype=torch.float32))
+    if "B8" in kernels:
+        from zipvoice_tpu_torch.audio.mel import mel_filterbank
+        from zipvoice_tpu_torch.ops import melspec
+
+        fb = torch.from_numpy(mel_filterbank(24000, 1024, 100)).cuda()
+        hann = torch.hann_window(1024, device="cuda")
+        for label, n, zero_rows in cs.LOG_MEL_CASES:
+            wp = cs.log_mel_input(gen, n, zero_rows)
+            record(f"B8 {label}", lambda: melspec.fused_log_mel(wp))
+            record(f"B8 plain {label}", lambda: melspec.fused_log_mel_plain(wp))
+            record(f"B8 cufft {label}", lambda: cs.log_mel_cufft(wp, fb, hann))
     print(json.dumps({"tag": args.tag, "card": card, "ms": ms}), flush=True)
     return 0
 
