@@ -36,14 +36,27 @@ Phases (each raises on failure; nothing is caught):
      set_fused_conv): the wavs checked as in phase 5 and every request
      launching B1 0, B2 260, B6 260, B7 260 and B9 520 times; then the flags
      reset and one request re-checked at the unfused pins; the median warm
-     RTF of the ~8 s request fused and unfused, f32 and bf16, in turns;
+     RTF of the ~8 s request fused and unfused, f32 and bf16, in turns (the
+     CLI and ``synthesize`` run the pipeline's programs as CUDA graphs: a
+     request's first use of a bucket runs eagerly and captures, later ones
+     replay, and the launch pins count device launches either way);
+  5c. f32 and bf16, unfused and fused, at the ~8 s request: the replayed
+     sampler and the replayed one-program PCM16 equal the captured
+     functions run eagerly on the same inputs and noise, bit for bit;
+  5d. the batch-4 sampler and vocoder row by row against each row replayed
+     alone in the same bucket (largest mel and PCM16 difference printed);
+  5e. warm RTF of the eager composition against ``synthesize`` and
+     ``synthesize_fused`` replayed, f32 and bf16, medians of 4 in turns;
   6. one full-width fm_decoder forward on the card (kernels) against the
      CPU (plain versions) on the same weights and inputs; 6b. the same with
      the fused eval path on the card against the unfused CPU forward;
-     6c. one warm f32 ~8 s request, unfused and fused, under
-     torch.profiler (device busy share, top kernels, the device ms and
-     calls of B1 and B2, and fused of B2, B6, B7 and B9; with --profile the
-     traces go to the output directory if present);
+     6c. one warm f32 ~8 s request, unfused and fused, its captured
+     functions run eagerly, under torch.profiler (device busy share, top
+     kernels, the device ms and calls of B1 and B2, and fused of B2, B6, B7
+     and B9; with --profile the traces go to the output directory if
+     present); 6d. the same request through ``synthesize``, replayed
+     (its busy share, or that the profiler did not resolve the kernels
+     inside the graph launch);
   7. one full-width compute_fm_loss backward on the card against the CPU,
      same weights and inputs, no random draws, with and without the
      regularizers; relative L2 error per parameter group;
@@ -57,7 +70,15 @@ Phases (each raises on failure; nothing is caught):
      a step, B4's without the regularizers; with --profile the traces go to
      the output directory if present);
   10. the training checkpoint, as a model dir's model.pt, drives the
-     inference CLI.
+     inference CLI;
+  11. the serving entry point: the serve CLI's bf16 pipeline, warmed with
+     batch 4 (seconds, captures, peak memory), behind a TTSServer on a free
+     port: one request in the warmed bucket, four concurrent ones (one
+     batch, /stats), a long_form request, a /synthesize_stream request of
+     the same length and a silent prompt (400); every wav's length and
+     finiteness, no capture at request time in the warmed bucket, B1 260
+     and B2 520 launches a sampler call, each request's buckets and
+     latency.
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -67,6 +88,7 @@ no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import subprocess
@@ -939,16 +961,9 @@ PER_STEP = {"B1": 2 * LAYERS, "B2": 4 * LAYERS, "B3": 3 * LAYERS, "B4": LAYERS, 
 
 
 def _counters():
-    from zipvoice_tpu_torch.ops import attention as att
-    from zipvoice_tpu_torch.ops import melspec
+    from zipvoice_tpu_torch.utils.graphs import launch_counters
 
-    from zipvoice_tpu_torch.ops import convglu
-
-    return {"B1": att.rel_attention_probs, "B2": att.rel_attention_probs_apply,
-            "B3": att.rel_attention_consume_bwd, "B4": att.rel_attention_ds,
-            "B5": att.rel_attention_apply, "B6": att.rel_attention_probs_consume,
-            "B7": att.rel_attention_head0_consume, "B8": melspec.fused_log_mel,
-            "B9": convglu.conv_glu_swoosh_out}
+    return launch_counters()
 
 
 def run_training(root: Path, manifest: Path, card: str, regularizers: bool, steps: int):
@@ -1128,25 +1143,55 @@ def compare_fused_rtf(root: Path, card: str):
     return out
 
 
-def profile_request(root: Path, card: str, fused: bool = False):
+def eager_synthesize(pipeline, kw):
+    """The composition that ``synthesize`` runs, with the captured functions
+    called eagerly (no graph): tokens, prompt fbank, the sampler, the
+    vocoder and the PCM16 readback.  Returns (wall s, wav seconds)."""
+    import torch
+
+    t0 = time.monotonic()
+    tok = pipeline.tokenizer.texts_to_token_ids
+    pf, _ = pipeline.prompt_features(kw["prompt_wav"], kw["prompt_sr"])
+    s = pipeline._prepare_sample_inputs(tok([kw["text"]])[0], tok([kw["prompt_text"]])[0],
+                                        pf, 1.0, 666)
+    with torch.no_grad():
+        mel = pipeline._sample_fn(N_STEP, 1.0, 0.5).fn(*s.args)
+        pcm = pipeline._vocode_i16_fn().fn(mel)[0].cpu()
+    wall = time.monotonic() - t0
+    samples = (s.gen_lens[0] - 1) * pipeline.vocos_cfg.hop_length
+    if pcm.shape[-1] < samples:
+        raise AssertionError(f"eager pcm {tuple(pcm.shape)} shorter than {samples}")
+    return wall, samples / pipeline.feat_cfg.sampling_rate
+
+
+def profile_request(root: Path, card: str, fused: bool = False, replayed: bool = False):
     """Phase 6c: one warm f32 ~8 s request (the fused eval path on when
-    `fused`) under torch.profiler; prints the device busy share, the summed
-    device time and calls of B1 and B2 (fused: B2, B6, B7 and B9) and the kernels
-    that take the most device time; with --profile the trace goes to the
-    output directory if present.  Returns {kernel: (device ms, calls)} and
-    the device busy ms."""
+    `fused`) under torch.profiler, the captured functions run eagerly; 6d
+    (`replayed`): the same request through ``synthesize``, its graphs
+    replayed.  Prints the device busy share, the summed device time and
+    calls of B1 and B2 (fused: B2, B6, B7 and B9) and the kernels that take
+    the most device time; with --profile the trace goes to the output
+    directory if present.  Returns {kernel: (device ms, calls)}, the device
+    busy ms and the wall ms."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     pipeline, kw = _r8s_pipeline(root, "float32")
+
+    def request():
+        if replayed:
+            res = pipeline.synthesize(**kw)
+            return res.metrics["t"], res.metrics["wav_seconds"]
+        return eager_synthesize(pipeline, kw)
+
     with _FusedEval() if fused else contextlib.nullcontext():
-        pipeline.synthesize(**kw)  # warm
+        request()  # warm (and, replayed, captured)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            res = pipeline.synthesize(**kw)
+            _, secs = request()
             wall = time.monotonic() - t0
 
     from torch.autograd import DeviceType
@@ -1157,9 +1202,14 @@ def profile_request(root: Path, card: str, fused: bool = False):
     busy = sum(_dev_us(e) for e in events) / 1e6
     dev = {k: _kernel_device_ms(events, k)
            for k in (("B2", "B6", "B7", "B9") if fused else ("B1", "B2"))}
-    tag = "r8s_f32_fused" if fused else "r8s_f32"
+    tag = ("r8s_f32_fused" if fused else "r8s_f32") + ("_replayed" if replayed else "_eager")
+    if replayed and not any(n for _, n in dev.values()):
+        print(f"profile {tag}: wall {wall * 1e3:.1f} ms; the profiler did not resolve the "
+              f"kernels inside the graph launch ({len(events)} device entries, "
+              f"{busy * 1e3:.1f} ms) on {card}", flush=True)
+        return dev, None, wall * 1e3
     print(f"profile {tag}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-          f"({100 * busy / wall:.1f}%), rtf {res.metrics['rtf']:.4f}; "
+          f"({100 * busy / wall:.1f}%), rtf {wall / secs:.4f}; "
           + ", ".join(f"{k} {ms:.3f} ms in {n} kernel calls" for k, (ms, n) in dev.items())
           + f" on {card}", flush=True)
     for e in events[:15]:
@@ -1167,7 +1217,271 @@ def profile_request(root: Path, card: str, fused: bool = False):
     out = REPO / "chiprun_out"
     if "--profile" in sys.argv[1:] and out.is_dir():
         prof.export_chrome_trace(str(out / f"trace_{tag}.json"))
-    return dev, busy * 1e3
+    return dev, busy * 1e3, wall * 1e3
+
+
+def _r8s_inputs(pipeline, kw, text=None, seed=666):
+    tok = pipeline.tokenizer.texts_to_token_ids
+    pf, _ = pipeline.prompt_features(kw["prompt_wav"], kw["prompt_sr"])
+    return pipeline._prepare_batch([tok([text or kw["text"]])[0]], [tok([kw["prompt_text"]])[0]],
+                                   [pf], 1.0, seed)
+
+
+def _diff(a, b):
+    """(largest |a - b| as float, bitwise equal)."""
+    import torch
+
+    return float((a.float() - b.float()).abs().max()), bool(torch.equal(a, b))
+
+
+def check_graphs(root: Path, card: str):
+    """Phases 5c-5e, f32 and bf16, on the ~8 s request (r8s):
+    5c. the replayed sampler and the replayed one-program PCM16 against the
+        captured functions run eagerly on the same inputs and noise,
+        unfused and with the fused eval path: bit for bit (tolerance 0: a
+        replay runs the captured kernels on the same inputs, and no kernel
+        of the path uses atomics);
+    5d. the batch-4 sampler and vocoder, 4 requests of one bucket with their
+        own seeds, row by row against each request replayed alone (printed:
+        the batch changes the matrix shapes that cuBLAS and cuDNN see);
+    5e. warm RTF of the eager composition against ``synthesize`` and
+        ``synthesize_fused`` replayed, medians of 4 in turns.
+    Returns {dtype: {...}}."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pipeline, kw = _r8s_pipeline(root, dtype)
+        s = _r8s_inputs(pipeline, kw)
+        res = out[dtype] = {}
+        for fused in (False, True):
+            with _FusedEval() if fused else contextlib.nullcontext():
+                for name, prog in (("sample", pipeline._sample_fn(N_STEP, 1.0, 0.5)),
+                                   ("sample_pcm", pipeline._sample_pcm_fn(N_STEP, 1.0, 0.5))):
+                    first = prog(*s.args)  # eager, then captured
+                    replayed = prog(*s.args)
+                    with torch.no_grad():
+                        eager = prog.fn(*s.args)
+                    err, same = _diff(replayed, eager)
+                    first_same = _diff(first, eager)[1]
+                    tag = f"{name} {dtype}{' fused' if fused else ''}"
+                    unit = "mel" if name == "sample" else "PCM16 counts"
+                    print(f"replay vs eager {tag}: max |diff| {err:.3g} {unit}, bitwise "
+                          f"{same} (first call bitwise {first_same}) on {card}", flush=True)
+                    if not (same and first_same and torch.isfinite(eager.float()).all()):
+                        raise AssertionError(f"replay differs from eager: {tag}: {err}")
+                    res[tag] = err
+
+        # 5d: four requests of one bucket (texts of the r8s length)
+        texts = [(BASE * 3)[7 * i: 7 * i + len(kw["text"])] for i in range(4)]
+        seeds = [11, 12, 13, 14]
+        tok = pipeline.tokenizer.texts_to_token_ids
+        pf, _ = pipeline.prompt_features(kw["prompt_wav"], kw["prompt_sr"])
+        p_tok = tok([kw["prompt_text"]])[0]
+        batch = pipeline._prepare_batch([tok([t])[0] for t in texts], [p_tok] * 4, [pf] * 4,
+                                        1.0, 0, seeds)
+        sample, vocode = pipeline._sample_fn(N_STEP, 1.0, 0.5), pipeline._vocode_i16_fn()
+        sample(*batch.args)
+        mel4 = sample(*batch.args)
+        vocode(mel4)
+        pcm4 = vocode(mel4)
+        mel_err, pcm_err, bitwise = 0.0, 0.0, True
+        for i, (text, seed) in enumerate(zip(texts, seeds)):
+            one = pipeline._prepare_batch([tok([text])[0]], [p_tok], [pf], 1.0, 0, [seed])
+            if (one.args[0].shape[1] != batch.args[0].shape[1]
+                    or one.noise.shape[1] != batch.noise.shape[1]):
+                raise AssertionError("batch rows left the single request's bucket")
+            mel1 = sample(*one.args)
+            pcm1 = vocode(mel1)
+            e1, b1 = _diff(mel4[i], mel1[0])
+            e2, b2 = _diff(pcm4[i], pcm1[0])
+            mel_err, pcm_err, bitwise = max(mel_err, e1), max(pcm_err, e2), bitwise and b1 and b2
+        if not torch.isfinite(mel4.float()).all():
+            raise AssertionError(f"batch-4 mel not finite ({dtype})")
+        print(f"batch-4 rows vs batch-1 replays {dtype} (B=4, s_pad "
+              f"{batch.args[0].shape[1]}, t_pad {batch.noise.shape[1]}): max |diff| mel "
+              f"{mel_err:.3g}, PCM16 {pcm_err:.0f} counts, bitwise {bitwise} on {card}",
+              flush=True)
+        res["batch4"] = dict(mel=mel_err, pcm=pcm_err, bitwise=bitwise)
+
+        # 5e: eager composition against synthesize and synthesize_fused replayed
+        def synth(mode):
+            if mode == "eager":
+                wall, secs = eager_synthesize(pipeline, kw)
+                return wall / secs
+            fn = pipeline.synthesize if mode == "replay" else pipeline.synthesize_fused
+            return fn(**kw).metrics["rtf"]
+
+        for mode in ("eager", "replay", "fused"):
+            synth(mode)
+        runs = {"eager": [], "replay": [], "fused": []}
+        for order in (("eager", "replay", "fused"), ("fused", "replay", "eager")) * 2:
+            for mode in order:
+                runs[mode].append(synth(mode))
+        med = {m: float(np.median(v)) for m, v in runs.items()}
+        res["rtf"] = med
+        print(f"rtf r8s {dtype}: eager {med['eager']:.5f} "
+              f"{[round(x, 5) for x in runs['eager']]}, synthesize replayed "
+              f"{med['replay']:.5f} {[round(x, 5) for x in runs['replay']]}, "
+              f"synthesize_fused replayed {med['fused']:.5f} "
+              f"{[round(x, 5) for x in runs['fused']]} (medians of 4 warm requests in turns; "
+              f"{pipeline.captures} graphs captured) on {card}", flush=True)
+        del pipeline
+    return out
+
+
+SERVE_PROMPT_TEXT = "slow prompt text"
+LONG_TEXT = (BASE * 7)[:440]
+
+
+def serve_on_card(root: Path, card: str):
+    """Phase 11: the serving entry point on the card.  The serve CLI's
+    pipeline (bf16, its default) is warmed with batch 4, a TTSServer on a
+    free port answers one request in the warmed bucket, four concurrent
+    ones (batched, /stats), a long_form request, a /synthesize_stream
+    request and a silent prompt (400).  Checks every wav's length and
+    finiteness, that the warmed-bucket requests captured nothing and their
+    launches (B1 260 and B2 520 a sampler call); prints each request's
+    buckets and latency.  Returns the launches and the numbers."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import read_wav, read_wav_bytes, wav_bytes
+    from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline
+    from zipvoice_tpu_torch.bin.serve import get_parser
+    from zipvoice_tpu_torch.serve.server import TTSServer
+
+    args = get_parser().parse_args([
+        "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
+        "--tokenizer", "simple", "--max-batch", "4", "--device", "cuda"])
+    pipeline, num_step, gs = build_pipeline(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    pipeline.warmup(num_step=num_step, guidance_scale=gs, batch_sizes=(args.max_batch,))
+    warm_s = time.monotonic() - t0
+    warmed = pipeline.captures
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve warmup ({args.dtype}, batch_sizes=({args.max_batch},)): {warm_s:.1f} s, "
+          f"{warmed} graphs captured, max_memory_allocated {peak:.2f} GiB on {card}", flush=True)
+
+    # the bucket warmup() captures: 10 s, 64 tokens, a quarter of each as prompt
+    _, s_w, t_w = pipeline._buckets(64, 16, int(10.0 * pipeline.feat_cfg.frame_rate) // 4, 1.0)
+    prompt, sr = read_wav(root / "prompt.wav")
+    pf_frames = int(pipeline.prompt_features(prompt, sr)[0].shape[0])
+    n_prompt = len(SERVE_PROMPT_TEXT)
+    lengths = [n for n in range(1, 200)
+               if pipeline._buckets(n, n_prompt, pf_frames, 1.0)[1:] == (s_w, t_w)]
+    if len(lengths) < 5:
+        raise AssertionError(f"only {lengths} text lengths land in ({s_w}, {t_w})")
+    texts = [(BASE * 2)[i: i + n] for i, n in enumerate(lengths[:5])]
+    hop = pipeline.vocos_cfg.hop_length
+
+    def payload(text, prompt_text=SERVE_PROMPT_TEXT, wav=prompt, **extra):
+        return {"text": text, "prompt_text": prompt_text,
+                "prompt_wav_b64": base64.b64encode(wav_bytes(wav, sr)).decode(),
+                "seed": 7, **extra}
+
+    srv = TTSServer(pipeline, port=0, max_batch=4, max_wait_ms=200.0, num_step=num_step,
+                    guidance_scale=gs)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def post(path, body, timeout=600):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                     data=json.dumps(body).encode(), method="POST")
+        t = time.monotonic()
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            data = resp.read()
+        return data, time.monotonic() - t
+
+    def stats():
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/stats", timeout=30) as r:
+            return json.loads(r.read())
+
+    def check_wav(data, text, what):
+        wav, wsr = read_wav_bytes(data)
+        total, s_pad, t_pad = pipeline._buckets(len(text), n_prompt, pf_frames, 1.0)
+        want = (total - pf_frames - 1) * hop
+        if wsr != sr or wav.shape != (1, want) or not np.isfinite(wav).all():
+            raise AssertionError(f"{what}: wav {wav.shape} at {wsr}, want (1, {want})")
+        return s_pad, t_pad, want / sr
+
+    counters = _counters()
+    try:
+        for c in counters.values():
+            c.launches = 0
+        data, lat = post("/synthesize", payload(texts[0]))
+        s_pad, t_pad, secs = check_wav(data, texts[0], "single request")
+        single = {k: c.launches for k, c in counters.items()}
+        print(f"serve single request: s_pad {s_pad}, t_pad {t_pad} (warmed {s_w}, {t_w}), "
+              f"{secs:.2f} s audio, latency {lat * 1e3:.1f} ms, launches B1 {single['B1']} "
+              f"B2 {single['B2']} on {card}", flush=True)
+
+        before = stats()
+        results = [None] * 4
+
+        def hit(i):
+            results[i] = post("/synthesize", payload(texts[1 + i], seed=20 + i))
+
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("a concurrent request did not finish")
+        after = stats()
+        batches = after["batches"] - before["batches"]
+        for i, (data, lat) in enumerate(results):
+            s_pad, t_pad, secs = check_wav(data, texts[1 + i], f"batched request {i}")
+            print(f"serve concurrent request {i}: s_pad {s_pad}, t_pad {t_pad}, {secs:.2f} s "
+                  f"audio, latency {lat * 1e3:.1f} ms", flush=True)
+        launched = {k: c.launches for k, c in counters.items()}
+        want = {k: UNFUSED_PER_REQUEST.get(k, 0) * (1 + batches) for k in counters}
+        print(f"serve batch: 4 requests in {batches} batch(es) (/stats requests "
+              f"{after['requests'] - before['requests']}), launches {launched}, captures "
+              f"at request time {pipeline.captures - warmed} on {card}", flush=True)
+        if batches >= 4 or after["requests"] - before["requests"] != 4 or launched != want:
+            raise AssertionError(f"batching: {batches} batches, launches {launched}, "
+                                 f"want {want}")
+        if pipeline.captures != warmed:
+            raise AssertionError(f"warmed-bucket requests captured "
+                                 f"{pipeline.captures - warmed} graphs")
+
+        data, lat = post("/synthesize", payload(LONG_TEXT, PROMPT_TEXT, long_form=True))
+        long_wav, _ = read_wav_bytes(data)
+        chunks = len(pipeline._long_form_plan(LONG_TEXT, 20.0))
+        print(f"serve long_form request: {chunks} chunks, {long_wav.shape[-1] / sr:.2f} s "
+              f"audio, latency {lat * 1e3:.1f} ms", flush=True)
+        data, lat = post("/synthesize_stream", payload(LONG_TEXT, PROMPT_TEXT))
+        pcm = np.frombuffer(data[44:], dtype="<i2")
+        print(f"serve stream request: {pcm.size / sr:.2f} s audio, latency "
+              f"{lat * 1e3:.1f} ms", flush=True)
+        if (chunks < 2 or data[:4] != b"RIFF" or pcm.size != long_wav.shape[-1]
+                or not np.isfinite(long_wav).all()):
+            raise AssertionError(f"long form {long_wav.shape} vs stream {pcm.size} samples, "
+                                 f"{chunks} chunks")
+        try:
+            post("/synthesize", payload(texts[0], wav=np.zeros_like(prompt)))
+            raise AssertionError("a silent prompt was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+        print(f"serve silent prompt: HTTP 400; /stats {stats()} on {card}", flush=True)
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+    launches = {k: c.launches for k, c in counters.items()}
+    return launches, dict(warmup_s=warm_s, captures=warmed, peak_gib=peak, batches=batches)
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -1240,11 +1554,18 @@ def main() -> int:
         run_cli(root, ["r8s"], "bfloat16", card, fused=True)
         run_cli(root, ["r4s"], "float32", card)  # the flags reset: the unfused pins again
         rtf_ab = compare_fused_rtf(root, card)
+        graph_res = check_graphs(root, card)
         fwd_err = check_forward_against_cpu(root)
         fused_fwd_err = check_forward_against_cpu(root, fused=True)
-        unfused_dev, unfused_busy = profile_request(root, card)
-        fused_dev, fused_busy = profile_request(root, card, fused=True)
+        unfused_dev, unfused_busy, unfused_wall = profile_request(root, card)
+        fused_dev, fused_busy, fused_wall = profile_request(root, card, fused=True)
+        replayed_busy = {f: profile_request(root, card, fused=f, replayed=True)[1:]
+                         for f in (False, True)}
         grad_err = check_gradient_against_cpu(root)
+        # the pipelines above (and their graph pools) sit in reference
+        # cycles: free them before the training phases
+        gc.collect()
+        torch.cuda.empty_cache()
         manifest = make_corpus(root)
         reg_step, reg_launches, reg_ms, reg_gib, exp, res = run_training(
             root, manifest, card, True, 6)
@@ -1255,6 +1576,7 @@ def main() -> int:
         _, noreg_busy, noreg_dev = profile_train_step(noreg_res, manifest, card, False)
         del noreg_res
         check_checkpoint_serves(root, exp, card)
+        server_launches, serve_res = serve_on_card(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1264,6 +1586,7 @@ def main() -> int:
                       "zipvoice_tpu/ops/attention.py:979", serve_launches["B1"],
                       (1024, "float32"), "B=2 H=4 T=1024 f32",
                       launches_per_request=serve_launches["B1"] // n_req,
+                      launches_server=server_launches["B1"],
                       launches_per_train_step=reg_step["B1"]),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
@@ -1271,6 +1594,7 @@ def main() -> int:
                       (1024, "float32"), "B=2 H=4 T=1024 f32",
                       launches_per_request=serve_launches["B2"] // n_req,
                       launches_per_fused_request=fused_launches["B2"] // n_req,
+                      launches_server=server_launches["B2"],
                       launches_per_train_step=reg_step["B2"]),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
@@ -1309,8 +1633,27 @@ def main() -> int:
                       launches_per_fused_request=fused_launches["B9"] // n_req),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
+    missing += [f"{k} (server)" for k in ("B1", "B2") if not server_launches[k]]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
+    for dtype, r in graph_res.items():
+        print(f"graphs {dtype}: replay vs eager bitwise (unfused and fused); batch-4 rows vs "
+              f"batch-1 max |diff| mel {r['batch4']['mel']:.3g}, PCM16 "
+              f"{r['batch4']['pcm']:.0f}; r8s rtf eager {r['rtf']['eager']:.5f}, synthesize "
+              f"replayed {r['rtf']['replay']:.5f}, synthesize_fused replayed "
+              f"{r['rtf']['fused']:.5f} on {card}", flush=True)
+    busy_line = []
+    for f, (busy_ms, wall_ms) in replayed_busy.items():
+        eager_busy, eager_wall = ((fused_busy, fused_wall) if f else (unfused_busy, unfused_wall))
+        tag = "fused" if f else "unfused"
+        busy_line.append(
+            f"{tag} eager {100 * eager_busy / eager_wall:.1f}% of {eager_wall:.1f} ms, replayed "
+            + ("not resolved by the profiler" if busy_ms is None
+               else f"{100 * busy_ms / wall_ms:.1f}% of {wall_ms:.1f} ms"))
+    print("device busy share of the profiled r8s f32 request: " + "; ".join(busy_line)
+          + f"; server: warmup {serve_res['warmup_s']:.1f} s, {serve_res['captures']} graphs, "
+          f"peak {serve_res['peak_gib']:.2f} GiB, 4 concurrent requests in "
+          f"{serve_res['batches']} batch(es) on {card}", flush=True)
     rtf = [round(m["rtf"], 5) for m in metrics]
     fused_rtf = [round(m["rtf"], 5) for m in fused_metrics]
     worst_grad = max(max(v.values()) for v in grad_err.values())

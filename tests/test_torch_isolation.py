@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "zipvoice_tpu_torch.bin.infer_zipvoice" in res["imported"]
     for name in ("bin.train_zipvoice", "train.trainer", "train.scaled_adam",
                  "train.checkpoint", "train.schedules", "data.dataset", "data.prefetch",
-                 "nn.regularizers", "ops.melspec", "ops.convglu", "utils.tb_writer"):
+                 "nn.regularizers", "ops.melspec", "ops.convglu", "utils.tb_writer",
+                 "serve.server", "bin.serve", "utils.memo", "utils.graphs"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

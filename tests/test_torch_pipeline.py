@@ -147,11 +147,43 @@ def test_cli_refuses_what_is_not_ported(assets, tmp_path):
     base = ["--vocoder-path", str(d / "vocos.bin"), "--tokenizer", "simple",
             "--device", "cpu", "--prompt-wav", str(d / "prompt.wav"),
             "--prompt-text", "hi", "--text", "yo"]
-    for extra in (["--model-dir", str(d), "--long-form"],
-                  ["--model-dir", str(d), "--quantize", "int8"],
+    for extra in (["--model-dir", str(d), "--quantize", "int8"],
                   []):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(base + extra)
+
+
+def test_serve_cli_refuses_what_is_not_ported(assets):
+    from zipvoice_tpu_torch.bin.serve import main
+
+    d, _ = assets
+    base = ["--model-dir", str(d), "--vocoder-path", str(d / "vocos.bin"),
+            "--device", "cpu"]
+    for extra in (["--tokenizer", "simple", "--quantize", "int8"],
+                  ["--tokenizer", "emilia"],
+                  ["--tokenizer", "simple", "--model-name", "zipvoice_distill"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            main(base + extra)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main(["--tokenizer", "simple", "--device", "cpu"])  # no --model-dir
+
+
+def test_cli_long_form_cpu(assets, tmp_path):
+    """--long-form runs synthesize_long: two sentence chunks, one wav."""
+    from zipvoice_tpu_torch.bin.infer_zipvoice import main
+
+    d, _ = assets
+    out = tmp_path / "long.wav"
+    metrics = main([
+        "--model-dir", str(d), "--vocoder-path", str(d / "vocos.bin"),
+        "--tokenizer", "simple", "--device", "cpu", "--num-step", "2",
+        "--prompt-wav", str(d / "prompt.wav"), "--prompt-text", "hi there",
+        "--text", "hello world. good day to you.", "--long-form",
+        "--res-wav-path", str(out),
+    ])
+    assert metrics[0]["chunks"] == 1  # both sentences fit one 20 s chunk
+    wav, sr = read_wav(out)
+    assert sr == 24000 and wav.shape[-1] > 0 and np.isfinite(wav).all()
 
 
 def test_silent_prompt_raises(assets):

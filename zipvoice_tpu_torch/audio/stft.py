@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from zipvoice_tpu_torch.utils.graphs import hold
+
 
 def hann_window(win_length: int, periodic: bool = True) -> np.ndarray:
     """torch.hann_window semantics (periodic=True by default), f32."""
@@ -51,10 +53,15 @@ def idft_basis(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
             (w * np.sin(ang) / n_fft).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=16)
 def _device_consts(n_fft: int, device: torch.device):
     """Hann window and the forward/inverse bases as f32 tensors on
-    ``device``, uploaded once per (n_fft, device)."""
+    ``device``, uploaded once per (n_fft, device) and held by a graph
+    captured over them."""
+    return tuple(hold(t) for t in _device_consts_cached(n_fft, device))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_consts_cached(n_fft: int, device: torch.device):
     to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     cos, sin = dft_basis(n_fft)
     cos_i, sin_i = idft_basis(n_fft)
@@ -106,7 +113,7 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
         seg = fr[..., :, c, :].reshape(batch_shape + (span,))
         out[..., c * hop_length : c * hop_length + span] += seg
 
-    out = out / _envelope(n_fft, hop_length, num_frames, length_eps, out.device)
+    out = out / hold(_envelope(n_fft, hop_length, num_frames, length_eps, out.device))
     if center:
         out = out[..., n_fft // 2 : total - n_fft // 2]
     return out

@@ -17,7 +17,12 @@ import numpy as np
 
 def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
     """Read a RIFF WAV file -> (samples (C, L) float32 in [-1, 1], sample_rate)."""
-    data = Path(path).read_bytes()
+    return read_wav_bytes(Path(path).read_bytes(), name=str(path))
+
+
+def read_wav_bytes(data: bytes, name: str = "<bytes>") -> Tuple[np.ndarray, int]:
+    """read_wav of an in-memory RIFF blob (a serving request's prompt)."""
+    path = name
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
         raise ValueError(f"{path}: not a RIFF/WAVE file")
     pos = 12
@@ -69,20 +74,46 @@ def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(x), sample_rate
 
 
-def write_wav(path: Union[str, Path], samples: np.ndarray, sample_rate: int):
-    """Write (C, L) or (L,) float32 samples as PCM16 WAV."""
-    x = np.asarray(samples, np.float32)
-    if x.ndim == 1:
-        x = x[None, :]
-    channels = x.shape[0]
-    body = np.clip(np.round(x.T * 32768.0), -32768, 32767).astype("<i2").tobytes()
-    hdr = b"RIFF" + struct.pack("<I", 36 + len(body)) + b"WAVE"
-    hdr += b"fmt " + struct.pack(
+def _fmt_chunk(sample_rate: int, channels: int) -> bytes:
+    return b"fmt " + struct.pack(
         "<IHHIIHH", 16, 1, channels, sample_rate, sample_rate * channels * 2,
         channels * 2, 16,
     )
+
+
+def pcm16_bytes(samples: np.ndarray) -> bytes:
+    """(L,) or (C, L) float32 -> interleaved little-endian PCM16 bytes."""
+    x = np.asarray(samples, np.float32)
+    if x.ndim == 1:
+        x = x[None, :]
+    return np.clip(np.round(x.T * 32768.0), -32768, 32767).astype("<i2").tobytes()
+
+
+def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
+    """Encode (C, L) or (L,) float32 samples as a PCM16 RIFF blob."""
+    x = np.asarray(samples, np.float32)
+    if x.ndim == 1:
+        x = x[None, :]
+    body = pcm16_bytes(x)
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(body)) + b"WAVE"
+    hdr += _fmt_chunk(sample_rate, x.shape[0])
     hdr += b"data" + struct.pack("<I", len(body))
-    Path(path).write_bytes(hdr + body)
+    return hdr + body
+
+
+def write_wav(path: Union[str, Path], samples: np.ndarray, sample_rate: int):
+    """Write (C, L) or (L,) float32 samples as PCM16 WAV."""
+    Path(path).write_bytes(wav_bytes(samples, sample_rate))
+
+
+def wav_stream_header(sample_rate: int, channels: int = 1) -> bytes:
+    """RIFF/WAVE header of a stream of unknown length: the RIFF and data
+    sizes are 0xFFFFFFFF (players read to the end).  PCM16 frames
+    (pcm16_bytes) follow."""
+    hdr = b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE"
+    hdr += _fmt_chunk(sample_rate, channels)
+    hdr += b"data" + struct.pack("<I", 0xFFFFFFFF)
+    return hdr
 
 
 def probe_wav(path: Union[str, Path]) -> Tuple[int, int, int]:

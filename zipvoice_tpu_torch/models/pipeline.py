@@ -1,17 +1,27 @@
 """Zero-shot TTS inference pipeline: tokenize -> fbank -> ODE -> vocoder.
 
-The PyTorch counterpart of ``ZipVoicePipeline.synthesize``: the prompt
-fbank, the text encoder, the CFG Euler sampler and the Vocos vocoder all run
-on the pipeline's device; only the PCM16 wav comes back to the host.
-Padded shapes follow the same token/frame buckets as the reference package,
-so the bucketed values equal the unbucketed ones.
+The PyTorch counterpart of the reference package's ``ZipVoicePipeline``.
+The device path is three programs (``utils/graphs.Program``), each a plain
+function over padded, bucketed tensors that the card captures as a CUDA
+graph per shape bucket, as the reference package jits them:
+
+  1. ``_sample_fn``:     text embed + text encoder + duration expansion +
+                         N-step CFG Euler ODE + prompt strip + unscaling
+  2. ``_vocode_i16_fn``: Vocos + ISTFT + clip + PCM16
+  3. ``_sample_pcm_fn``: both in one graph (one request, one readback)
+
+Token counts, frame counts and prompt lengths ride as (B,) tensors over the
+token and frame buckets, so a handful of graphs serves every request size;
+the bucketed values equal the unbucketed ones.  The prompt fbank stays
+eager (one short call a request).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,30 +35,41 @@ from zipvoice_tpu_torch.audio.vocos import VocosConfig, vocos_decode
 from zipvoice_tpu_torch.audio.wav import resample
 from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig
 from zipvoice_tpu_torch.models import zipvoice as zv
+from zipvoice_tpu_torch.nn.zipformer import fused_flags
 from zipvoice_tpu_torch.utils.device import resolve_device
+from zipvoice_tpu_torch.utils.graphs import GraphSet, Program
+from zipvoice_tpu_torch.utils.memo import instance_cache
 from zipvoice_tpu_torch.utils.shapes import round_up
 
 
 @dataclasses.dataclass
 class SynthesisResult:
     wav: np.ndarray  # (L,) float32
-    features: np.ndarray  # (T_gen, F) generated mel (model scale removed)
+    # (T_gen, F) generated mel (model scale removed); None on the fused
+    # one-program path, which reads back only PCM16
+    features: Optional[np.ndarray]
     metrics: Dict[str, float]
 
 
 @dataclasses.dataclass
 class _SampleInputs:
-    tokens_padded: torch.Tensor
-    tokens_lens: torch.Tensor
-    prompt_features: torch.Tensor
-    prompt_features_lens: torch.Tensor
-    features_lens: torch.Tensor
-    noise: torch.Tensor
-    gen_len: int  # generated frames (host arithmetic, sync-free)
+    tokens_padded: torch.Tensor  # (B, S) int64
+    tokens_lens: torch.Tensor  # (B,) int64
+    prompt_features: torch.Tensor  # (B, T, F)
+    prompt_features_lens: torch.Tensor  # (B,) int64
+    features_lens: torch.Tensor  # (B,) int64
+    noise: torch.Tensor  # (B, T, F)
+    gen_lens: List[int]  # generated frames a row (host arithmetic, sync-free)
+
+    @property
+    def args(self) -> Tuple[torch.Tensor, ...]:
+        """The inputs of the sampling programs, in their order."""
+        return (self.tokens_padded, self.tokens_lens, self.prompt_features,
+                self.prompt_features_lens, self.features_lens, self.noise)
 
 
 class ZipVoicePipeline:
-    """Host-side orchestration around the model and the vocoder."""
+    """Host-side orchestration around the captured programs."""
 
     # prompt wavs are padded to a grid of this many frames' worth of samples
     # (128 frames = 1.37 s at 24 kHz / hop 256), matching the reference
@@ -87,10 +108,201 @@ class ZipVoicePipeline:
         self.dtype = dtype
         self.token_bucket = token_bucket
         self.frame_bucket = frame_bucket
+        # the programs' graphs: one pool, one lock, bounded; program memos
+        # live on the instance (utils/memo), so both go with the pipeline
+        self.graphs = GraphSet(self.device)
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured so far (0 on the CPU, which runs eagerly)."""
+        return self.graphs.captures
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------ programs
+
+    def _strip_prompt(self, x1, prompt_features_lens, features_lens):
+        """Roll each row's generated region to the front (left by its prompt
+        length), zero the rest and undo the model feature scaling."""
+        t = x1.shape[1]
+        frames = torch.arange(t, device=x1.device)[None, :]
+        src = (frames + prompt_features_lens[:, None]) % t
+        x_gen = torch.gather(x1, 1, src[:, :, None].expand(-1, -1, x1.shape[-1]))
+        gen_lens = features_lens - prompt_features_lens
+        x_gen = x_gen.masked_fill((frames >= gen_lens[:, None])[:, :, None], 0.0)
+        return x_gen / self.feat_cfg.feat_scale - self.feat_cfg.feat_bias
+
+    @instance_cache
+    def _sample_fn(self, num_step: int, guidance_scale: float, t_shift: float,
+                   timesteps: Optional[tuple] = None) -> Program:
+        """The sampler over the bucketed inputs (``_SampleInputs.args``):
+        (B, T, F) mel with each row's prompt stripped, frames >= its
+        gen_len zeroed, in the pipeline's dtype."""
+        model = self.model
+
+        def run(tokens_padded, tokens_lens, prompt_features, prompt_features_lens,
+                features_lens, noise):
+            x1 = zv.sample(
+                model, tokens_padded, tokens_lens, prompt_features,
+                prompt_features_lens, features_lens, noise,
+                num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
+                timesteps=timesteps,
+            )
+            return self._strip_prompt(x1, prompt_features_lens, features_lens)
+
+        return Program(self.graphs, "sample",
+                       (num_step, guidance_scale, t_shift, timesteps), run, fused_flags)
+
+    def _decode_i16(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, T, F) mel -> (B, (T - 1) * hop) PCM16: Vocos, clip, round."""
+        wav = vocos_decode(self.vocos_params, mel.to(self.dtype), self.vocos_cfg)
+        return torch.round(torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+
+    @instance_cache
+    def _vocode_i16_fn(self) -> Program:
+        """The vocoder emitting PCM16 (half the readback of f32)."""
+        return Program(self.graphs, "vocode_i16", (), self._decode_i16)
+
+    @instance_cache
+    def _sample_pcm_fn(self, num_step: int, guidance_scale: float,
+                       t_shift: float) -> Program:
+        """Sampler + vocoder + PCM16 as one graph: one replay and one int16
+        readback a request."""
+        sample = self._sample_fn(num_step, guidance_scale, t_shift).fn
+        decode = self._decode_i16
+
+        def run(*args):
+            return decode(sample(*args))
+
+        return Program(self.graphs, "sample_pcm", (num_step, guidance_scale, t_shift),
+                       run, fused_flags)
+
+    # ------------------------------------------------------------- inputs
+
+    def _buckets(self, n_tokens: int, n_prompt_tokens: int, prompt_frames: int,
+                 speed: float) -> Tuple[int, int, int]:
+        """(total frames, token bucket s_pad, frame bucket t_pad) of one
+        request with the token-ratio duration."""
+        total = int(zv.predict_features_lens(
+            np.array([prompt_frames]), np.array([max(n_prompt_tokens, 1)]),
+            np.array([n_tokens]), speed=speed,
+        )[0])
+        s_pad = round_up(n_prompt_tokens + n_tokens + 1, self.token_bucket)
+        return total, s_pad, round_up(total, self.frame_bucket)
+
+    def _noise(self, seed: int, shape) -> torch.Tensor:
+        """Standard normal noise drawn in f32 from a seeded generator on the
+        device, in the pipeline's dtype."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device,
+                           dtype=torch.float32).to(self.dtype)
+
+    def _prepare_batch(self, token_lists, prompt_token_lists, feats, speed: float,
+                       seed: int, seeds: Optional[Sequence[int]] = None,
+                       noise: Optional[np.ndarray] = None) -> _SampleInputs:
+        """Bucket-pad n requests to one (n, s_pad) / (n, t_pad, F) batch.
+        Noise: explicit ((n, T, F) numpy, cut or zero-padded to t_pad), or
+        row i from its own generator seeded ``seeds[i] & 0xFFFFFFFF``, or
+        one (n, t_pad, F) draw seeded ``seed``."""
+        n = len(token_lists)
+        dev, pad_id = self.device, self.model_cfg.pad_id
+        cats = [list(p) + list(t) for p, t in zip(prompt_token_lists, token_lists)]
+        prompt_lens = [int(f.shape[0]) for f in feats]
+        plans = [self._buckets(len(t), len(p), pl, speed)
+                 for t, p, pl in zip(token_lists, prompt_token_lists, prompt_lens)]
+        totals = [total for total, _, _ in plans]
+        s_pad = max(s for _, s, _ in plans)
+        t_pad = max(t for _, _, t in plans)
+
+        tokens_padded = np.full((n, s_pad), pad_id, np.int64)
+        for i, c in enumerate(cats):
+            tokens_padded[i, : len(c)] = c
+        pf = torch.zeros((n, t_pad, feats[0].shape[-1]), dtype=self.dtype, device=dev)
+        for i, f in enumerate(feats):
+            if not isinstance(f, torch.Tensor):
+                f = torch.from_numpy(np.array(f, np.float32))
+            pf[i, : prompt_lens[i]] = f.to(dev, self.dtype)
+
+        feat_dim = self.model_cfg.feat_dim
+        if noise is not None:
+            noise = np.asarray(noise, np.float32)[:, :t_pad]
+            noise = np.pad(noise, ((0, 0), (0, t_pad - noise.shape[1]), (0, 0)))
+            noise_t = torch.from_numpy(noise).to(dev, self.dtype)
+        elif seeds is not None:
+            if len(seeds) != n:
+                raise ValueError(f"{len(seeds)} seeds for {n} requests")
+            noise_t = torch.cat([self._noise(s & 0xFFFFFFFF, (1, t_pad, feat_dim))
+                                 for s in seeds])
+        else:
+            noise_t = self._noise(seed, (n, t_pad, feat_dim))
+
+        def ints(values):
+            return torch.tensor(values, dtype=torch.int64, device=dev)
+
+        return _SampleInputs(
+            tokens_padded=torch.from_numpy(tokens_padded).to(dev),
+            tokens_lens=ints([len(c) for c in cats]),
+            prompt_features=pf,
+            prompt_features_lens=ints(prompt_lens),
+            features_lens=ints(totals),
+            noise=noise_t,
+            gen_lens=[t - p for t, p in zip(totals, prompt_lens)],
+        )
+
+    def _prepare_sample_inputs(self, tokens, prompt_tokens, prompt_feats,
+                               speed: float, seed: int,
+                               noise: Optional[np.ndarray] = None) -> _SampleInputs:
+        """One request as a batch of one; noise from a seeded generator on
+        the device unless given explicitly ((1, T, F) numpy)."""
+        return self._prepare_batch([tokens], [prompt_tokens], [prompt_feats], speed,
+                                   seed, noise=noise)
+
+    # ---------------------------------------------------------------- api
+
+    def warmup(self, num_step: int = 16, guidance_scale: float = 1.0,
+               t_shift: float = 0.5, seconds=(10.0,), token_counts=(64,),
+               fused: bool = True, batch_sizes=()):
+        """Capture the serving programs for the given duration and token
+        buckets before the first request (cold-start control).  ``fused``
+        keeps the reference package's name for the one sample + vocoder +
+        PCM16 program that single requests run (``_sample_pcm_fn``); it is
+        not the fused eval path of ``nn/zipformer.set_fused_eval``, whose
+        flags in force now are part of every warmed key.  ``batch_sizes``
+        (e.g. ``(4, 8)``) adds the batched sampler and vocoder that a
+        dynamic-batching server drains into."""
+        rng = np.random.default_rng(0)
+        for secs in seconds:
+            frames = int(secs * self.feat_cfg.frame_rate)
+            for n_tok in token_counts:
+                tokens = list(rng.integers(1, self.model_cfg.vocab_size, n_tok))
+                prompt_tokens = list(
+                    rng.integers(1, self.model_cfg.vocab_size, max(n_tok // 4, 1)))
+                pf = (rng.standard_normal((max(frames // 4, 8), self.model_cfg.feat_dim))
+                      * 0.01).astype(np.float32)
+                mel, gen_len = self.sample_features(
+                    tokens, prompt_tokens, pf, num_step=num_step,
+                    guidance_scale=guidance_scale, t_shift=t_shift)
+                if self.vocos_params is not None:
+                    self.vocode(mel, gen_len)
+                    if fused:
+                        batch = self._prepare_sample_inputs(tokens, prompt_tokens, pf,
+                                                            1.0, 0)
+                        run = self._sample_pcm_fn(int(num_step), float(guidance_scale),
+                                                  float(t_shift))
+                        run(*batch.args).cpu()
+                for b in batch_sizes:
+                    if b <= 1:
+                        continue
+                    run = self._sample_fn(int(num_step), float(guidance_scale),
+                                          float(t_shift))
+                    args = self._prepare_sample_inputs(tokens, prompt_tokens, pf,
+                                                       1.0, 0).args
+                    mel_b = run(*(a.repeat_interleave(b, dim=0) for a in args))
+                    if self.vocos_params is not None:
+                        self._vocode_i16_fn()(mel_b).cpu()
+        self._sync()
 
     @torch.no_grad()
     def prompt_features(self, prompt_wav: np.ndarray, sr: int,
@@ -129,57 +341,19 @@ class ZipVoicePipeline:
         # the vocos pad always yields at least the lhotse frame count
         return feats[: compute_num_frames(length, fcfg.hop_length)], prompt_rms
 
-    def _prepare_sample_inputs(self, tokens, prompt_tokens, prompt_feats,
-                               speed: float, seed: int,
-                               noise: Optional[np.ndarray] = None) -> _SampleInputs:
-        """Bucket-pad one request; noise comes from a seeded generator on
-        the device unless given explicitly ((1, T, F) numpy)."""
-        cat_tokens = list(prompt_tokens) + list(tokens)
-        prompt_len_frames = int(prompt_feats.shape[0])
-        total_frames = int(zv.predict_features_lens(
-            np.array([prompt_len_frames]),
-            np.array([max(len(prompt_tokens), 1)]),
-            np.array([len(tokens)]),
-            speed=speed,
-        )[0])
-        s_pad = round_up(len(cat_tokens) + 1, self.token_bucket)
-        t_pad = round_up(total_frames, self.frame_bucket)
-        dev, feat_dim = self.device, self.model_cfg.feat_dim
-
-        tokens_padded = np.full((1, s_pad), self.model_cfg.pad_id, np.int64)
-        row = cat_tokens + [self.model_cfg.pad_id]
-        tokens_padded[0, : len(row)] = row
-
-        pf = torch.zeros((1, t_pad, prompt_feats.shape[-1]), dtype=self.dtype,
-                         device=dev)
-        if not isinstance(prompt_feats, torch.Tensor):
-            prompt_feats = torch.from_numpy(np.array(prompt_feats, np.float32))
-        pf[0, :prompt_len_frames] = prompt_feats.to(dev, self.dtype)
-
-        if noise is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            noise_t = torch.randn((1, t_pad, feat_dim), generator=gen, device=dev,
-                                  dtype=torch.float32).to(self.dtype)
-        else:
-            noise = np.asarray(noise, np.float32)
-            if noise.shape[1] < t_pad:
-                noise = np.concatenate(
-                    [noise, np.zeros((1, t_pad - noise.shape[1], noise.shape[-1]),
-                                     np.float32)], axis=1)
-            noise_t = torch.from_numpy(noise[:, :t_pad]).to(dev, self.dtype)
-
-        def ints(values):
-            return torch.tensor(values, dtype=torch.int64, device=dev)
-
-        return _SampleInputs(
-            tokens_padded=torch.from_numpy(tokens_padded).to(dev),
-            tokens_lens=ints([len(cat_tokens)]),
-            prompt_features=pf,
-            prompt_features_lens=ints([prompt_len_frames]),
-            features_lens=ints([total_frames]),
-            noise=noise_t,
-            gen_len=total_frames - prompt_len_frames,
-        )
+    def _request_inputs(self, text, prompt_text, prompt_wav, prompt_sr, target_rms,
+                        precomputed: Optional[Dict]):
+        """(tokens, prompt tokens, prompt feats, prompt rms) of one request,
+        or those ``precomputed`` off the dispatcher thread."""
+        if precomputed is not None:
+            return (precomputed["tokens"], precomputed["prompt_tokens"],
+                    precomputed["prompt_feats"], precomputed["prompt_rms"])
+        if self.tokenizer is None:
+            raise ValueError("pipeline needs a tokenizer")
+        tokens = self.tokenizer.texts_to_token_ids([text])[0]
+        prompt_tokens = self.tokenizer.texts_to_token_ids([prompt_text])[0]
+        pf, prompt_rms = self.prompt_features(prompt_wav, prompt_sr, target_rms)
+        return tokens, prompt_tokens, pf, prompt_rms
 
     @torch.no_grad()
     def sample_features(self, tokens, prompt_tokens, prompt_feats,
@@ -187,37 +361,25 @@ class ZipVoicePipeline:
                         speed: float = 1.0, t_shift: float = 0.5, seed: int = 666,
                         noise: Optional[np.ndarray] = None,
                         timesteps=None) -> Tuple[torch.Tensor, int]:
-        """Run the sampler.  Returns ((T_bucket, F) mel on the device with
-        frames >= gen_len zeroed, gen_len)."""
+        """Run the sampler program.  Returns ((T_bucket, F) mel on the
+        device with frames >= gen_len zeroed, gen_len).  ``timesteps`` (an
+        explicit Euler grid) overrides num_step / t_shift."""
         s = self._prepare_sample_inputs(tokens, prompt_tokens, prompt_feats,
                                         speed, seed, noise)
-        x1 = zv.sample(
-            self.model, s.tokens_padded, s.tokens_lens, s.prompt_features,
-            s.prompt_features_lens, s.features_lens, s.noise,
-            num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
-            timesteps=timesteps,
-        )
-        # strip the prompt: roll the generated region to the front (row b
-        # left by its prompt length), zero the rest
-        t = x1.shape[1]
-        frames = torch.arange(t, device=x1.device)[None, :]
-        src = (frames + s.prompt_features_lens[:, None]) % t
-        x_gen = torch.gather(x1, 1, src[:, :, None].expand(-1, -1, x1.shape[-1]))
-        gen_lens = s.features_lens - s.prompt_features_lens
-        x_gen = x_gen.masked_fill((frames >= gen_lens[:, None])[:, :, None], 0.0)
-        # undo the model feature scaling
-        mel = x_gen / self.feat_cfg.feat_scale - self.feat_cfg.feat_bias
-        return mel[0], s.gen_len
+        ts_key = None if timesteps is None else tuple(float(t) for t in timesteps)
+        run = self._sample_fn(int(num_step), float(guidance_scale), float(t_shift), ts_key)
+        return run(*s.args)[0], s.gen_lens[0]
 
     @torch.no_grad()
-    def vocode(self, mel: torch.Tensor, gen_len: int) -> np.ndarray:
-        """Vocode a (T_bucket, F) mel whose frames >= gen_len are zero;
-        PCM16 on the device, float32 wav of (gen_len - 1) * hop samples on
-        the host."""
+    def vocode(self, mel, gen_len: int) -> np.ndarray:
+        """Vocode a (T_bucket, F) mel (device tensor or numpy) whose frames
+        >= gen_len are zero; PCM16 on the device, float32 wav of
+        (gen_len - 1) * hop samples on the host."""
         if self.vocos_params is None:
             raise ValueError("pipeline needs vocoder weights")
-        wav = vocos_decode(self.vocos_params, mel.to(self.dtype)[None], self.vocos_cfg)
-        pcm = torch.round(torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+        if not isinstance(mel, torch.Tensor):
+            mel = torch.from_numpy(np.asarray(mel, np.float32))
+        pcm = self._vocode_i16_fn()(mel.to(self.device, self.dtype)[None])
         out = pcm[0].cpu().numpy().astype(np.float32) / 32767.0
         return out[: max(gen_len - 1, 1) * self.vocos_cfg.hop_length]
 
@@ -225,12 +387,9 @@ class ZipVoicePipeline:
                    prompt_sr: int, num_step: int = 16, guidance_scale: float = 1.0,
                    speed: float = 1.0, t_shift: float = 0.5, target_rms: float = 0.1,
                    seed: int = 666, timesteps=None) -> SynthesisResult:
-        if self.tokenizer is None:
-            raise ValueError("pipeline needs a tokenizer")
         t0 = time.monotonic()
-        tokens = self.tokenizer.texts_to_token_ids([text])[0]
-        prompt_tokens = self.tokenizer.texts_to_token_ids([prompt_text])[0]
-        pf, prompt_rms = self.prompt_features(prompt_wav, prompt_sr, target_rms)
+        tokens, prompt_tokens, pf, prompt_rms = self._request_inputs(
+            text, prompt_text, prompt_wav, prompt_sr, target_rms, None)
         mel, gen_len = self.sample_features(
             tokens, prompt_tokens, pf, num_step=num_step,
             guidance_scale=guidance_scale, speed=speed, t_shift=t_shift,
@@ -257,3 +416,219 @@ class ZipVoicePipeline:
         return SynthesisResult(
             wav=wav, features=mel[:gen_len].float().cpu().numpy(), metrics=metrics,
         )
+
+    @torch.no_grad()
+    def synthesize_fused(self, text: str, prompt_text: str, prompt_wav: np.ndarray,
+                         prompt_sr: int, num_step: int = 16, guidance_scale: float = 1.0,
+                         speed: float = 1.0, t_shift: float = 0.5,
+                         target_rms: float = 0.1, seed: int = 666,
+                         precomputed: Optional[Dict] = None) -> SynthesisResult:
+        """synthesize() through the one sample + vocoder + PCM16 program (no
+        model/vocoder split in the metrics).  ``precomputed`` may carry
+        {"tokens", "prompt_tokens", "prompt_feats", "prompt_rms"} prepared
+        off the dispatcher thread."""
+        if self.vocos_params is None:
+            raise ValueError("pipeline needs vocoder weights")
+        t0 = time.monotonic()
+        tokens, prompt_tokens, pf, prompt_rms = self._request_inputs(
+            text, prompt_text, prompt_wav, prompt_sr, target_rms, precomputed)
+        batch = self._prepare_sample_inputs(tokens, prompt_tokens, pf, speed, seed)
+        run = self._sample_pcm_fn(int(num_step), float(guidance_scale), float(t_shift))
+        wav = run(*batch.args)[0].cpu().numpy().astype(np.float32) / 32767.0
+        wav = wav[: max(batch.gen_lens[0] - 1, 1) * self.vocos_cfg.hop_length]
+        if prompt_rms < target_rms:
+            wav = wav * (prompt_rms / target_rms)
+        t1 = time.monotonic()
+        wav_seconds = wav.shape[-1] / self.feat_cfg.sampling_rate
+        return SynthesisResult(
+            wav=wav, features=None,
+            metrics={"t": t1 - t0, "wav_seconds": wav_seconds,
+                     "rtf": (t1 - t0) / max(wav_seconds, 1e-9)},
+        )
+
+    @torch.no_grad()
+    def synthesize_batch(self, texts, prompt_texts, prompt_wavs, prompt_srs,
+                         num_step: int = 16, guidance_scale: float = 1.0,
+                         speed: float = 1.0, t_shift: float = 0.5,
+                         target_rms: float = 0.1, seed: int = 666, seeds=None,
+                         precomputed=None) -> List[SynthesisResult]:
+        """Several requests in one sampler call and one vocoder call, padded
+        to the largest token and frame bucket among them.
+
+        ``seeds`` (one a request) draws each row's noise from its own
+        generator, so a row equals the same request served alone in the
+        same buckets whatever it was batched with.  Returns one
+        SynthesisResult a request; the metrics carry the batch totals."""
+        if self.vocos_params is None:
+            raise ValueError("pipeline needs vocoder weights")
+        t0 = time.monotonic()
+        if precomputed is not None:
+            rows = [self._request_inputs(None, None, None, None, target_rms, p)
+                    for p in precomputed]
+        else:
+            rows = [self._request_inputs(t, p, w, sr, target_rms, None)
+                    for t, p, w, sr in zip(texts, prompt_texts, prompt_wavs, prompt_srs)]
+        tokens, prompt_tokens, feats, rmss = (list(c) for c in zip(*rows))
+        batch = self._prepare_batch(tokens, prompt_tokens, feats, speed, seed, seeds)
+        run = self._sample_fn(int(num_step), float(guidance_scale), float(t_shift))
+        mel = run(*batch.args)
+        self._sync()
+        t1 = time.monotonic()
+
+        wavs = self._vocode_i16_fn()(mel).cpu().numpy().astype(np.float32) / 32767.0
+        mel_np = mel.float().cpu().numpy()
+        t2 = time.monotonic()
+
+        results = []
+        total_secs = 0.0
+        for i, gen_len in enumerate(batch.gen_lens):
+            w = wavs[i, : max(gen_len - 1, 1) * self.vocos_cfg.hop_length]
+            if rmss[i] < target_rms:
+                w = w * (rmss[i] / target_rms)
+            total_secs += len(w) / self.feat_cfg.sampling_rate
+            results.append(SynthesisResult(wav=w, features=mel_np[i, :gen_len],
+                                           metrics={}))
+        metrics = {
+            "t": t2 - t0, "t_no_vocoder": t1 - t0, "t_vocoder": t2 - t1,
+            "wav_seconds": total_secs, "rtf": (t2 - t0) / max(total_secs, 1e-9),
+        }
+        for r in results:
+            r.metrics.update(metrics)
+        return results
+
+    def synthesize_long(self, text: str, prompt_text: str, prompt_wav: np.ndarray,
+                        prompt_sr: int, num_step: int = 16, guidance_scale: float = 1.0,
+                        speed: float = 1.0, t_shift: float = 0.5, target_rms: float = 0.1,
+                        seed: int = 666, max_chunk_seconds: float = 20.0,
+                        carry_seconds: float = 4.0) -> SynthesisResult:
+        """Long-form synthesis beyond the trained utterance length: the text
+        splits into sentence chunks, each conditioned on the tail of the
+        previous chunk's generated mel (no vocode/fbank round trip), and the
+        whole mel is vocoded once."""
+        if self.tokenizer is None:
+            raise ValueError("pipeline needs a tokenizer")
+        t0 = time.monotonic()
+        chunks = self._long_form_plan(text, max_chunk_seconds)
+        pf0, prompt_rms = self.prompt_features(prompt_wav, prompt_sr, target_rms)
+        prompt_tokens = self.tokenizer.texts_to_token_ids([prompt_text])[0]
+        carry_frames = int(carry_seconds * self.feat_cfg.frame_rate)
+
+        mels = list(self._long_form_mels(chunks, prompt_tokens, pf0, num_step,
+                                         guidance_scale, speed, t_shift, seed,
+                                         carry_frames))
+        full_mel = np.concatenate(mels, axis=0)
+        t1 = time.monotonic()
+        wav = self.vocode(self._pad_frames(full_mel), full_mel.shape[0])
+        if prompt_rms < target_rms:
+            wav = wav * (prompt_rms / target_rms)
+        t2 = time.monotonic()
+        secs = wav.shape[-1] / self.feat_cfg.sampling_rate
+        return SynthesisResult(
+            wav=wav, features=full_mel,
+            metrics={
+                "t": t2 - t0, "t_no_vocoder": t1 - t0, "t_vocoder": t2 - t1,
+                "wav_seconds": secs, "rtf": (t2 - t0) / max(secs, 1e-9),
+                "chunks": len(chunks),
+            },
+        )
+
+    # ---------------------------------------------------- long-form plumbing
+
+    def _pad_frames(self, mel: np.ndarray) -> np.ndarray:
+        """(T, F) mel zero-padded to the frame bucket."""
+        t_pad = round_up(mel.shape[0], self.frame_bucket)
+        return np.pad(np.asarray(mel, np.float32), ((0, t_pad - mel.shape[0]), (0, 0)))
+
+    def _long_form_plan(self, text: str, max_chunk_seconds: float) -> List[str]:
+        """Sentence split + greedy packing into chunks below the length cap,
+        with a language-aware duration estimate (a CJK character is a
+        syllable, ~0.30 s; a Latin character ~0.06 s)."""
+        # Latin punctuation splits only before whitespace (keeps "3.14"
+        # together); CJK full-width punctuation splits regardless, since
+        # Chinese text has no space after it
+        sentences = [
+            s.strip()
+            for s in re.split(r"(?<=[.!?;])\s+|(?<=[。！？；])\s*", text)
+            if s.strip()
+        ] or [text]
+
+        def est_seconds(t: str) -> float:
+            cjk = sum(1 for ch in t if "一" <= ch <= "鿿")
+            return cjk * 0.30 + (len(t) - cjk) * 0.06
+
+        chunks: List[str] = []
+        cur = ""
+        for s in sentences:
+            cand = (cur + " " + s).strip()
+            if cur and est_seconds(cand) > max_chunk_seconds:
+                chunks.append(cur)
+                cur = s
+            else:
+                cur = cand
+        if cur:
+            chunks.append(cur)
+        return chunks
+
+    def _long_form_mels(self, chunks, prompt_tokens, pf0, num_step, guidance_scale,
+                        speed, t_shift, seed, carry_frames: int):
+        """Generator of each chunk's generated (T, F) mel (model scale
+        removed), each chunk conditioned on the previous chunk's trailing
+        mel and a proportional tail of its tokens."""
+        cur_prompt_feats = pf0
+        cur_prompt_tokens = prompt_tokens
+        for ci, chunk in enumerate(chunks):
+            tokens = self.tokenizer.texts_to_token_ids([chunk])[0]
+            mel, gen_len = self.sample_features(
+                tokens, cur_prompt_tokens, cur_prompt_feats, num_step=num_step,
+                guidance_scale=guidance_scale, speed=speed, t_shift=t_shift,
+                seed=seed + ci,
+            )
+            mel_np = mel[:gen_len].float().cpu().numpy()
+            # carry_frames == 0 conditions every chunk on the original
+            # prompt (a mel_np[-0:] slice would carry the whole chunk)
+            if carry_frames > 0:
+                tail = mel_np[-carry_frames:]
+                cur_prompt_feats = torch.from_numpy(
+                    (tail + self.feat_cfg.feat_bias) * self.feat_cfg.feat_scale
+                ).to(self.device, self.dtype)
+                frac = min(1.0, len(tail) / max(gen_len, 1))
+                cur_prompt_tokens = tokens[-max(1, int(len(tokens) * frac)):]
+            yield mel_np
+
+    def synthesize_stream(self, text: str, prompt_text: str, prompt_wav: np.ndarray,
+                          prompt_sr: int, num_step: int = 16, guidance_scale: float = 1.0,
+                          speed: float = 1.0, t_shift: float = 0.5,
+                          target_rms: float = 0.1, seed: int = 666,
+                          max_chunk_seconds: float = 20.0, carry_seconds: float = 4.0,
+                          context_frames: int = 32):
+        """Streaming long-form synthesis: a generator of float32 wav segments,
+        one as each text chunk finishes.  Same chunks and carry as
+        synthesize_long; each chunk is vocoded with ``context_frames`` of
+        the previous chunk's mel as left context and those samples trimmed,
+        so the segments concatenate to synthesize_long's length exactly and
+        differ from it only within the vocoder's receptive field of each
+        join."""
+        if self.tokenizer is None:
+            raise ValueError("pipeline needs a tokenizer")
+        chunks = self._long_form_plan(text, max_chunk_seconds)
+        pf0, prompt_rms = self.prompt_features(prompt_wav, prompt_sr, target_rms)
+        prompt_tokens = self.tokenizer.texts_to_token_ids([prompt_text])[0]
+        carry_frames = int(carry_seconds * self.feat_cfg.frame_rate)
+        gain = prompt_rms / target_rms if prompt_rms < target_rms else 1.0
+        hop = self.vocos_cfg.hop_length
+        # >= 1 context frame for gapless joins: vocode() maps T frames to
+        # (T - 1) * hop samples, so a chunk's last frame is emitted by the
+        # next segment, whose trim starts one frame into the context
+        context_frames = max(1, int(context_frames))
+
+        prev_tail = None  # (C, F) left context from the previous chunk
+        for mel_np in self._long_form_mels(chunks, prompt_tokens, pf0, num_step,
+                                           guidance_scale, speed, t_shift, seed,
+                                           carry_frames):
+            ctx = 0 if prev_tail is None else prev_tail.shape[0]
+            mel_in = mel_np if prev_tail is None else np.concatenate([prev_tail, mel_np])
+            wav = self.vocode(self._pad_frames(mel_in), mel_in.shape[0])
+            # drop the context samples but the last context frame's hop,
+            # which carries the previous chunk's final frame
+            yield wav[max(ctx - 1, 0) * hop:] * gain
+            prev_tail = mel_np[-context_frames:]

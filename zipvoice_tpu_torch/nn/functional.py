@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zipvoice_tpu_torch.utils.graphs import hold
+
 
 def swoosh_l(x: torch.Tensor) -> torch.Tensor:
     """SwooshL(x) = log(1 + exp(x-4)) - 0.08 x - 0.035, computed in f32."""
@@ -99,7 +101,6 @@ def _compact_rel_pe_np(seq_len: int, pos_dim: int, length_factor: float) -> np.n
     return pe.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
 def compact_rel_positional_encoding(
     seq_len: int, pos_dim: int, length_factor: float = 1.0,
     device: Optional[torch.device] = None,
@@ -107,7 +108,14 @@ def compact_rel_positional_encoding(
     """Relative positional encoding table for offsets -(T-1)..(T-1):
     atan-compressed Fourier features, (2T-1, pos_dim) f32; row n encodes
     relative offset n - (T-1).  Cached per (T, pos_dim, device) so the
-    sampler uploads each table once; callers must not write to it."""
+    sampler uploads each table once, and held by a graph captured over it;
+    callers must not write to it."""
+    return hold(_rel_pe_table(seq_len, pos_dim, length_factor, device))
+
+
+@functools.lru_cache(maxsize=64)
+def _rel_pe_table(seq_len: int, pos_dim: int, length_factor: float,
+                  device: Optional[torch.device]) -> torch.Tensor:
     return torch.from_numpy(_compact_rel_pe_np(seq_len, pos_dim, length_factor)).to(
         device
     )

@@ -40,7 +40,7 @@ everything else follows the input dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,12 @@ def set_fused_conv(enabled: bool) -> None:
     """Run each eval ConvolutionModule after its in_proj as one kernel (B9)."""
     global _FUSED_CONV
     _FUSED_CONV = bool(enabled)
+
+
+def fused_flags() -> Tuple[bool, bool]:
+    """(fused eval, fused conv): the switches an eval forward reads, part of
+    the key of a graph captured over it."""
+    return _FUSED_EVAL, _FUSED_CONV
 
 
 def _fused(flag: bool, ctx) -> bool:
