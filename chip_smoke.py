@@ -10,9 +10,10 @@ Phases (each raises on failure; nothing is caught):
      B9's entry points;
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main-path shapes (B=2, H=4, T in 1024/512/256 with a
-     padded tail in one batch row), ragged T (288, 577) and a text-encoder
-     T (40); B1's probabilities also equal B6's bit for bit; print errors,
-     kernel / plain / library times and the bound;
+     padded tail in one batch row), ragged T (288, 577), a text-encoder
+     T (40) and the distill shape (B=1, T=1024, a padded tail); B1's
+     probabilities also equal B6's bit for bit; print errors, kernel /
+     plain / library times and the bound;
   4. build a full-width (123M) random ZipVoice model dir, a full-width
      random Vocos checkpoint and a 3 s prompt;
   5. drive the port's CLI: 3 f32 requests (~4, 8, 12 s of text) and one
@@ -78,7 +79,20 @@ Phases (each raises on failure; nothing is caught):
      the same length and a silent prompt (400); every wav's length and
      finiteness, no capture at request time in the warmed bucket, B1 260
      and B2 520 launches a sampler call, each request's buckets and
-     latency.
+     latency;
+  12. the inference variants at full width (123M, seeded random weights,
+     one emilia-layout tokens.txt with [S1]/[S2] at 360/361), each on its
+     default tokenizer, steps and guidance (the G2P backend printed):
+     ZipVoice-Distill through the infer CLI (8 steps, guidance 3.0
+     embedded, English on the emilia tokenizer), ZipVoice-Dialog and
+     ZipVoice-Dialog-Stereo through the dialog CLI (16 steps, guidance 1.5,
+     split [S1]/[S2] prompts), two requests each: every wav's channel
+     count and length, the launches a request (B1 132 and B2 264 for
+     distill, 260 and 520 for dialog); the CLI's pipeline: the sampler and
+     the one-program PCM16 replayed equal to eager bit for bit, one replay
+     launching the pins, the warm RTF (median of 4); one full-width
+     fm_decoder forward card vs CPU (distill with its scale embedded,
+     stereo at 5F on stream 0).
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -88,6 +102,7 @@ no result.
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import shutil
@@ -168,11 +183,13 @@ def check_kernels():
     from zipvoice_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, h, qd, pd, vd = 2, 4, 32, 4, 12
-    cases = [(1024, "main"), (512, "main"), (256, "main"), (288, "ragged"),
-             (577, "ragged"), (40, "text")]
+    h, qd, pd, vd = 4, 32, 4, 12
+    # (B, T, kind): B=2 is the CFG batch of one request; the distill
+    # sampler runs B=1 (one request, no CFG doubling)
+    cases = [(2, 1024, "main"), (2, 512, "main"), (2, 256, "main"), (2, 288, "ragged"),
+             (2, 577, "ragged"), (2, 40, "text"), (1, 1024, "distill")]
     results = {"B1": {}, "B2": {}}
-    for t, kind in cases:
+    for b, t, kind in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             s = torch.finfo(dtype).bits // 8
@@ -182,8 +199,11 @@ def check_kernels():
 
             q, k, pq = rnd(b, t, h, qd), rnd(b, t, h, qd), rnd(b, t, h, pd)
             pe = rnd(2 * t - 1, h, pd)
+            # one padded row in every case (the distill row is a request's
+            # frames in its bucket)
+            lens = [t - t // 3 - 1] if b == 1 else [t, t - t // 3 - 1]
             mask = torch.arange(t, device="cuda")[None, :] >= torch.tensor(
-                [t, t - t // 3 - 1], device="cuda")[:, None]
+                lens, device="cuda")[:, None]
 
             # B1: probs; the ragged text-encoder batch is B=1 at serving but
             # B=2 here keeps one padded row in every case
@@ -207,15 +227,15 @@ def check_kernels():
             v = rnd(b, t, h, vd)
             same_as_b6 = torch.equal(out, att.rel_attention_probs_consume(
                 q, k, pq, pe, mask, v, out_dtype=dtype)[0])
-            results["B1"][(t, dn)] = dict(abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
+            results["B1"][(b, t, dn)] = dict(abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
                                           library_ms=None, bound_ms=bnd, bound_by=by,
                                           contract_bound_ms=cbnd)
-            print(f"B1 rel_probs T={t} ({kind}) {dn}: max_abs_err {err:.3g} "
+            print(f"B1 rel_probs B={b} T={t} ({kind}) {dn}: max_abs_err {err:.3g} "
                   f"(tol {tol:g}) kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
                   f"bound_ms {bnd:.4f} ({by}) contract_bound_ms {cbnd:.4f}, "
                   f"equal to B6's probs: {same_as_b6}", flush=True)
             if not (err <= tol and same_as_b6):
-                raise AssertionError(f"B1 disagrees at T={t} {dn}: {err} > {tol} "
+                raise AssertionError(f"B1 disagrees at B={b} T={t} {dn}: {err} > {tol} "
                                      f"or not equal to B6's ({same_as_b6})")
 
             # B2: probs @ v on the kernel's own probabilities
@@ -232,13 +252,13 @@ def check_kernels():
             l2 = time_ms(lambda: torch.matmul(probs, v_hm))
             nbytes2 = s * (b * h * t * t + 2 * b * t * h * vd)
             bnd2, by2 = bound_ms(nbytes2, 2 * b * h * t * t * vd, dn)
-            results["B2"][(t, dn)] = dict(abs_err=err2, tol=tol2, ms=k2, plain_ms=p2,
+            results["B2"][(b, t, dn)] = dict(abs_err=err2, tol=tol2, ms=k2, plain_ms=p2,
                                           library_ms=l2, bound_ms=bnd2, bound_by=by2)
-            print(f"B2 probs_apply T={t} ({kind}) {dn}: max_abs_err {err2:.3g} "
+            print(f"B2 probs_apply B={b} T={t} ({kind}) {dn}: max_abs_err {err2:.3g} "
                   f"(tol {tol2:.3g}) kernel_ms {k2:.4f} plain_ms {p2:.4f} "
                   f"library_ms {l2:.4f} bound_ms {bnd2:.4f} ({by2})", flush=True)
             if not err2 <= tol2:
-                raise AssertionError(f"B2 disagrees at T={t} {dn}: {err2} > {tol2}")
+                raise AssertionError(f"B2 disagrees at B={b} T={t} {dn}: {err2} > {tol2}")
     return results
 
 
@@ -1484,6 +1504,265 @@ def serve_on_card(root: Path, card: str):
     return launches, dict(warmup_s=warm_s, captures=warmed, peak_gib=peak, batches=batches)
 
 
+# the variants (phase 12): 16 fm_decoder layers a step, 4 text-encoder
+# layers a request; distill makes one batch-B call a step (no CFG), the
+# dialog models one 2B CFG batch a step
+DISTILL_STEPS, DIALOG_STEPS = 8, 16
+VARIANT_PINS = {
+    "zipvoice_distill": {"B1": 4 + DISTILL_STEPS * 16, "B2": 2 * (4 + DISTILL_STEPS * 16)},
+    "zipvoice_dialog": {"B1": 4 + DIALOG_STEPS * 16, "B2": 2 * (4 + DIALOG_STEPS * 16)},
+}
+VARIANT_PINS["zipvoice_dialog_stereo"] = VARIANT_PINS["zipvoice_dialog"]
+VARIANT_SEEDS = {"zipvoice_distill": 2, "zipvoice_dialog": 3, "zipvoice_dialog_stereo": 4}
+DIALOG_PROMPTS = ("this is the first speaker", "and this is the second one")
+DIALOG_TEXT = ("[S1] the quick brown fox jumps over the lazy dog. "
+               "[S2] and then it runs away, far away from here.")
+
+
+def make_variant_assets(root: Path):
+    """Phase 12 assets: a full-width (123M) model dir a variant with seeded
+    random weights, sharing one emilia-layout tokens.txt (the espeak block,
+    filler tokens, [S1]/[S2] at 360/361 as in the released dialog
+    vocabulary) and the base model.json; two 1.5 s split prompts."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import write_wav
+    from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig, save_model_json
+    from zipvoice_tpu_torch.models.dialog import init_zipvoice_dialog
+    from zipvoice_tpu_torch.models.distill import distill_config
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+    from zipvoice_tpu_torch.text.espeak_map import VENDORED_ESPEAK_MAP
+    from zipvoice_tpu_torch.text.tokenizer import write_token_file
+
+    token2id = dict(VENDORED_ESPEAK_MAP)
+    token2id.update({f"<filler{i}>": i for i in range(len(token2id), 360)})
+    token2id.update({"[S1]": 360, "[S2]": 361})
+    cfg = ZipVoiceConfig(vocab_size=len(token2id), pad_id=0)
+    dirs = {}
+    for name, seed in VARIANT_SEEDS.items():
+        d = root / name
+        d.mkdir()
+        write_token_file(token2id, str(d / "tokens.txt"))
+        save_model_json(d / "model.json", cfg, FeatureConfig())
+        g = torch.Generator().manual_seed(seed)
+        if name == "zipvoice_distill":
+            model = init_zipvoice(distill_config(cfg), g)
+        else:
+            model = init_zipvoice_dialog(cfg, stereo=name.endswith("stereo"), generator=g)
+        torch.save({"model": model.state_dict()}, d / "model.pt")
+        del model
+        dirs[name] = d
+    sr = 24000
+    tt = np.arange(int(1.5 * sr)) / sr
+    rng = np.random.default_rng(5)
+    for i, f0 in enumerate((180.0, 260.0)):
+        wav = (0.08 * np.sin(2 * np.pi * f0 * tt) * (1 + 0.5 * np.sin(2 * np.pi * 4 * tt))
+               + 0.01 * rng.standard_normal(tt.shape)).astype(np.float32)
+        write_wav(root / f"speaker{i + 1}.wav", wav, sr)
+    return dirs
+
+
+def _variant_argv(name: str, d: Path, root: Path):
+    """The CLI arguments of a variant: its model dir, the Vocos checkpoint,
+    f32 on the card, every sampling default the model's."""
+    return ["--model-name", name, "--model-dir", str(d), "--vocoder-path",
+            str(root / "vocos.bin"), "--device", "cuda"]
+
+
+def _variant_requests(name: str, root: Path):
+    """(test-list lines, [(text, prompt text, prompt samples)]): distill
+    takes two English requests on the 3 s prompt (the second in the first
+    one's buckets); dialog two requests with split [S1]/[S2] prompts."""
+    if name == "zipvoice_distill":
+        rows = [("d0", TEXTS["r8s"]), ("d1", TEXTS["r8s"][:-3])]
+        lines = "".join(f"{n}\t{PROMPT_TEXT}\t{root / 'prompt.wav'}\t{t}\n" for n, t in rows)
+        return lines, [(n, t, PROMPT_TEXT, 3 * 24000) for n, t in rows]
+    p1, p2 = DIALOG_PROMPTS
+    rows = [("g0", DIALOG_TEXT), ("g1", DIALOG_TEXT[:-6] + ".")]
+    lines = "".join(f"{n}\t{p1}\t{root / 'speaker1.wav'}\t{p2}\t{root / 'speaker2.wav'}"
+                    f"\t{t}\n" for n, t in rows)
+    return lines, [(n, t, f"[S1]{p1}[S2]{p2}", 3 * 24000) for n, t in rows]
+
+
+def run_variant_cli(name: str, d: Path, root: Path, card: str):
+    """Phase 12a: a variant's CLI (infer_zipvoice for distill,
+    infer_zipvoice_dialog for the dialog models) over two requests with
+    its default tokenizer (emilia; dialog), steps and guidance.  Checks
+    each wav's channel count and length and the launches a request;
+    returns the launches and the requests' RTF."""
+    import numpy as np
+
+    from zipvoice_tpu_torch.audio.mel import compute_num_frames
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.bin import infer_zipvoice, infer_zipvoice_dialog
+    from zipvoice_tpu_torch.io.model_dir import MODEL_REGISTRY
+    from zipvoice_tpu_torch.models.zipvoice import predict_features_lens
+    from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
+
+    lines, reqs = _variant_requests(name, root)
+    lst = root / f"list_{name}.tsv"
+    lst.write_text(lines)
+    out_dir = root / f"out_{name}"
+    cli = infer_zipvoice if name == "zipvoice_distill" else infer_zipvoice_dialog
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    metrics = cli.main(_variant_argv(name, d, root)
+                       + ["--test-list", str(lst), "--res-dir", str(out_dir)])
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: VARIANT_PINS[name].get(k, 0) * len(reqs) for k in counters}
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches}, expected {want}")
+    tok = get_tokenizer(MODEL_REGISTRY[name]["tokenizer"], str(d / "tokens.txt"))
+    channels = 2 if name.endswith("stereo") else 1
+    for (n, text, prompt_text, prompt_samples), m in zip(reqs, metrics):
+        pf = compute_num_frames(prompt_samples, 256)
+        n_p, n_t = (len(tok.texts_to_token_ids([x])[0]) for x in (prompt_text, text))
+        total = int(predict_features_lens(np.array([pf]), np.array([n_p]),
+                                          np.array([n_t]))[0])
+        want_shape = (channels, (total - pf - 1) * 256)
+        wav, sr = read_wav(out_dir / f"{n}.wav")
+        if sr != 24000 or wav.shape != want_shape or not np.isfinite(wav).all():
+            raise AssertionError(f"{name} {n}: wav {wav.shape} at {sr}, want {want_shape}")
+        print(f"variant {name} request {n}: {n_t} tokens, {wav.shape[0]} channel(s), "
+              f"{m['wav_seconds']:.2f} s audio, rtf {m['rtf']:.4f} on {card}", flush=True)
+    return launches, [m["rtf"] for m in metrics]
+
+
+def check_variant_graphs(name: str, d: Path, root: Path, card: str):
+    """Phase 12b: the variant's pipeline (the CLI's, f32): the sampler and
+    the one-program PCM16 replayed equal the captured functions run eagerly
+    on the same inputs and noise, bit for bit; one replay of the sampler
+    launches the pins; the median warm RTF of ``synthesize`` (4 after one
+    warm).  Returns (replay launches, median RTF)."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.bin import infer_zipvoice, infer_zipvoice_dialog
+    from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline
+
+    cli = infer_zipvoice if name == "zipvoice_distill" else infer_zipvoice_dialog
+    args = cli.get_parser().parse_args(_variant_argv(name, d, root))
+    pipeline, num_step, gs = build_pipeline(args)
+    _, reqs = _variant_requests(name, root)
+    _, text, prompt_text, _ = reqs[0]
+    if name == "zipvoice_distill":
+        prompt, sr = read_wav(root / "prompt.wav")
+    else:
+        a = argparse.Namespace(prompt_wav=None, prompt_text_1=DIALOG_PROMPTS[0],
+                               prompt_wav_1=str(root / "speaker1.wav"),
+                               prompt_text_2=DIALOG_PROMPTS[1],
+                               prompt_wav_2=str(root / "speaker2.wav"))
+        prompt_text, prompt = infer_zipvoice_dialog.load_merged_prompt(
+            a, 24000, name.endswith("stereo"))
+        sr = 24000
+    tokens, prompt_tokens, pf, _ = pipeline._request_inputs(text, prompt_text, prompt, sr,
+                                                            0.1, None)
+    s = pipeline._prepare_batch([tokens], [prompt_tokens], [pf], 1.0, 666)
+    counters = _counters()
+    replay_launches = None
+    for prog_name, prog in (("sample", pipeline._sample_fn(num_step, gs, 0.5)),
+                            ("sample_pcm", pipeline._sample_pcm_fn(num_step, gs, 0.5))):
+        first = prog(*s.args)  # eager, then captured
+        for c in counters.values():
+            c.launches = 0
+        replayed = prog(*s.args)
+        if prog_name == "sample":
+            replay_launches = {k: c.launches for k, c in counters.items()}
+        with torch.no_grad():
+            eager = prog.fn(*s.args)
+        err, same = _diff(replayed, eager)
+        first_same = _diff(first, eager)[1]
+        print(f"variant {name} replay vs eager {prog_name}: shape {tuple(eager.shape)}, "
+              f"max |diff| {err:.3g}, bitwise {same} (first call bitwise {first_same}) "
+              f"on {card}", flush=True)
+        if not (same and first_same and torch.isfinite(eager.float()).all()):
+            raise AssertionError(f"{name}: replay differs from eager ({prog_name}): {err}")
+    want = {k: VARIANT_PINS[name].get(k, 0) for k in counters}
+    if replay_launches != want:
+        raise AssertionError(f"{name}: a replay launched {replay_launches}, want {want}")
+    kw = dict(text=text, prompt_text=prompt_text, prompt_wav=prompt, prompt_sr=sr,
+              num_step=num_step, guidance_scale=gs)
+    pipeline.synthesize(**kw)
+    rtfs = [pipeline.synthesize(**kw).metrics["rtf"] for _ in range(4)]
+    med = float(np.median(rtfs))
+    print(f"variant {name} warm rtf {med:.5f} {[round(x, 5) for x in rtfs]} (median of 4, "
+          f"{num_step} steps, guidance {gs}, {pipeline.captures} graphs captured) on {card}",
+          flush=True)
+    del pipeline
+    return replay_launches, med
+
+
+def check_variant_forward(name: str, d: Path):
+    """Phase 12c: one full-width fm_decoder velocity of the variant on the
+    card (kernels) against the CPU (plain versions), same weights and
+    inputs, T=256 with a padded tail: distill with its guidance scale
+    embedded (3.0), dialog at 3F, stereo at 5F (stream 0, 2F out)."""
+    import torch
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.models.zipvoice import forward_fm_decoder
+
+    model = load_model_dir(str(d), model_name=name).model.eval()
+    g = torch.Generator().manual_seed(6)
+    b, t, f = 2, 256, model.cfg.feat_dim
+    c = 2 if name.endswith("stereo") else 1
+    xt, sc = (torch.randn((b, t, c * f), generator=g) for _ in range(2))
+    tc = torch.randn((b, t, f), generator=g)
+    mask = torch.arange(t)[None, :] >= torch.tensor([t, 200])[:, None]
+    gs = 3.0 if name == "zipvoice_distill" else None
+    with torch.no_grad():
+        ref = forward_fm_decoder(model, 0.3, xt, tc, sc, mask, guidance_scale=gs)
+        model = model.cuda()
+        out = forward_fm_decoder(model, 0.3, xt.cuda(), tc.cuda(), sc.cuda(), mask.cuda(),
+                                 guidance_scale=gs).cpu()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"variant {name} fm_decoder forward card vs CPU: out {tuple(out.shape)}, "
+          f"max_abs_err {err:.3g} (|ref| max {scale:.3g}, tol {1e-3 * scale:.3g})", flush=True)
+    if out.shape != (b, t, c * f) or not err <= 1e-3 * scale:
+        raise AssertionError(f"{name} fm_decoder card vs CPU: {tuple(out.shape)}, {err}")
+    return err
+
+
+def run_variants(root: Path, card: str):
+    """Phase 12: ZipVoice-Distill, ZipVoice-Dialog and ZipVoice-Dialog-Stereo
+    at full width through their CLIs (12a), their pipelines' graphs (12b)
+    and one fm_decoder forward card vs CPU (12c).  Returns {name: {...}}."""
+    import torch
+
+    from zipvoice_tpu_torch.text.tokenizer import active_g2p_backend
+
+    print(f"G2P backend for en-us: {active_g2p_backend('en-us')}", flush=True)
+    t0 = time.monotonic()
+    dirs = make_variant_assets(root)
+    print(f"variant assets: {sorted(dirs)} in {time.monotonic() - t0:.1f} s", flush=True)
+    out = {}
+    for name, d in dirs.items():
+        launches, cli_rtf = run_variant_cli(name, d, root, card)
+        replay_launches, rtf = check_variant_graphs(name, d, root, card)
+        err = check_variant_forward(name, d)
+        out[name] = dict(launches=launches, replay_launches=replay_launches,
+                         cli_rtf=cli_rtf, rtf=rtf, fwd_err=err)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _variant_extras(results, variants, key):
+    """B1's / B2's launches a request of each variant (replayed) and its
+    times at the distill shape (B=1, H=4, T=1024, f32)."""
+    case = results[key][(1, 1024, "float32")]
+    return {"launches_per_distill_request": variants["zipvoice_distill"]["replay_launches"][key],
+            "launches_per_dialog_request": variants["zipvoice_dialog"]["replay_launches"][key],
+            "launches_per_dialog_stereo_request":
+                variants["zipvoice_dialog_stereo"]["replay_launches"][key],
+            "distill_shape_ms": case["ms"], "distill_shape_plain_ms": case["plain_ms"],
+            "distill_shape_bound_ms": case["bound_ms"]}
+
+
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
     case = results[key][main_key]
     every = results[key].values()
@@ -1577,6 +1856,9 @@ def main() -> int:
         del noreg_res
         check_checkpoint_serves(root, exp, card)
         server_launches, serve_res = serve_on_card(root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        variants = run_variants(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1584,18 +1866,20 @@ def main() -> int:
     kernels = [
         _kernel_entry(results, "B1", "rel_attention_probs", "zipvoice_tpu_torch/csrc/rel_probs.cu",
                       "zipvoice_tpu/ops/attention.py:979", serve_launches["B1"],
-                      (1024, "float32"), "B=2 H=4 T=1024 f32",
+                      (2, 1024, "float32"), "B=2 H=4 T=1024 f32",
                       launches_per_request=serve_launches["B1"] // n_req,
                       launches_server=server_launches["B1"],
-                      launches_per_train_step=reg_step["B1"]),
+                      launches_per_train_step=reg_step["B1"],
+                      **_variant_extras(results, variants, "B1")),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
                       "zipvoice_tpu/ops/attention.py:1110", serve_launches["B2"],
-                      (1024, "float32"), "B=2 H=4 T=1024 f32",
+                      (2, 1024, "float32"), "B=2 H=4 T=1024 f32",
                       launches_per_request=serve_launches["B2"] // n_req,
                       launches_per_fused_request=fused_launches["B2"] // n_req,
                       launches_server=server_launches["B2"],
-                      launches_per_train_step=reg_step["B2"]),
+                      launches_per_train_step=reg_step["B2"],
+                      **_variant_extras(results, variants, "B2")),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
                       "zipvoice_tpu/ops/attention.py:694", reg_launches["B3"],
@@ -1634,6 +1918,8 @@ def main() -> int:
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     missing += [f"{k} (server)" for k in ("B1", "B2") if not server_launches[k]]
+    missing += [f"{k} ({name})" for name, v in variants.items() for k in ("B1", "B2")
+                if not v["launches"][k]]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
     for dtype, r in graph_res.items():
@@ -1670,6 +1956,11 @@ def main() -> int:
           f"B3 {reg_dev['B3'][0]:.3f} a step, B4 {noreg_dev['B4'][0]:.3f} a step without "
           f"the regularizers ({100 * noreg_dev['B4'][0] / 1e3 / noreg_busy:.1f}% of busy); "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
+    print("variants: " + "; ".join(
+        f"{name} warm rtf {v['rtf']:.5f} (CLI {[round(x, 4) for x in v['cli_rtf']]}), "
+        f"B1 {v['replay_launches']['B1']} B2 {v['replay_launches']['B2']} a replayed "
+        f"request, fm_decoder card-vs-cpu err {v['fwd_err']:.3g}"
+        for name, v in variants.items()) + f" on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("bin.train_zipvoice", "train.trainer", "train.scaled_adam",
                  "train.checkpoint", "train.schedules", "data.dataset", "data.prefetch",
                  "nn.regularizers", "ops.melspec", "ops.convglu", "utils.tb_writer",
-                 "serve.server", "bin.serve", "utils.memo", "utils.graphs"):
+                 "serve.server", "bin.serve", "utils.memo", "utils.graphs",
+                 "text.tokenizer", "text.normalizer", "text.numbers", "text.espeak_map",
+                 "text.en_g2p", "text.pinyin_data", "text.zh", "text.spm",
+                 "models.distill", "models.dialog", "bin.infer_zipvoice_dialog"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

@@ -159,13 +159,15 @@ def test_serve_cli_refuses_what_is_not_ported(assets):
     d, _ = assets
     base = ["--model-dir", str(d), "--vocoder-path", str(d / "vocos.bin"),
             "--device", "cpu"]
-    for extra in (["--tokenizer", "simple", "--quantize", "int8"],
-                  ["--tokenizer", "emilia"],
-                  ["--tokenizer", "simple", "--model-name", "zipvoice_distill"]):
+    for extra in (["--tokenizer", "simple", "--quantize", "int8"],):
         with pytest.raises(SystemExit, match="not yet ported"):
             main(base + extra)
     with pytest.raises(SystemExit, match="not yet ported"):
         main(["--tokenizer", "simple", "--device", "cpu"])  # no --model-dir
+    ta = load_model_dir(str(d), tokenizer_name="simple")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ZipVoicePipeline(model=ta.model, model_cfg=ta.model_cfg, feat_cfg=ta.feat_cfg,
+                         tokenizer=ta.tokenizer, device="cpu", vocoder="bigvgan")
 
 
 def test_cli_long_form_cpu(assets, tmp_path):

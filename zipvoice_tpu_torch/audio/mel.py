@@ -85,9 +85,11 @@ def fix_num_frames(mel: torch.Tensor, num_frames: int) -> torch.Tensor:
     return mel
 
 
-def extract_features(wav, cfg: FeatureConfig, pre_padded: bool = False) -> torch.Tensor:
-    """Mono vocos fbank: (C, L) or (L,) waveform -> (F, n_mels).  A stereo
-    input is averaged to mono.
+def extract_features(wav, cfg: FeatureConfig, num_channels: int = 1,
+                     pre_padded: bool = False) -> torch.Tensor:
+    """Vocos fbank: (C, L) or (L,) waveform -> (F, n_mels * C').  With
+    num_channels=1 a stereo input is averaged to mono (C' = 1); otherwise
+    each channel keeps its own mel, concatenated channel-major (C' = C).
 
     pre_padded=True: the caller already applied stft_pad_amount reflect
     padding (plus optional right zeros to a bucketed length); the STFT runs
@@ -99,9 +101,10 @@ def extract_features(wav, cfg: FeatureConfig, pre_padded: bool = False) -> torch
     wav = torch.as_tensor(wav)
     if wav.ndim == 1:
         wav = wav[None, :]
-    if wav.shape[0] == 2:
+    if num_channels == 1 and wav.shape[0] == 2:
         wav = wav.mean(dim=0, keepdim=True)
     mel = vocos_log_mel(wav, cfg, pre_padded=pre_padded)
     if not pre_padded:
         mel = fix_num_frames(mel, compute_num_frames(wav.shape[-1], cfg.hop_length))
-    return mel[0]
+    c, f, m = mel.shape
+    return mel.transpose(0, 1).reshape(f, c * m)

@@ -14,8 +14,7 @@ def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02):
     p.add_argument("--dev-manifest", type=str, default=None)
     p.add_argument("--token-file", type=str, required=True)
     p.add_argument("--tokenizer", type=str, default="emilia",
-                   choices=["emilia", "espeak", "dialog", "libritts", "simple"],
-                   help="only 'simple' is ported")
+                   choices=["emilia", "espeak", "dialog", "libritts", "simple"])
     p.add_argument("--lang", type=str, default="en-us")
     p.add_argument("--max-duration", type=float, default=200.0,
                    help="max batch size in seconds of audio")

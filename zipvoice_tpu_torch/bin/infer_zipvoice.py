@@ -3,8 +3,13 @@
 Usage (single sentence):
   python -m zipvoice_tpu_torch.bin.infer_zipvoice \\
       --model-dir exp/zipvoice --vocoder-path vocos/pytorch_model.bin \\
-      --tokenizer simple --prompt-wav prompt.wav --prompt-text "..." \\
+      --prompt-wav prompt.wav --prompt-text "..." \\
       --text "..." --res-wav-path out.wav
+
+``--model-name zipvoice_distill`` samples with the distilled student (8
+steps, guidance 3.0 embedded, no CFG batch, by default).  The tokenizer
+defaults to ``emilia`` (espeak IPA for English through piper, the espeak-ng
+binary or the offline G2P; pinyin for Chinese).
 
 Batch mode reads a TSV (``name\\tprompt_text\\tprompt_wav\\ttext`` per line)
 with --test-list and writes ``<res-dir>/<name>.wav``.  ``--long-form``
@@ -29,7 +34,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--model-name", type=str, default="zipvoice",
-                        choices=["zipvoice"], help="The model used for inference")
+                        choices=["zipvoice", "zipvoice_distill"],
+                        help="The model used for inference")
     parser.add_argument("--model-dir", type=str, default=None,
                         help="Model dir with checkpoint, model.json, tokens.txt")
     parser.add_argument("--checkpoint-name", type=str, default="model.pt",
@@ -37,7 +43,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vocoder-path", type=str, default=None,
                         help="Vocos checkpoint (pytorch_model.bin / .safetensors)")
     parser.add_argument("--tokenizer", type=str, default="emilia",
-                        help="Tokenizer type (only 'simple' is ported)")
+                        help="Tokenizer type")
+    parser.add_argument("--lang", type=str, default="en-us",
+                        help="Language identifier for the espeak tokenizer")
     parser.add_argument("--test-list", type=str, default=None,
                         help="TSV of name\\tprompt_text\\tprompt_wav\\ttext")
     parser.add_argument("--prompt-wav", type=str, default=None,
@@ -81,6 +89,9 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def build_pipeline(args):
+    """The pipeline of the model the CLI arguments name (the variant from
+    its registry entry), and its sampling defaults resolved against
+    --num-step / --guidance-scale."""
     from zipvoice_tpu_torch.audio.vocos import (
         load_vocos_params,
         vocos_config_from_params,
@@ -93,7 +104,7 @@ def build_pipeline(args):
         raise SystemExit(f"downloading the vocoder {_NOT_PORTED}: pass --vocoder-path")
     assets = load_model_dir(model_dir=args.model_dir, model_name=args.model_name,
                             checkpoint_name=args.checkpoint_name,
-                            tokenizer_name=args.tokenizer)
+                            tokenizer_name=args.tokenizer, lang=args.lang)
     feat_cfg = dataclasses.replace(assets.feat_cfg, feat_scale=args.feat_scale,
                                    feat_bias=args.feat_bias)
     vocos_params = load_vocos_params(load_torch_state_dict(args.vocoder_path))
@@ -106,6 +117,8 @@ def build_pipeline(args):
         tokenizer=assets.tokenizer,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         device=args.device,
+        distill=assets.defaults["distill"],
+        variant=assets.defaults["variant"],
     )
     d = assets.defaults
     num_step = args.num_step if args.num_step is not None else d["num_step"]

@@ -3,7 +3,7 @@
 
 Usage:
   python -m zipvoice_tpu_torch.bin.serve --model-dir exp/zipvoice \\
-      --vocoder-path vocos/pytorch_model.bin --tokenizer simple --port 8080 --warmup
+      --vocoder-path vocos/pytorch_model.bin --port 8080 --warmup
 
   curl -X POST localhost:8080/synthesize -d '{"text": "...",
       "prompt_text": "...", "prompt_wav_b64": "<base64 wav>"}' > out.wav
@@ -30,8 +30,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-dir", type=str, default=None)
     p.add_argument("--checkpoint-name", type=str, default="model.pt")
     p.add_argument("--vocoder-path", type=str, default=None)
-    p.add_argument("--tokenizer", type=str, default="emilia",
-                   help="Tokenizer type (only 'simple' is ported)")
+    p.add_argument("--tokenizer", type=str, default="emilia")
+    p.add_argument("--lang", type=str, default="en-us")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--max-batch", type=int, default=8)
@@ -59,12 +59,8 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    for flag, on in (("--quantize", args.quantize is not None),
-                     (f"--tokenizer {args.tokenizer}", args.tokenizer != "simple"),
-                     ("--model-name zipvoice_distill",
-                      args.model_name == "zipvoice_distill")):
-        if on:
-            raise SystemExit(f"{flag} {_NOT_PORTED}")
+    if args.quantize is not None:
+        raise SystemExit(f"--quantize {_NOT_PORTED}")
     if args.model_dir is None:
         raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
 

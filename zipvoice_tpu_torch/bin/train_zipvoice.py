@@ -65,7 +65,7 @@ def main(argv=None):
     from zipvoice_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    tokenizer = get_tokenizer(args.tokenizer, args.token_file)
+    tokenizer = get_tokenizer(args.tokenizer, args.token_file, lang=args.lang)
     model_cfg, feat_cfg = load_model_json(args.model_config, vocab_size=tokenizer.vocab_size,
                                           pad_id=tokenizer.pad_id)
     sampler, collate, dev_batches = build_data(args, tokenizer, feat_cfg,

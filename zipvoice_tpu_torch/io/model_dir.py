@@ -13,13 +13,21 @@ import torch
 
 from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig, load_model_json
 from zipvoice_tpu_torch.io.checkpoint import load_into, load_torch_state_dict
+from zipvoice_tpu_torch.models.dialog import ZipVoiceDialogModel
+from zipvoice_tpu_torch.models.distill import distill_config
 from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel
 from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
 
-# model-name -> (tokenizer, sampling defaults); only the base model is ported
+# model-name -> (tokenizer, sampling defaults, pipeline variant)
 MODEL_REGISTRY = {
     "zipvoice": dict(tokenizer="emilia", num_step=16, guidance_scale=1.0,
-                     t_shift=0.5),
+                     t_shift=0.5, distill=False, variant="zipvoice"),
+    "zipvoice_distill": dict(tokenizer="emilia", num_step=8, guidance_scale=3.0,
+                             t_shift=0.5, distill=True, variant="zipvoice"),
+    "zipvoice_dialog": dict(tokenizer="dialog", num_step=16, guidance_scale=1.5,
+                            t_shift=0.5, distill=False, variant="dialog"),
+    "zipvoice_dialog_stereo": dict(tokenizer="dialog", num_step=16, guidance_scale=1.5,
+                                   t_shift=0.5, distill=False, variant="dialog_stereo"),
 }
 
 
@@ -50,6 +58,7 @@ def load_model_dir(
     model_name: str = "zipvoice",
     checkpoint_name: Optional[str] = None,
     tokenizer_name: Optional[str] = None,
+    lang: str = "en-us",
 ) -> ModelAssets:
     if model_dir is None:
         raise NotImplementedError(
@@ -57,20 +66,24 @@ def load_model_dir(
             "pass a local model dir (model.pt, model.json, tokens.txt)"
         )
     if model_name not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model {model_name!r} is not yet ported (only 'zipvoice' is)"
-        )
+        raise ValueError(f"unknown model {model_name!r}; one of {sorted(MODEL_REGISTRY)}")
     reg = MODEL_REGISTRY[model_name]
     model_dir = Path(model_dir)
     tokenizer = get_tokenizer(tokenizer_name or reg["tokenizer"],
-                              str(model_dir / "tokens.txt"))
+                              str(model_dir / "tokens.txt"), lang=lang)
     model_cfg, feat_cfg = load_model_json(
         model_dir / "model.json",
         vocab_size=tokenizer.vocab_size,
         pad_id=tokenizer.pad_id,
     )
+    if reg["distill"]:
+        model_cfg = distill_config(model_cfg)
     with torch.device("meta"):
-        model = ZipVoiceModel(model_cfg)
+        if reg["variant"] == "zipvoice":
+            model = ZipVoiceModel(model_cfg)
+        else:
+            model = ZipVoiceDialogModel(model_cfg,
+                                        stereo=reg["variant"] == "dialog_stereo")
     load_into(model, load_torch_state_dict(_find_checkpoint(model_dir, checkpoint_name)))
     return ModelAssets(model=model.float(), model_cfg=model_cfg, feat_cfg=feat_cfg,
                        tokenizer=tokenizer, defaults=dict(reg))

@@ -6,7 +6,8 @@ function over padded, bucketed tensors that the card captures as a CUDA
 graph per shape bucket, as the reference package jits them:
 
   1. ``_sample_fn``:     text embed + text encoder + duration expansion +
-                         N-step CFG Euler ODE + prompt strip + unscaling
+                         N-step Euler ODE (CFG, or the distill variant's
+                         embedded scale) + prompt strip + unscaling
   2. ``_vocode_i16_fn``: Vocos + ISTFT + clip + PCM16
   3. ``_sample_pcm_fn``: both in one graph (one request, one readback)
 
@@ -14,11 +15,19 @@ Token counts, frame counts and prompt lengths ride as (B,) tensors over the
 token and frame buckets, so a handful of graphs serves every request size;
 the bucketed values equal the unbucketed ones.  The prompt fbank stays
 eager (one short call a request).
+
+A pipeline serves one model variant: ``zipvoice`` (with ``distill`` for
+ZipVoice-Distill), ``dialog`` or ``dialog_stereo``.  The stereo model
+samples in 2F (noise, x and the generated mel; ``sample_feat_dim``) while
+``model_cfg.feat_dim`` stays the per-channel F; its prompt fbank keeps two
+channels, and the vocoder decodes the two halves at batch 2, giving a
+(2, L) wav.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -42,9 +51,12 @@ from zipvoice_tpu_torch.utils.memo import instance_cache
 from zipvoice_tpu_torch.utils.shapes import round_up
 
 
+VARIANTS = ("zipvoice", "dialog", "dialog_stereo")
+
+
 @dataclasses.dataclass
 class SynthesisResult:
-    wav: np.ndarray  # (L,) float32
+    wav: np.ndarray  # (L,) float32; (2, L) for the stereo variant
     # (T_gen, F) generated mel (model scale removed); None on the fused
     # one-program path, which reads back only PCM16
     features: Optional[np.ndarray]
@@ -55,10 +67,10 @@ class SynthesisResult:
 class _SampleInputs:
     tokens_padded: torch.Tensor  # (B, S) int64
     tokens_lens: torch.Tensor  # (B,) int64
-    prompt_features: torch.Tensor  # (B, T, F)
+    prompt_features: torch.Tensor  # (B, T, sample_feat_dim)
     prompt_features_lens: torch.Tensor  # (B,) int64
     features_lens: torch.Tensor  # (B,) int64
-    noise: torch.Tensor  # (B, T, F)
+    noise: torch.Tensor  # (B, T, sample_feat_dim)
     gen_lens: List[int]  # generated frames a row (host arithmetic, sync-free)
 
     @property
@@ -89,11 +101,22 @@ class ZipVoicePipeline:
         frame_bucket: int = 128,
         device: Union[str, torch.device] = "cuda",
         quantize: Optional[str] = None,
+        distill: bool = False,
+        variant: str = "zipvoice",
+        vocoder: str = "vocos",
     ):
         if quantize is not None:
             raise NotImplementedError(
                 "int8 quantization is not yet ported to zipvoice_tpu_torch"
             )
+        if vocoder != "vocos":
+            raise NotImplementedError(
+                f"the {vocoder!r} vocoder is not yet ported to zipvoice_tpu_torch"
+            )
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+        if distill and variant != "zipvoice":
+            raise ValueError("distill sampling is for the zipvoice variant only")
         self.device = resolve_device(device)
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.vocos_params = (
@@ -108,6 +131,10 @@ class ZipVoicePipeline:
         self.dtype = dtype
         self.token_bucket = token_bucket
         self.frame_bucket = frame_bucket
+        self.distill = distill
+        self.variant = variant
+        self.num_channels = 2 if variant == "dialog_stereo" else 1
+        self.sample_feat_dim = model_cfg.feat_dim * self.num_channels
         # the programs' graphs: one pool, one lock, bounded; program memos
         # live on the instance (utils/memo), so both go with the pipeline
         self.graphs = GraphSet(self.device)
@@ -138,13 +165,17 @@ class ZipVoicePipeline:
     def _sample_fn(self, num_step: int, guidance_scale: float, t_shift: float,
                    timesteps: Optional[tuple] = None) -> Program:
         """The sampler over the bucketed inputs (``_SampleInputs.args``):
-        (B, T, F) mel with each row's prompt stripped, frames >= its
-        gen_len zeroed, in the pipeline's dtype."""
+        (B, T, sample_feat_dim) mel with each row's prompt stripped, frames
+        >= its gen_len zeroed, in the pipeline's dtype."""
         model = self.model
+        if self.variant == "zipvoice":
+            sample = functools.partial(zv.sample, distill=self.distill)
+        else:
+            from zipvoice_tpu_torch.models.dialog import sample_dialog as sample
 
         def run(tokens_padded, tokens_lens, prompt_features, prompt_features_lens,
                 features_lens, noise):
-            x1 = zv.sample(
+            x1 = sample(
                 model, tokens_padded, tokens_lens, prompt_features,
                 prompt_features_lens, features_lens, noise,
                 num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
@@ -153,12 +184,20 @@ class ZipVoicePipeline:
             return self._strip_prompt(x1, prompt_features_lens, features_lens)
 
         return Program(self.graphs, "sample",
-                       (num_step, guidance_scale, t_shift, timesteps), run, fused_flags)
+                       (self.variant, self.distill, num_step, guidance_scale, t_shift,
+                        timesteps), run, fused_flags)
 
     def _decode_i16(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, T, F) mel -> (B, (T - 1) * hop) PCM16: Vocos, clip, round."""
+        """(B, T, F) mel -> (B, (T - 1) * hop) PCM16: Vocos, clip, round.  A
+        (B, T, 2F) stereo mel decodes its two halves as 2B rows, ->
+        (B, 2, (T - 1) * hop)."""
+        b, t, width = mel.shape
+        f = self.model_cfg.feat_dim
+        if width != f:
+            mel = mel.reshape(b, t, width // f, f).transpose(1, 2).reshape(-1, t, f)
         wav = vocos_decode(self.vocos_params, mel.to(self.dtype), self.vocos_cfg)
-        return torch.round(torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+        pcm = torch.round(torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+        return pcm if width == f else pcm.reshape(b, width // f, -1)
 
     @instance_cache
     def _vocode_i16_fn(self) -> Program:
@@ -176,7 +215,8 @@ class ZipVoicePipeline:
         def run(*args):
             return decode(sample(*args))
 
-        return Program(self.graphs, "sample_pcm", (num_step, guidance_scale, t_shift),
+        return Program(self.graphs, "sample_pcm",
+                       (self.variant, self.distill, num_step, guidance_scale, t_shift),
                        run, fused_flags)
 
     # ------------------------------------------------------------- inputs
@@ -225,7 +265,7 @@ class ZipVoicePipeline:
                 f = torch.from_numpy(np.array(f, np.float32))
             pf[i, : prompt_lens[i]] = f.to(dev, self.dtype)
 
-        feat_dim = self.model_cfg.feat_dim
+        feat_dim = self.sample_feat_dim
         if noise is not None:
             noise = np.asarray(noise, np.float32)[:, :t_pad]
             noise = np.pad(noise, ((0, 0), (0, t_pad - noise.shape[1]), (0, 0)))
@@ -279,7 +319,7 @@ class ZipVoicePipeline:
                 tokens = list(rng.integers(1, self.model_cfg.vocab_size, n_tok))
                 prompt_tokens = list(
                     rng.integers(1, self.model_cfg.vocab_size, max(n_tok // 4, 1)))
-                pf = (rng.standard_normal((max(frames // 4, 8), self.model_cfg.feat_dim))
+                pf = (rng.standard_normal((max(frames // 4, 8), self.sample_feat_dim))
                       * 0.01).astype(np.float32)
                 mel, gen_len = self.sample_features(
                     tokens, prompt_tokens, pf, num_step=num_step,
@@ -307,8 +347,9 @@ class ZipVoicePipeline:
     @torch.no_grad()
     def prompt_features(self, prompt_wav: np.ndarray, sr: int,
                         target_rms: float = 0.1) -> Tuple[torch.Tensor, float]:
-        """Resample + RMS-normalize + fbank the prompt.  Returns ((Tp, F)
-        device tensor in model scale, prompt_rms).
+        """Resample + RMS-normalize + fbank the prompt.  Returns ((Tp,
+        sample_feat_dim) device tensor in model scale, prompt_rms); the
+        stereo variant takes a (2, L) prompt.
 
         The fbank runs on a bucketed length: the true wav gets the
         extractor's reflect padding on the host, then right zeros up to the
@@ -335,7 +376,7 @@ class ZipVoicePipeline:
         wav_p = np.pad(wav_p, ((0, 0), (0, length_b - length)))
         feats = extract_features(
             torch.from_numpy(wav_p).to(device=self.device, dtype=self.dtype),
-            fcfg, pre_padded=True,
+            fcfg, num_channels=self.num_channels, pre_padded=True,
         )
         feats = (feats + fcfg.feat_bias) * fcfg.feat_scale
         # the vocos pad always yields at least the lhotse frame count
@@ -361,9 +402,10 @@ class ZipVoicePipeline:
                         speed: float = 1.0, t_shift: float = 0.5, seed: int = 666,
                         noise: Optional[np.ndarray] = None,
                         timesteps=None) -> Tuple[torch.Tensor, int]:
-        """Run the sampler program.  Returns ((T_bucket, F) mel on the
-        device with frames >= gen_len zeroed, gen_len).  ``timesteps`` (an
-        explicit Euler grid) overrides num_step / t_shift."""
+        """Run the sampler program.  Returns ((T_bucket, sample_feat_dim)
+        mel on the device with frames >= gen_len zeroed, gen_len).
+        ``timesteps`` (an explicit Euler grid) overrides num_step /
+        t_shift."""
         s = self._prepare_sample_inputs(tokens, prompt_tokens, prompt_feats,
                                         speed, seed, noise)
         ts_key = None if timesteps is None else tuple(float(t) for t in timesteps)
@@ -374,14 +416,24 @@ class ZipVoicePipeline:
     def vocode(self, mel, gen_len: int) -> np.ndarray:
         """Vocode a (T_bucket, F) mel (device tensor or numpy) whose frames
         >= gen_len are zero; PCM16 on the device, float32 wav of
-        (gen_len - 1) * hop samples on the host."""
+        (gen_len - 1) * hop samples on the host.  A (T_bucket, 2F) stereo
+        mel gives a (2, L) wav (``vocode_stereo``)."""
         if self.vocos_params is None:
             raise ValueError("pipeline needs vocoder weights")
         if not isinstance(mel, torch.Tensor):
             mel = torch.from_numpy(np.asarray(mel, np.float32))
         pcm = self._vocode_i16_fn()(mel.to(self.device, self.dtype)[None])
         out = pcm[0].cpu().numpy().astype(np.float32) / 32767.0
-        return out[: max(gen_len - 1, 1) * self.vocos_cfg.hop_length]
+        return out[..., : max(gen_len - 1, 1) * self.vocos_cfg.hop_length]
+
+    def vocode_stereo(self, mel, gen_len: int) -> np.ndarray:
+        """The stereo model's (T_bucket, 2F) mel -> (2, L) wav: channel 0
+        from the first F mels, channel 1 from the rest, one vocoder program
+        at batch 2."""
+        width = mel.shape[-1]
+        if width != 2 * self.model_cfg.feat_dim:
+            raise ValueError(f"vocode_stereo needs a 2F-wide mel, got width {width}")
+        return self.vocode(mel, gen_len)
 
     def synthesize(self, text: str, prompt_text: str, prompt_wav: np.ndarray,
                    prompt_sr: int, num_step: int = 16, guidance_scale: float = 1.0,
@@ -435,7 +487,7 @@ class ZipVoicePipeline:
         batch = self._prepare_sample_inputs(tokens, prompt_tokens, pf, speed, seed)
         run = self._sample_pcm_fn(int(num_step), float(guidance_scale), float(t_shift))
         wav = run(*batch.args)[0].cpu().numpy().astype(np.float32) / 32767.0
-        wav = wav[: max(batch.gen_lens[0] - 1, 1) * self.vocos_cfg.hop_length]
+        wav = wav[..., : max(batch.gen_lens[0] - 1, 1) * self.vocos_cfg.hop_length]
         if prompt_rms < target_rms:
             wav = wav * (prompt_rms / target_rms)
         t1 = time.monotonic()
@@ -482,10 +534,10 @@ class ZipVoicePipeline:
         results = []
         total_secs = 0.0
         for i, gen_len in enumerate(batch.gen_lens):
-            w = wavs[i, : max(gen_len - 1, 1) * self.vocos_cfg.hop_length]
+            w = wavs[i, ..., : max(gen_len - 1, 1) * self.vocos_cfg.hop_length]
             if rmss[i] < target_rms:
                 w = w * (rmss[i] / target_rms)
-            total_secs += len(w) / self.feat_cfg.sampling_rate
+            total_secs += w.shape[-1] / self.feat_cfg.sampling_rate
             results.append(SynthesisResult(wav=w, features=mel_np[i, :gen_len],
                                            metrics={}))
         metrics = {
@@ -630,5 +682,5 @@ class ZipVoicePipeline:
             wav = self.vocode(self._pad_frames(mel_in), mel_in.shape[0])
             # drop the context samples but the last context frame's hop,
             # which carries the previous chunk's final frame
-            yield wav[max(ctx - 1, 0) * hop:] * gain
+            yield wav[..., max(ctx - 1, 0) * hop:] * gain
             prev_tail = mel_np[-context_frames:]

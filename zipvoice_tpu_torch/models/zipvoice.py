@@ -45,7 +45,12 @@ def init_zipvoice(cfg: ZipVoiceConfig, generator: Optional[torch.Generator] = No
     Draws come from ``generator`` (on ``device``)."""
     with torch.device("meta"):
         model = ZipVoiceModel(cfg)
-    model = model.to_empty(device=device)
+    return init_weights(model.to_empty(device=device), generator)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Fill ``model``'s parameters in place with init_zipvoice's statistics."""
     g = generator
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
@@ -111,20 +116,30 @@ def forward_fm_decoder(
     speech_condition: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
     ctx: Optional[TrainCtx] = None,
+    guidance_scale=None,
 ) -> torch.Tensor:
     """Velocity prediction at timestep t (a float, or a tensor of B
     values); xt and the conditions: (B, T, F).  xt may ride in f32 (f32
-    Euler state) while the backbone runs at the conditions' dtype."""
+    Euler state) while the backbone runs at the conditions' dtype.
+    guidance_scale (the distill variant's embedded scale): None, a float or
+    a tensor of B values."""
     x = torch.cat([xt.to(text_condition.dtype), text_condition, speech_condition],
                   dim=-1)
     b = x.shape[0]
-    # t stays f32 (the sinusoidal embedding needs full timestep precision);
-    # a float is filled on the device, with no host-to-device copy
-    if isinstance(t, torch.Tensor):
-        t = t.to(torch.float32).reshape(-1).expand(b)
-    else:
-        t = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
-    return tts_zipformer_forward(model.fm_decoder, x, t, padding_mask, ctx=ctx)
+    # t and the scale stay f32 (the sinusoidal embeddings need full
+    # precision); a float is filled on the device, with no host-to-device copy
+    t = _per_row_f32(t, b, x.device)
+    if guidance_scale is not None:
+        guidance_scale = _per_row_f32(guidance_scale, b, x.device)
+    return tts_zipformer_forward(model.fm_decoder, x, t, padding_mask,
+                                 guidance_scale=guidance_scale, ctx=ctx)
+
+
+def _per_row_f32(value, b: int, device) -> torch.Tensor:
+    """A float or a tensor of 1 or B values -> (B,) f32 on ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(torch.float32).reshape(-1).expand(b)
+    return torch.full((b,), float(value), dtype=torch.float32, device=device)
 
 
 def forward_text_embed(model: ZipVoiceModel, tokens_padded: torch.Tensor,
@@ -255,6 +270,7 @@ def sample(
     num_step: int = 16,
     guidance_scale: float = 1.0,
     t_shift: float = 1.0,
+    distill: bool = False,
     timesteps=None,
 ) -> torch.Tensor:
     """Generate mel features for concatenated prompt+target tokens.
@@ -262,12 +278,25 @@ def sample(
     prompt_features: (B, T, F) prompt mel zero-padded to the full frame
     count T; features_lens: (B,) total frames (prompt + generated); noise:
     (B, T, F) standard normal.  Returns the full (B, T, F) features at t=1;
-    the caller strips the prompt region and the padding."""
+    the caller strips the prompt region and the padding.  ``distill``: the
+    distill variant's sampler (the scale embedded, no CFG batch)."""
+    embed = forward_text_embed(model, tokens_padded, tokens_lens,
+                               dtype=prompt_features.dtype)
+    return sample_from_embed(model, embed, tokens_lens, prompt_features,
+                             prompt_features_lens, features_lens, noise, num_step=num_step,
+                             guidance_scale=guidance_scale, t_shift=t_shift,
+                             distill=distill, timesteps=timesteps)
+
+
+def sample_from_embed(model: ZipVoiceModel, embed: torch.Tensor, tokens_lens,
+                      prompt_features, prompt_features_lens, features_lens, noise,
+                      num_step: int = 16, guidance_scale: float = 1.0,
+                      t_shift: float = 1.0, distill: bool = False,
+                      timesteps=None) -> torch.Tensor:
+    """``sample`` from the text encoder's output (B, S, F) onwards."""
     from zipvoice_tpu_torch.sampling.euler import euler_sample
 
     num_frames = prompt_features.shape[1]
-    embed = forward_text_embed(model, tokens_padded, tokens_lens,
-                               dtype=prompt_features.dtype)
     text_condition, padding_mask = forward_text_condition(
         embed, tokens_lens, features_lens, num_frames
     )
@@ -277,5 +306,5 @@ def sample(
     return euler_sample(
         model, noise, text_condition, speech_condition, padding_mask,
         num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
-        timesteps=timesteps,
+        distill=distill, timesteps=timesteps,
     )

@@ -215,11 +215,21 @@ class DownsampledEncoder(nn.Module):
 
 
 class TTSZipformer(nn.Module):
-    def __init__(self, cfg: ZipformerConfig):
+    """The backbone.  With ``in_dims`` / ``out_dims`` (one pair a stream)
+    it is the two-stream variant: shared stacks, ``in_proj`` and
+    ``out_proj`` as module lists (keys ``in_proj.0``, ``in_proj.1``, ...),
+    and cfg.in_dim / cfg.out_dim unused."""
+
+    def __init__(self, cfg: ZipformerConfig, in_dims: Optional[Tuple[int, int]] = None,
+                 out_dims: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.cfg = cfg
-        self.in_proj = _linear(cfg.in_dim, cfg.encoder_dim)
-        self.out_proj = _linear(cfg.encoder_dim, cfg.out_dim)
+        if in_dims is None:
+            self.in_proj = _linear(cfg.in_dim, cfg.encoder_dim)
+            self.out_proj = _linear(cfg.encoder_dim, cfg.out_dim)
+        else:
+            self.in_proj = nn.ModuleList([_linear(d, cfg.encoder_dim) for d in in_dims])
+            self.out_proj = nn.ModuleList([_linear(cfg.encoder_dim, d) for d in out_dims])
         self.encoders = nn.ModuleList([
             Encoder(cfg, i) if ds == 1 else DownsampledEncoder(cfg, i)
             for i, ds in enumerate(cfg.downsampling_factor)
@@ -634,14 +644,22 @@ def tts_zipformer_forward(
     padding_mask: Optional[torch.Tensor] = None,
     guidance_scale: Optional[torch.Tensor] = None,
     ctx: Optional[TrainCtx] = None,
+    stream: int = 0,
 ) -> torch.Tensor:
     """TTSZipformer forward.  x: (B, T, in_dim); t: (B,) timestep in [0, 1]
     or None without a time embedding; padding_mask: (B, T) bool, True =
     padded; guidance_scale: (B,) (distill variant only); ctx: training
-    context or None (eval).  -> (B, T, out_dim).
+    context or None (eval); stream: the projection pair of a two-stream
+    backbone, flipped to the other one when x's width is not its input
+    width (ignored otherwise).  -> (B, T, out_dim).
     """
     cfg = m.cfg
-    h = _lin(m.in_proj, x)
+    in_proj, out_proj = m.in_proj, m.out_proj
+    if isinstance(in_proj, nn.ModuleList):
+        if x.shape[-1] != in_proj[stream].in_features:
+            stream = 1 - stream
+        in_proj, out_proj = in_proj[stream], out_proj[stream]
+    h = _lin(in_proj, x)
     time_emb = None
     if t is not None:
         # f32_closers runs the whole time-embed MLP in f32; otherwise the
@@ -665,5 +683,5 @@ def tts_zipformer_forward(
 
     if cfg.f32_closers:
         # the velocity head feeds the cancellation-prone CFG combination
-        return _lin(m.out_proj, h.float())
-    return _lin(m.out_proj, h)
+        return _lin(out_proj, h.float())
+    return _lin(out_proj, h)

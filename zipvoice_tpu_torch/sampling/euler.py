@@ -3,7 +3,9 @@
 The timestep grid is host-side numpy (f32), so the dual-condition CFG rule
 (drop the speech condition for t > 0.5, else double the guidance scale) is
 a plain Python branch per step.  ``cfg_velocity`` is the one place that
-rule lives.  The distillation sampler is not ported yet.
+rule lives.  The distill variant embeds the guidance scale instead: one
+fm_decoder call a step at batch B, no CFG batch and no dual-condition
+switch.
 """
 
 from __future__ import annotations
@@ -41,14 +43,19 @@ def validate_time_steps(timesteps, t_start: float = 0.0,
 
 def cfg_velocity(model: ZipVoiceModel, t: float, x: torch.Tensor,
                  text_condition: torch.Tensor, speech_condition: torch.Tensor,
-                 padding_mask: torch.Tensor, guidance_scale: float) -> torch.Tensor:
+                 padding_mask: torch.Tensor, guidance_scale: float,
+                 distill: bool = False) -> torch.Tensor:
     """One velocity evaluation with classifier-free guidance.
 
-    guidance_scale == 0 runs the conditioned pass alone.  Otherwise the
-    unconditioned and conditioned passes run as one 2B batch: for t > 0.5
-    the unconditioned half drops the speech condition too; for t <= 0.5 it
-    keeps it and the scale doubles.  The result is
+    ``distill``: one conditioned pass with the scale embedded (any scale,
+    0 included).  guidance_scale == 0 runs the conditioned pass alone.
+    Otherwise the unconditioned and conditioned passes run as one 2B
+    batch: for t > 0.5 the unconditioned half drops the speech condition
+    too; for t <= 0.5 it keeps it and the scale doubles.  The result is
     (1 + gs) * v_cond - gs * v_uncond."""
+    if distill:
+        return forward_fm_decoder(model, t, x, text_condition, speech_condition,
+                                  padding_mask, guidance_scale=guidance_scale)
     if guidance_scale == 0.0:
         return forward_fm_decoder(model, t, x, text_condition, speech_condition,
                                   padding_mask)
@@ -83,10 +90,12 @@ def euler_sample(
     t_start: float = 0.0,
     t_end: float = 1.0,
     t_shift: float = 1.0,
+    distill: bool = False,
     timesteps=None,
 ) -> torch.Tensor:
     """Euler integration from noise x at t_start to t_end.  ``timesteps``
-    (an explicit grid) overrides num_step / t_shift."""
+    (an explicit grid) overrides num_step / t_shift; ``distill`` embeds
+    the guidance scale (``cfg_velocity``)."""
     if timesteps is not None:
         ts = validate_time_steps(timesteps, t_start, t_end)
     else:
@@ -98,6 +107,6 @@ def euler_sample(
         x = x.float()
     for i in range(len(ts) - 1):
         v = cfg_velocity(model, float(ts[i]), x, text_condition, speech_condition,
-                         padding_mask, guidance_scale)
+                         padding_mask, guidance_scale, distill)
         x = x + v * _round_to(float(ts[i + 1] - ts[i]), v.dtype)
     return x.to(out_dtype)
