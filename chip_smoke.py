@@ -93,6 +93,28 @@ Phases (each raises on failure; nothing is caught):
      launching the pins, the warm RTF (median of 4); one full-width
      fm_decoder forward card vs CPU (distill with its scale embedded,
      stereo at 5F on stream 0).
+  13. BigVGAN and the variants' training at full width (123M): 13a, a model
+     dir from egs/zipvoice/conf/zipvoice_base_bigvgan_v2.json (bigvgan
+     features) with a random full-width BigVGAN generator saved as the
+     published weight-normed checkpoint under ``generator.``: two f32
+     requests and one bf16 through the infer CLI (wav lengths, B1 260 / B2
+     520 a request), the one-program PCM16 replayed equal to eager bit for
+     bit, the warm f32 RTF (median of 4) in turns with phase 4's Vocos model
+     and the vocoder's share of a request, the generator card vs CPU (f32)
+     and bf16 vs f32 on ~0.5 s of mel, the bigvgan log-mel card vs CPU;
+     13b, the recipes' chains through the CLIs in bf16 on a 16-file mono
+     and a 16-file stereo corpus (English on the emilia and dialog
+     tokenizers): egs/zipvoice/run_distill.sh's (distill stage 1, 3 steps;
+     average; stage 2, 3 steps; average) and egs/zipvoice_dialog/run.sh's
+     (dialog from a base checkpoint on the base vocabulary, 3 steps;
+     average; stereo, 4 steps; average): finite losses, launches pinned a
+     step (distill B1 72, B2 144, B4 16, B8 1; dialog and stereo B1 40, B2
+     80, B3 60, B8 1), every trained tensor changed and distill's embedding
+     and text encoder bit-equal, warm step ms and peak memory; the distill
+     model served by the infer CLI and the stereo model by the dialog CLI
+     (launches pinned); 13c, one full-width compute_distill_loss gradient
+     and one stereo compute_fm_loss_dialog gradient card vs CPU (relative
+     L2 per parameter group).
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -778,11 +800,11 @@ class _FusedEval:
 
 
 def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
-            fused: bool = False):
+            fused: bool = False, vocoder: Path = None):
     """Phase 5 helper: one CLI run over `names` (with the model dir `root`,
-    or `model_dir`; the fused eval path on when `fused`); returns its
-    metrics and launches after checking the wavs and the per-request
-    kernel launches."""
+    or `model_dir`, and phase 4's Vocos or the checkpoint `vocoder`; the
+    fused eval path on when `fused`); returns its metrics and launches
+    after checking the wavs and the per-request kernel launches."""
     import contextlib
 
     import numpy as np
@@ -791,6 +813,8 @@ def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
     from zipvoice_tpu_torch.bin.infer_zipvoice import main as cli_main
 
     tag = f"{dtype}_fused" if fused else dtype
+    if vocoder is not None:
+        tag = f"{tag}_{vocoder.stem}"
     lst = root / f"list_{tag}.tsv"
     lst.write_text("".join(f"{n}\t{PROMPT_TEXT}\t{root / 'prompt.wav'}\t{TEXTS[n]}\n"
                            for n in names))
@@ -800,7 +824,8 @@ def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
         c.launches = 0
     with _FusedEval() if fused else contextlib.nullcontext():
         metrics = cli_main([
-            "--model-dir", str(model_dir or root), "--vocoder-path", str(root / "vocos.bin"),
+            "--model-dir", str(model_dir or root),
+            "--vocoder-path", str(vocoder or root / "vocos.bin"),
             "--tokenizer", "simple", "--test-list", str(lst), "--res-dir", str(out_dir),
             "--num-step", str(N_STEP), "--guidance-scale", "1.0", "--dtype", dtype,
             "--device", "cuda",
@@ -1117,14 +1142,16 @@ def check_checkpoint_serves(root: Path, exp: Path, card: str):
     return metrics
 
 
-def _r8s_pipeline(root: Path, dtype: str):
-    """The CLI's pipeline for the model dir and the ~8 s request's kwargs."""
+def _r8s_pipeline(root: Path, dtype: str, model_dir: Path = None, vocoder: Path = None):
+    """The CLI's pipeline for the model dir (`root`, or `model_dir` with
+    the vocoder checkpoint `vocoder`) and the ~8 s request's kwargs."""
     from zipvoice_tpu_torch.audio.wav import read_wav
     from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline, get_parser
 
     args = get_parser().parse_args([
-        "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
-        "--tokenizer", "simple", "--dtype", dtype, "--device", "cuda"])
+        "--model-dir", str(model_dir or root), "--vocoder-path",
+        str(vocoder or root / "vocos.bin"), "--tokenizer", "simple", "--dtype", dtype,
+        "--device", "cuda"])
     pipeline, _, _ = build_pipeline(args)
     prompt, sr = read_wav(root / "prompt.wav")
     kw = dict(text=TEXTS["r8s"], prompt_text=PROMPT_TEXT, prompt_wav=prompt,
@@ -1751,6 +1778,570 @@ def run_variants(root: Path, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the BigVGAN vocoder (13a) and the variants' training recipes (13b)
+# ---------------------------------------------------------------------------
+
+BIGVGAN_CONF = REPO / "egs" / "zipvoice" / "conf" / "zipvoice_base_bigvgan_v2.json"
+TEXT_LAYERS, FM_LAYERS = 4, 16
+# a distill step (either stage): the teacher's text encoder once and its two
+# fm_decoder hops without autograd (B1 a layer, B2 twice), the student's text
+# encoder without autograd, its fm_decoder hop with autograd and no
+# regularizers (B1 forward + recompute, B2 both, B4 once a layer), B8 a batch
+DISTILL_PER_STEP = {"B1": 2 * TEXT_LAYERS + 2 * FM_LAYERS + 2 * FM_LAYERS,
+                    "B2": 2 * (2 * TEXT_LAYERS + 2 * FM_LAYERS + 2 * FM_LAYERS),
+                    "B4": FM_LAYERS, "B8": 1}
+# a dialog or stereo step: the base step with the regularizers on its widths
+# (the stereo batch's 3B fbank rows in one B8 launch)
+DIALOG_PER_STEP = {k: v for k, v in PER_STEP.items() if k != "B4"}
+RECIPE_STEPS = {"distill stage 1": 3, "distill stage 2": 3, "dialog": 3, "stereo": 4}
+
+
+def make_bigvgan_assets(root: Path):
+    """13a assets: a model dir from the repo's bigvgan configuration
+    (``egs/zipvoice/conf/zipvoice_base_bigvgan_v2.json``, the published
+    widths with bigvgan features) with seeded random full-width weights
+    and phase 4's character tokens, and a random full-width BigVGAN
+    generator (``BigVGANConfig()``) saved as the published checkpoint:
+    weight-normed convs (weight_v = w, weight_g = |w|), the snake
+    parameters under ``.act.``, every key under ``generator.``.  Returns
+    (model dir, generator checkpoint, generator parameters)."""
+    import torch
+
+    from zipvoice_tpu_torch.audio.bigvgan import BigVGANConfig, init_bigvgan
+    from zipvoice_tpu_torch.config import load_model_json
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+    from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
+
+    d = root / "bigvgan_model"
+    d.mkdir()
+    shutil.copy(BIGVGAN_CONF, d / "model.json")
+    shutil.copy(root / "tokens.txt", d / "tokens.txt")
+    tok = get_tokenizer("simple", str(d / "tokens.txt"))
+    cfg, feat = load_model_json(d / "model.json", vocab_size=tok.vocab_size, pad_id=tok.pad_id)
+    if feat.type != "bigvgan":
+        raise AssertionError(f"{BIGVGAN_CONF} has {feat.type!r} features")
+    model = init_zipvoice(cfg, torch.Generator().manual_seed(13))
+    torch.save({"model": model.state_dict()}, d / "model.pt")
+    del model
+    gen = init_bigvgan(BigVGANConfig(), torch.Generator().manual_seed(14))
+    sd = {}
+    for k, v in gen.state_dict().items():
+        if k.endswith(".weight"):
+            sd[f"generator.{k}_v"] = v
+            sd[f"generator.{k}_g"] = torch.sqrt(torch.sum(v.double() ** 2, dim=(1, 2),
+                                                          keepdim=True)).float()
+        elif k.endswith(("alpha", "beta")):
+            head, name = k.rsplit(".", 1)
+            sd[f"generator.{head}.act.{name}"] = v
+        else:
+            sd[f"generator.{k}"] = v
+    path = root / "bigvgan_generator.pt"
+    torch.save(sd, path)
+    return d, path, sum(p.numel() for p in gen.parameters())
+
+
+def check_bigvgan_decode(gen_path: Path, card: str):
+    """13a: the generator on ~0.5 s of mel (47 frames) on the card against
+    the CPU, f32 (cuDNN's convolutions at PyTorch's defaults), and the card
+    in bf16 (as the pipeline casts the vocoder) against the card in f32.
+    Returns (f32 error, bf16 error) in wave units (full scale 1)."""
+    import torch
+
+    from zipvoice_tpu_torch.audio.bigvgan import bigvgan_decode, build_bigvgan
+    from zipvoice_tpu_torch.bin.infer_zipvoice import load_vocoder_params
+
+    params = load_vocoder_params(str(gen_path), "bigvgan")
+    mel = torch.randn((1, 47, 100), generator=torch.Generator().manual_seed(15)) * 2.0 - 4.0
+    with torch.no_grad():
+        ref = bigvgan_decode(build_bigvgan(params), mel)
+        out = bigvgan_decode(build_bigvgan({k: v.cuda() for k, v in params.items()}),
+                             mel.cuda())
+        out16 = bigvgan_decode(build_bigvgan({k: v.cuda().bfloat16()
+                                              for k, v in params.items()}),
+                               mel.cuda().bfloat16())
+    err = float((out.cpu() - ref).abs().max())
+    err16 = float((out16.float() - out).abs().max())
+    clipped = float((ref.abs() >= 1.0).float().mean())
+    print(f"bigvgan decode card vs CPU (f32, 47 frames -> {ref.shape[-1]} samples, "
+          f"{100 * clipped:.1f}% at the clamp; cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}): max_abs_err {err:.3g} (tol 1e-2); bf16 vs f32 "
+          f"on the card {err16:.3g}, |wave| max {float(ref.abs().max()):.3g} on {card}",
+          flush=True)
+    if ref.shape != (1, 47 * 256) or not err <= 1e-2 or not torch.isfinite(out16).all():
+        raise AssertionError(f"bigvgan decode card vs CPU: {tuple(ref.shape)}, {err}, {err16}")
+    return err, err16
+
+
+def check_bigvgan_log_mel(card: str):
+    """13a: the bigvgan log-mel of 10 s of audio at B=2 on the card against
+    the CPU (both the f32 DFT product; tolerance 1e-3 on log values)."""
+    import torch
+
+    from zipvoice_tpu_torch.audio.mel import bigvgan_log_mel
+    from zipvoice_tpu_torch.config import FeatureConfig
+
+    cfg = FeatureConfig(type="bigvgan")
+    wav = 0.1 * torch.randn((2, 240000), generator=torch.Generator().manual_seed(16))
+    ref = bigvgan_log_mel(wav, cfg)
+    out = bigvgan_log_mel(wav.cuda(), cfg).cpu()
+    err = float((out - ref).abs().max())
+    print(f"bigvgan log-mel card vs CPU (B=2, 10 s, {tuple(ref.shape)}): max_abs_err "
+          f"{err:.3g} (tol 1e-3) on {card}", flush=True)
+    if not err <= 1e-3:
+        raise AssertionError(f"bigvgan log-mel card vs CPU: {err}")
+    return err
+
+
+def run_bigvgan(root: Path, card: str):
+    """Phase 13a: a bigvgan model dir through the infer CLI (two f32
+    requests, one bf16; launches pinned at the base request's B1 260 / B2
+    520), the one-program PCM16 replayed equal to its eager run bit for
+    bit, the warm f32 RTF of the ~8 s request (median of 4) in turns with
+    phase 4's Vocos model dir and the vocoder's share of the request, the
+    generator and the bigvgan log-mel card vs CPU.  Returns a dict."""
+    import numpy as np
+    import torch
+
+    t0 = time.monotonic()
+    d, gen_path, n_gen = make_bigvgan_assets(root)
+    print(f"bigvgan assets: {n_gen / 1e6:.1f}M-parameter generator in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    metrics, launches = run_cli(root, ["r4s", "r8s"], "float32", card, model_dir=d,
+                                vocoder=gen_path)
+    run_cli(root, ["r8s"], "bfloat16", card, model_dir=d, vocoder=gen_path)
+
+    pipeline, kw = _r8s_pipeline(root, "float32", model_dir=d, vocoder=gen_path)
+    if pipeline.vocoder != "bigvgan":
+        raise AssertionError(f"the bigvgan model dir built a {pipeline.vocoder} pipeline")
+    s = _r8s_inputs(pipeline, kw)
+    counters = _counters()
+    prog = pipeline._sample_pcm_fn(N_STEP, 1.0, 0.5)
+    first = prog(*s.args)  # eager, then captured
+    for c in counters.values():
+        c.launches = 0
+    replayed = prog(*s.args)
+    replay_launches = {k: c.launches for k, c in counters.items()}
+    with torch.no_grad():
+        eager = prog.fn(*s.args)
+    err, same = _diff(replayed, eager)
+    first_same = _diff(first, eager)[1]
+    print(f"bigvgan replay vs eager sample_pcm f32: shape {tuple(eager.shape)}, max |diff| "
+          f"{err:.3g} PCM16 counts, bitwise {same} (first call bitwise {first_same}) on {card}",
+          flush=True)
+    if not (same and first_same):
+        raise AssertionError(f"bigvgan: replay differs from eager: {err}")
+    want = {k: UNFUSED_PER_REQUEST.get(k, 0) for k in counters}
+    if replay_launches != want:
+        raise AssertionError(f"bigvgan: a replay launched {replay_launches}, want {want}")
+
+    vocos, vkw = _r8s_pipeline(root, "float32")
+    rtf, vocos_rtf, share = [], [], []
+    pipeline.synthesize(**kw)
+    vocos.synthesize(**vkw)
+    for _ in range(4):
+        m = pipeline.synthesize(**kw).metrics
+        rtf.append(m["rtf"])
+        share.append(m["t_vocoder"] / m["t"])
+        vocos_rtf.append(vocos.synthesize(**vkw).metrics["rtf"])
+    med = {k: float(np.median(v)) for k, v in
+           (("bigvgan", rtf), ("vocos", vocos_rtf), ("share", share))}
+    print(f"bigvgan warm rtf {med['bigvgan']:.5f} {[round(x, 5) for x in rtf]} against Vocos "
+          f"{med['vocos']:.5f} {[round(x, 5) for x in vocos_rtf]} (r8s f32, medians of 4 in "
+          f"turns); the vocoder's share of a bigvgan request {100 * med['share']:.1f}% on {card}",
+          flush=True)
+    del pipeline, vocos
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec_err, dec_err16 = check_bigvgan_decode(gen_path, card)
+    mel_err = check_bigvgan_log_mel(card)
+    return dict(launches=launches, cli_rtf=[m["rtf"] for m in metrics], rtf=med["bigvgan"],
+                vocos_rtf=med["vocos"], share=med["share"], decode_err=dec_err,
+                decode_err_bf16=dec_err16, mel_err=mel_err)
+
+
+DIALOG_CORPUS = ["[S1] the quick brown fox jumps. [S2] over the lazy dog it goes.",
+                 "[S1] and then it runs away. [S2] far away from here, it says.",
+                 "[S1] how are you today? [S2] fine, thank you, and you?",
+                 "[S1] this is a test of the dialog. [S2] it works as it should."]
+
+
+def make_recipe_assets(root: Path):
+    """13b assets: phase 12's emilia-layout tokens.txt (the dialog
+    vocabulary, [S1]/[S2] at 360/361) and the base vocabulary (the same
+    layout without its 28 dialog rows, 334), the base model.json, a
+    full-width base checkpoint on the base vocabulary (seeded random
+    weights, ``save_checkpoint``), a 16-file mono corpus of English text
+    and a 16-file stereo corpus of [S1]/[S2] turns, 2-6 s each."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import write_wav
+    from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig, save_model_json
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+    from zipvoice_tpu_torch.text.espeak_map import VENDORED_ESPEAK_MAP
+    from zipvoice_tpu_torch.text.tokenizer import write_token_file
+    from zipvoice_tpu_torch.train.checkpoint import save_checkpoint
+
+    rd = root / "recipes"
+    rd.mkdir()
+    token2id = dict(VENDORED_ESPEAK_MAP)
+    token2id.update({f"<filler{i}>": i for i in range(len(token2id), 360)})
+    token2id.update({"[S1]": 360, "[S2]": 361})
+    write_token_file(token2id, str(rd / "tokens_dialog.txt"))
+    write_token_file({t: i for t, i in token2id.items() if i < 334}, str(rd / "tokens_base.txt"))
+    save_model_json(rd / "model.json", ZipVoiceConfig(), FeatureConfig())
+    base = init_zipvoice(ZipVoiceConfig(vocab_size=334, pad_id=0),
+                         torch.Generator().manual_seed(16))
+    save_checkpoint(str(rd / "base.pt"), base)
+    del base
+    rng = np.random.default_rng(17)
+    for kind, channels in (("mono", 1), ("stereo", 2)):
+        lines = []
+        for i in range(16):
+            sec = rng.uniform(2.0, 6.0)
+            wav = (0.05 * rng.standard_normal((channels, int(sec * 24000)))).astype(np.float32)
+            path = rd / f"{kind}{i}.wav"
+            write_wav(path, wav, 24000)
+            text = ((BASE * 2)[7 * i: 7 * i + int(15 * sec)] if kind == "mono"
+                    else DIALOG_CORPUS[i % 4])
+            lines.append(f"{kind}{i}\t{text}\t{path}")
+        (rd / f"{kind}.tsv").write_text("\n".join(lines) + "\n")
+    return rd
+
+
+def _recipe_args(rd: Path, manifest: str, tokens: str, exp: Path, steps: int):
+    return ["--device", "cuda", "--train-manifest", str(rd / manifest),
+            "--token-file", str(rd / tokens), "--model-config", str(rd / "model.json"),
+            "--exp-dir", str(exp), "--num-iters", str(steps), "--max-duration", "100",
+            "--save-every-n", "1", "--keep-last-k", "2", "--average-period", "1",
+            "--log-interval", "1", "--dtype", "bfloat16"]
+
+
+class _StepTimer:
+    """Within the block: each distill step and each trainer step timed on
+    the host clock, the device synchronized at both ends (``ms``).  The
+    recipes save a checkpoint every step, which the intervals between steps
+    would include."""
+
+    def __enter__(self):
+        import torch
+
+        from zipvoice_tpu_torch.train import distill_step, trainer
+
+        self.ms = []
+
+        def timed(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms.append((time.monotonic() - t0) * 1e3)
+                return out
+            return run
+
+        make, step = distill_step.make_distill_train_step, trainer.Trainer.train_step
+        self.saved = [(distill_step, "make_distill_train_step", make),
+                      (trainer.Trainer, "train_step", step)]
+        distill_step.make_distill_train_step = lambda *a, **k: timed(make(*a, **k))
+        trainer.Trainer.train_step = timed(step)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def _run_recipe_step(name: str, main_fn, argv, per_step, card: str):
+    """One training CLI run of a recipe: finite losses, the launches pinned
+    per step, warm step ms (the step alone, median of the steps after the
+    first) and peak memory.  Returns (result, {"launches", "step_ms",
+    "peak_gib"})."""
+    import numpy as np
+    import torch
+
+    steps = RECIPE_STEPS[name]
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _StepTimer() as timer:
+        res = main_fn(argv)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(res["steps"])
+    want = {k: per_step.get(k, 0) * n for k in counters}
+    if n != steps or launches != want:
+        raise AssertionError(f"{name}: launches {launches} over {n} steps, want {want}")
+    losses = [x for _, x in res["steps"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    step_ms = float(np.median(timer.ms[1:]))
+    print(f"recipe {name} (bf16, full width): {n} steps, losses "
+          f"{[round(x, 4) for x in losses]}, launches a step "
+          f"{ {k: v // n for k, v in launches.items() if v} }, warm step {step_ms:.1f} ms "
+          f"{[round(x, 1) for x in timer.ms]} (the step alone, median after the first), "
+          f"peak memory {peak:.2f} GiB on {card}", flush=True)
+    return res, dict(launches={k: v // n for k, v in launches.items()}, step_ms=step_ms,
+                     peak_gib=peak)
+
+
+def _average(exp: Path, steps: int) -> str:
+    from zipvoice_tpu_torch.bin import generate_averaged_model
+
+    return generate_averaged_model.main(["--exp-dir", str(exp), "--iter", str(steps),
+                                         "--avg", "1", "--out", str(exp / "model.pt")])
+
+
+def _check_changed(name: str, model, initial, frozen=()):
+    """Every parameter tensor moved from ``initial`` (a state_dict), except
+    the prefixes ``frozen``, which stay bit-equal."""
+    import torch
+
+    moved, stuck = [], []
+    for k, v in model.state_dict().items():
+        same = torch.equal(v, initial[k].to(v.device))
+        if frozen and k.startswith(frozen):
+            if not same:
+                moved.append(k)
+        elif same:
+            stuck.append(k)
+    if moved or stuck:
+        raise AssertionError(f"{name}: frozen tensors moved {moved[:10]}; trained tensors "
+                             f"unchanged {stuck[:10]}")
+    print(f"recipe {name}: every trained tensor changed"
+          + (f", {', '.join(frozen)} bit-equal" if frozen else ""), flush=True)
+
+
+def run_recipes(root: Path, card: str):
+    """Phase 13b: ``egs/zipvoice/run_distill.sh``'s chain (stage 1, 3
+    steps; average; stage 2, 3 steps; average) and
+    ``egs/zipvoice_dialog/run.sh``'s (dialog, 3 steps; average; stereo, 4
+    steps; average) through the CLIs at full width in bf16, each run's
+    losses, launches a step, trained tensors, step ms and peak memory; the
+    distill model served by the infer CLI and the stereo model by the
+    dialog CLI (launches a request pinned).  Returns {run: {...}}."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.bin import (
+        infer_zipvoice,
+        infer_zipvoice_dialog,
+        train_zipvoice_dialog,
+        train_zipvoice_dialog_stereo,
+        train_zipvoice_distill,
+    )
+    from zipvoice_tpu_torch.config import load_model_json
+    from zipvoice_tpu_torch.models.dialog import (
+        duplicate_projections_stereo,
+        extend_vocab_params,
+        init_zipvoice_dialog,
+    )
+    from zipvoice_tpu_torch.models.distill import init_zipvoice_distill
+    from zipvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    t0 = time.monotonic()
+    rd = make_recipe_assets(root)
+    print(f"recipe assets in {time.monotonic() - t0:.1f} s", flush=True)
+    base = load_checkpoint(str(rd / "base.pt"))["model"]
+    out = {}
+    # the CLIs' fresh weights come from the default seed, 42, on the card
+    gen = lambda: torch.Generator(device="cuda").manual_seed(42)  # noqa: E731
+
+    res, out["distill stage 1"] = _run_recipe_step(
+        "distill stage 1", train_zipvoice_distill.main,
+        _recipe_args(rd, "mono.tsv", "tokens_base.txt", rd / "distill_s1", 3)
+        + ["--teacher-checkpoint", str(rd / "base.pt")], DISTILL_PER_STEP, card)
+    cfg, _ = load_model_json(rd / "model.json", vocab_size=334, pad_id=0)
+    initial = dict(init_zipvoice_distill(cfg, gen(), device="cuda").state_dict())
+    initial.update(base)
+    _check_changed("distill stage 1", res["student"], initial, ("embed.", "text_encoder."))
+    del res
+    s1 = _average(rd / "distill_s1", 3)
+    res, out["distill stage 2"] = _run_recipe_step(
+        "distill stage 2", train_zipvoice_distill.main,
+        _recipe_args(rd, "mono.tsv", "tokens_base.txt", rd / "distill_s2", 3)
+        + ["--teacher-checkpoint", s1, "--distill-stage", "second"], DISTILL_PER_STEP, card)
+    s1_sd = load_checkpoint(s1)["model"]
+    _check_changed("distill stage 2", res["student"], s1_sd, ("embed.", "text_encoder."))
+    ema = load_checkpoint(str(rd / "distill_s2" / "checkpoint-3.pt"))["model_ema"]
+    if ema is None or sorted(ema) != sorted(s1_sd):
+        raise AssertionError("distill stage 2: checkpoint-3.pt holds no full model_ema")
+    del res, ema
+    _average(rd / "distill_s2", 3)
+
+    res, out["dialog"] = _run_recipe_step(
+        "dialog", train_zipvoice_dialog.main,
+        _recipe_args(rd, "stereo.tsv", "tokens_dialog.txt", rd / "dialog", 3)
+        + ["--checkpoint", str(rd / "base.pt")], DIALOG_PER_STEP, card)
+    dcfg, _ = load_model_json(rd / "model.json", vocab_size=362, pad_id=0)
+    fresh = init_zipvoice_dialog(dcfg, device="cuda", generator=gen()).state_dict()
+    _check_changed("dialog", res["trainer"].model, extend_vocab_params(fresh, base))
+    del res
+    d_avg = _average(rd / "dialog", 3)
+    res, out["stereo"] = _run_recipe_step(
+        "stereo", train_zipvoice_dialog_stereo.main,
+        _recipe_args(rd, "stereo.tsv", "tokens_dialog.txt", rd / "stereo", 4)
+        + ["--checkpoint", d_avg], DIALOG_PER_STEP, card)
+    fresh = init_zipvoice_dialog(dcfg, stereo=True, device="cuda", generator=gen()).state_dict()
+    loaded = duplicate_projections_stereo(load_checkpoint(d_avg)["model"], dcfg.feat_dim)
+    _check_changed("stereo", res["trainer"].model, extend_vocab_params(fresh, loaded))
+    del res, fresh, loaded
+    _average(rd / "stereo", 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the recipes' models serve: distill through the infer CLI, stereo
+    # through the dialog CLI (one request each, launches pinned)
+    counters = _counters()
+    for name, cli, argv in (
+            ("zipvoice_distill", infer_zipvoice,
+             ["--model-dir", str(rd / "distill_s2"), "--prompt-wav", str(root / "prompt.wav"),
+              "--prompt-text", PROMPT_TEXT, "--text", TEXTS["r8s"]]),
+            ("zipvoice_dialog_stereo", infer_zipvoice_dialog,
+             ["--model-dir", str(rd / "stereo"), "--prompt-text-1", DIALOG_PROMPTS[0],
+              "--prompt-wav-1", str(root / "speaker1.wav"), "--prompt-text-2",
+              DIALOG_PROMPTS[1], "--prompt-wav-2", str(root / "speaker2.wav"),
+              "--text", DIALOG_TEXT])):
+        for c in counters.values():
+            c.launches = 0
+        wav_path = rd / f"served_{name}.wav"
+        metrics = cli.main(["--model-name", name, "--vocoder-path", str(root / "vocos.bin"),
+                            "--device", "cuda", "--res-wav-path", str(wav_path), *argv])
+        launches = {k: c.launches for k, c in counters.items()}
+        want = {k: VARIANT_PINS[name].get(k, 0) for k in counters}
+        wav, sr = read_wav(wav_path)
+        channels = 2 if name.endswith("stereo") else 1
+        if launches != want or wav.shape[0] != channels or not np.isfinite(wav).all():
+            raise AssertionError(f"serving the {name} recipe model: launches {launches} "
+                                 f"(want {want}), wav {wav.shape}")
+        print(f"recipe model {name} served: {wav.shape[0]} channel(s), "
+              f"{metrics[0]['wav_seconds']:.2f} s audio, rtf {metrics[0]['rtf']:.4f}, "
+              f"launches {launches['B1']}/{launches['B2']} B1/B2 on {card}", flush=True)
+        out[f"served {name}"] = dict(launches=launches, rtf=metrics[0]["rtf"])
+    return out
+
+
+def check_variant_gradients_against_cpu(root: Path):
+    """Phase 13c: one full-width compute_distill_loss gradient (stage
+    first: the base model as teacher, its copy with a fresh guidance-scale
+    embedding as student) and one stereo compute_fm_loss_dialog gradient
+    (2F features through stream 0, se_weight 1, the regularizer schedules
+    with every gate closed) on the card (kernels: B1 + B2 + B4; B1 + B3)
+    against the CPU (plain versions), f32, the draws pinned; relative L2
+    error per parameter group.  Returns {loss: {group: error}}."""
+    import torch
+
+    from zipvoice_tpu_torch.config import ZipVoiceConfig
+    from zipvoice_tpu_torch.models import dialog as dialog_mod
+    from zipvoice_tpu_torch.models import distill as distill_mod
+    from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel
+    from zipvoice_tpu_torch.io.checkpoint import load_into
+    from zipvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    base_sd = load_checkpoint(str(root / "recipes" / "base.pt"))["model"]
+    cfg = ZipVoiceConfig(vocab_size=334, pad_id=0)
+    with torch.device("meta"):
+        teacher = ZipVoiceModel(cfg)
+    teacher = load_into(teacher, base_sd)
+    student = distill_mod.init_zipvoice_distill(cfg, torch.Generator().manual_seed(19))
+    with torch.no_grad():
+        for k, v in student.state_dict().items():
+            if k in base_sd:
+                v.copy_(base_sd[k])
+    g = torch.Generator().manual_seed(20)
+    b, t, s, f = 2, 256, 48, cfg.feat_dim
+    tokens = torch.randint(1, 334, (b, s + 1), generator=g)
+    tokens[:, -1] = 0
+    tokens_lens = torch.tensor([s, s - 11])
+    features_lens = torch.tensor([t, t - 57])
+    features = 0.5 * torch.randn((b, t, f), generator=g)
+    noise = torch.randn((b, t, f), generator=g)
+    scales = torch.tensor([0.7, 1.6]).reshape(b, 1, 1)
+    stereo_cfg = ZipVoiceConfig(vocab_size=362, pad_id=0)
+    stereo = dialog_mod.init_zipvoice_dialog(stereo_cfg, stereo=True,
+                                             generator=torch.Generator().manual_seed(21))
+    st_tokens = tokens.clone()
+    st_tokens[:, 0], st_tokens[:, 20] = 360, 361
+    st_features = 0.5 * torch.randn((b, t, 2 * f), generator=g)
+    st_noise = torch.randn((b, t, 2 * f), generator=g)
+    tt = torch.tensor([0.3, 0.8]).reshape(b, 1, 1)
+
+    def distill_grads(dev):
+        student.to(dev).zero_grad()
+        teacher.to(dev)
+        loss, _ = distill_mod.compute_distill_loss(
+            student, teacher, tokens.to(dev), tokens_lens.to(dev), features.to(dev),
+            features_lens.to(dev), 0, 0.3, 0.2, 0.15, stage="first")
+        loss.backward()
+        return {n: q.grad.detach().cpu() for n, q in student.named_parameters()
+                if q.grad is not None}
+
+    def stereo_grads(dev, scheds):
+        stereo.to(dev).zero_grad()
+        loss = dialog_mod.compute_fm_loss_dialog(
+            stereo, st_tokens.to(dev), tokens_lens.to(dev), st_features.to(dev),
+            features_lens.to(dev), st_noise.to(dev), tt.to(dev), 0, se_weight=1.0,
+            stereo=True, schedules=scheds)
+        loss.backward()
+        return {n: q.grad.detach().cpu() for n, q in stereo.named_parameters()
+                if q.grad is not None}
+
+    saved = [(distill_mod, "draw_noise_and_scale", distill_mod.draw_noise_and_scale),
+             (dialog_mod, "condition_time_mask_suffix", dialog_mod.condition_time_mask_suffix)]
+    distill_mod.draw_noise_and_scale = lambda seed, x, stage: (
+        noise.to(x.device, x.dtype), scales.to(x.device, x.dtype))
+
+    def fixed_suffix(features_lens, max_len, generator, mask_percent=(0.5, 1.0)):
+        seq = torch.arange(max_len, device=features_lens.device)[None, :]
+        return (seq >= (features_lens[:, None] * 0.4).long()) & (seq < features_lens[:, None])
+
+    dialog_mod.condition_time_mask_suffix = fixed_suffix
+    out = {}
+    try:
+        with _NoDraws() as nd:
+            runs = (("distill (stage first)", distill_grads),
+                    ("stereo dialog (regularizers)",
+                     lambda dev: stereo_grads(dev, nd.schedules(stereo_cfg))))
+            for label, fn in runs:
+                grads = {dev: fn(dev) for dev in ("cpu", "cuda")}
+                if sorted(grads["cpu"]) != sorted(grads["cuda"]):
+                    raise AssertionError(f"{label}: the card and the CPU train other tensors")
+                groups = {}
+                for n, gc_ in grads["cpu"].items():
+                    d2, r2 = groups.get(_param_group(n), (0.0, 0.0))
+                    groups[_param_group(n)] = (
+                        d2 + float(((grads["cuda"][n] - gc_) ** 2).sum()),
+                        r2 + float((gc_ ** 2).sum()))
+                out[label] = {k: (d / max(r, 1e-30)) ** 0.5 for k, (d, r) in groups.items()}
+                worst = max(out[label].values())
+                print(f"gradient card vs CPU ({label}): relative L2 per group "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in out[label].items())
+                      + f"; worst {worst:.2e} (tol 1e-3)", flush=True)
+                if not worst <= 1e-3:
+                    raise AssertionError(f"gradient card vs CPU ({label}): {out[label]}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for m in (student, teacher, stereo):
+        m.to("cpu")
+    return out
+
+
+def run_phase13(root: Path, card: str):
+    """Phase 13 (13a, 13b, 13c) with its wall time."""
+    t0 = time.monotonic()
+    bigvgan = run_bigvgan(root, card)
+    recipes = run_recipes(root, card)
+    grads = check_variant_gradients_against_cpu(root)
+    print(f"phase 13: {time.monotonic() - t0:.1f} s on {card}", flush=True)
+    return bigvgan, recipes, grads
+
+
 def _variant_extras(results, variants, key):
     """B1's / B2's launches a request of each variant (replayed) and its
     times at the distill shape (B=1, H=4, T=1024, f32)."""
@@ -1859,6 +2450,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         variants = run_variants(root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bigvgan, recipes, variant_grads = run_phase13(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1870,6 +2464,9 @@ def main() -> int:
                       launches_per_request=serve_launches["B1"] // n_req,
                       launches_server=server_launches["B1"],
                       launches_per_train_step=reg_step["B1"],
+                      launches_per_bigvgan_request=bigvgan["launches"]["B1"] // 2,
+                      launches_per_distill_step=recipes["distill stage 1"]["launches"]["B1"],
+                      launches_per_dialog_step=recipes["dialog"]["launches"]["B1"],
                       **_variant_extras(results, variants, "B1")),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
@@ -1879,16 +2476,22 @@ def main() -> int:
                       launches_per_fused_request=fused_launches["B2"] // n_req,
                       launches_server=server_launches["B2"],
                       launches_per_train_step=reg_step["B2"],
+                      launches_per_bigvgan_request=bigvgan["launches"]["B2"] // 2,
+                      launches_per_distill_step=recipes["distill stage 1"]["launches"]["B2"],
+                      launches_per_dialog_step=recipes["dialog"]["launches"]["B2"],
                       **_variant_extras(results, variants, "B2")),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
                       "zipvoice_tpu/ops/attention.py:694", reg_launches["B3"],
                       ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 vd=12 f32",
-                      launches_per_train_step=reg_step["B3"]),
+                      launches_per_train_step=reg_step["B3"],
+                      launches_per_dialog_step=recipes["dialog"]["launches"]["B3"],
+                      launches_per_stereo_step=recipes["stereo"]["launches"]["B3"]),
         _kernel_entry(results, "B4", "rel_attention_ds", "zipvoice_tpu_torch/csrc/rel_ds.cu",
                       "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
                       ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 f32",
-                      launches_per_train_step=noreg_step["B4"]),
+                      launches_per_train_step=noreg_step["B4"],
+                      launches_per_distill_step=recipes["distill stage 1"]["launches"]["B4"]),
         _kernel_entry(results, "B5", "rel_attention_apply",
                       "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
                       "zipvoice_tpu/ops/attention.py:643", apply_launches["B5"],
@@ -1909,6 +2512,7 @@ def main() -> int:
                       "zipvoice_tpu/ops/melspec.py:122", reg_launches["B8"],
                       next(k for k in results["B8"] if k[0] == "10 s"), "B=8 10 s (938 frames)",
                       launches_per_train_step=reg_step["B8"],
+                      launches_per_stereo_step=recipes["stereo"]["launches"]["B8"],
                       cufft_ms=next(r["cufft_ms"] for k, r in results["B8"].items()
                                     if k[0] == "10 s")),
         _kernel_entry(results, "B9", "conv_glu_swoosh_out", "zipvoice_tpu_torch/csrc/conv_glu.cu",
@@ -1920,6 +2524,11 @@ def main() -> int:
     missing += [f"{k} (server)" for k in ("B1", "B2") if not server_launches[k]]
     missing += [f"{k} ({name})" for name, v in variants.items() for k in ("B1", "B2")
                 if not v["launches"][k]]
+    missing += [f"{k} (bigvgan)" for k in ("B1", "B2") if not bigvgan["launches"][k]]
+    missing += [f"{k} ({name})" for name, v in recipes.items()
+                for k in (("B1", "B2", "B4", "B8") if name.startswith("distill")
+                          else ("B1", "B2", "B3", "B8") if not name.startswith("served")
+                          else ("B1", "B2")) if not v["launches"][k]]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: {missing}")
     for dtype, r in graph_res.items():
@@ -1961,6 +2570,15 @@ def main() -> int:
         f"B1 {v['replay_launches']['B1']} B2 {v['replay_launches']['B2']} a replayed "
         f"request, fm_decoder card-vs-cpu err {v['fwd_err']:.3g}"
         for name, v in variants.items()) + f" on {card}", flush=True)
+    print(f"bigvgan: warm rtf {bigvgan['rtf']:.5f} (Vocos {bigvgan['vocos_rtf']:.5f}), vocoder "
+          f"{100 * bigvgan['share']:.1f}% of a request, decode card-vs-cpu "
+          f"{bigvgan['decode_err']:.3g} (bf16 vs f32 {bigvgan['decode_err_bf16']:.3g}), log-mel "
+          f"{bigvgan['mel_err']:.3g}; recipes: "
+          + "; ".join(f"{name} {v['step_ms']:.1f} ms a step, peak {v['peak_gib']:.2f} GiB"
+                      for name, v in recipes.items() if "step_ms" in v)
+          + "; gradient card-vs-cpu worst relative L2 "
+          + ", ".join(f"{k} {max(v.values()):.3g}" for k, v in variant_grads.items())
+          + f" on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

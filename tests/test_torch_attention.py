@@ -5,6 +5,8 @@ against the JAX XLA path, at T in {40, 128, 200}, f32, within 1e-5.
 The kernel wrappers take the plain version only for CPU tensors; these
 tests also pin that a CPU call never counts as a kernel launch."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -18,6 +20,12 @@ from zipvoice_tpu.ops.attention import (
     rel_attention_probs_apply as jax_probs_apply,
 )
 from zipvoice_tpu_torch.ops import attention as ta
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-5
 H, QD, PD, VD = 4, 32, 4, 12

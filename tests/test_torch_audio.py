@@ -2,6 +2,8 @@
 within 1e-5: the Vocos log-mel, the feature extractor (also bucketed ==
 unbucketed, as the pipeline runs it), the ISTFT and the Vocos decoder."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -16,6 +18,12 @@ from zipvoice_tpu_torch.audio import mel as tmel
 from zipvoice_tpu_torch.audio import stft as tstft
 from zipvoice_tpu_torch.audio import vocos as tvocos
 from zipvoice_tpu_torch.config import FeatureConfig
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-5
 

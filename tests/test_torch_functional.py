@@ -1,6 +1,8 @@
 """zipvoice_tpu_torch.nn.functional against zipvoice_tpu.nn.functional on the
 CPU: same numpy inputs, f32, within 1e-6."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -9,6 +11,12 @@ import torch
 
 from zipvoice_tpu.nn import functional as jf
 from zipvoice_tpu_torch.nn import functional as tf
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-6
 

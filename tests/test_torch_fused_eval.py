@@ -9,6 +9,8 @@ T = 200 exercises it.  Tolerances are the JAX package's own: 1e-5 on
 probabilities, 2e-5 on outputs, 1e-4 on gradients (f32 sums over T keys in
 another order), 5e-5 through a whole layer."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -26,6 +28,12 @@ from zipvoice_tpu_torch.io.checkpoint import from_jax_params, load_into
 from zipvoice_tpu_torch.nn import zipformer as tzf
 from zipvoice_tpu_torch.ops import attention as ta
 from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 H, QD, PD, VD = 4, 32, 4, 12
 

@@ -41,7 +41,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "serve.server", "bin.serve", "utils.memo", "utils.graphs",
                  "text.tokenizer", "text.normalizer", "text.numbers", "text.espeak_map",
                  "text.en_g2p", "text.pinyin_data", "text.zh", "text.spm",
-                 "models.distill", "models.dialog", "bin.infer_zipvoice_dialog"):
+                 "models.distill", "models.dialog", "bin.infer_zipvoice_dialog",
+                 "audio.bigvgan", "train.distill_step", "bin.train_zipvoice_distill",
+                 "bin.train_zipvoice_dialog", "bin.train_zipvoice_dialog_stereo",
+                 "bin.generate_averaged_model"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

@@ -5,6 +5,7 @@ the CLI end to end with --device cpu, and the silent-prompt error."""
 
 import functools
 import json
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +25,12 @@ from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.io.model_dir import load_model_dir
 from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
 from zipvoice_tpu_torch.text.tokenizer import write_token_file
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TINY = dict(
     fm_decoder_downsampling_factor=(1, 2, 1),
@@ -167,7 +174,7 @@ def test_serve_cli_refuses_what_is_not_ported(assets):
     ta = load_model_dir(str(d), tokenizer_name="simple")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ZipVoicePipeline(model=ta.model, model_cfg=ta.model_cfg, feat_cfg=ta.feat_cfg,
-                         tokenizer=ta.tokenizer, device="cpu", vocoder="bigvgan")
+                         tokenizer=ta.tokenizer, device="cpu", quantize="int8")
 
 
 def test_cli_long_form_cpu(assets, tmp_path):

@@ -3,6 +3,8 @@ package on the CPU in f32: each regularizer's forward and gradient with its
 gate open and closed (within 1e-5 relative), the schedules (exact), one
 run of ScaledAdam updates (within 1e-5) and the Eden LR (within 1e-6)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,12 @@ from zipvoice_tpu_torch.config import ZipformerConfig
 from zipvoice_tpu_torch.nn import regularizers as reg
 from zipvoice_tpu_torch.train import lr_schedule, schedules
 from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam, ScaledAdamConfig
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-5
 

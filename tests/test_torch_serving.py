@@ -8,6 +8,7 @@ HTTP server over a CPU pipeline."""
 import base64
 import gc
 import json
+import os
 import struct
 import threading
 import urllib.error
@@ -26,6 +27,12 @@ from zipvoice_tpu_torch.audio.wav import read_wav, read_wav_bytes, wav_bytes
 from zipvoice_tpu_torch.io.model_dir import load_model_dir
 from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
 from zipvoice_tpu_torch.serve.server import TTSServer
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 BUCKETS = dict(token_bucket=8, frame_bucket=32)
 KW = dict(num_step=2, guidance_scale=1.0)

@@ -6,6 +6,8 @@ formulation (penalize_abs_values_gt on the scores, masked softmax, the
 const branch under stop_gradient), within 5e-5; and the log-mel plain
 version against fused_log_mel in interpret mode within 1e-4."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,12 @@ from zipvoice_tpu.nn.zipformer import _rel_shift
 from zipvoice_tpu.ops.melspec import fused_log_mel as jax_fused_log_mel
 from zipvoice_tpu_torch.ops import attention as ta
 from zipvoice_tpu_torch.ops.melspec import fused_log_mel
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 5e-5
 PEN, LIMIT = 1e-2, 4.0  # a low limit so that many scores cross it

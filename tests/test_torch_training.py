@@ -8,6 +8,7 @@ resumes and keeps model_avg in float64.  JAX weights reach the port
 through ``from_jax_params``."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -29,6 +30,12 @@ from zipvoice_tpu_torch.models import zipvoice as tzv
 from zipvoice_tpu_torch.nn import regularizers as treg
 from zipvoice_tpu_torch.nn import zipformer as tzf
 from zipvoice_tpu_torch.train.schedules import zipformer_schedules, zipvoice_schedules
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 LAYER = dict(in_dim=16, out_dim=16, downsampling_factor=(1,), num_encoder_layers=1,
              cnn_module_kernel=3, encoder_dim=16, query_head_dim=8, pos_head_dim=4,

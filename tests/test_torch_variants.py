@@ -9,6 +9,7 @@ per-module error); PCM16 within 2 counts."""
 
 import functools
 import json
+import os
 
 import numpy as np
 import pytest
@@ -41,6 +42,12 @@ from zipvoice_tpu_torch.nn.zipformer import tts_zipformer_forward
 from zipvoice_tpu_torch.sampling.euler import euler_sample
 from zipvoice_tpu_torch.text.espeak_map import VENDORED_ESPEAK_MAP
 from zipvoice_tpu_torch.text.tokenizer import write_token_file
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TINY = dict(
     fm_decoder_downsampling_factor=(1, 2, 1),
@@ -329,7 +336,7 @@ def test_pipeline_keys_tell_variants_apart(model_dirs):
     assert dist.graphs is not base.graphs
     assert kd.static[:2] == ("zipvoice", True) and kb.static[:2] == ("zipvoice", False)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ZipVoicePipeline(model=ta.model, vocoder="bigvgan", **common)
+        ZipVoicePipeline(model=ta.model, quantize="int8", **common)
     with pytest.raises(ValueError, match="zipvoice variant only"):
         ZipVoicePipeline(model=ta.model, distill=True, variant="dialog", **common)
     st = load_model_dir(str(dirs["zipvoice_dialog_stereo"]),

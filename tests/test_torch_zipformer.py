@@ -3,6 +3,8 @@ the CPU, f32, within 1e-5: one encoder layer, one downsampled stack and
 the whole TTSZipformer for the text-encoder and fm-decoder shapes.  JAX
 parameters reach the port through ``from_jax_params``."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -16,6 +18,12 @@ from zipvoice_tpu.nn.functional import compact_rel_positional_encoding
 from zipvoice_tpu_torch.config import ZipformerConfig
 from zipvoice_tpu_torch.io.checkpoint import from_jax_params, load_into
 from zipvoice_tpu_torch.nn import zipformer as tzf
+
+# torch's CPU ops share one OpenMP pool a process; pytest-xdist runs a
+# process a worker, and pools sized to every core oversubscribe the machine
+# by the worker count, which slows torch's ops by orders of magnitude
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = 1e-5
 

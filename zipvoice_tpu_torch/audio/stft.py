@@ -74,10 +74,11 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
 
 
 def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int,
-                   center: bool = True) -> torch.Tensor:
+                   center: bool = True, eps: float = 0.0) -> torch.Tensor:
     """|STFT(y)| with a periodic Hann window: (..., L) -> (..., F, n_fft//2+1);
-    center=True reflect-pads n_fft//2 like torch.stft.  The products run in
-    f32; the result is in y.dtype."""
+    center=True reflect-pads n_fft//2 like torch.stft; eps > 0 takes
+    sqrt(power + eps) (the BigVGAN features).  The products run in f32; the
+    result is in y.dtype."""
     if center:
         pad = n_fft // 2
         lead = y.shape[:-1]
@@ -87,7 +88,10 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_length: int,
     frames = (frame_signal(y, n_fft, hop_length) * window.to(y.dtype)).float()
     re = frames @ cos
     im = -(frames @ sin)
-    return torch.sqrt(re * re + im * im).to(y.dtype)
+    power = re * re + im * im
+    if eps:
+        power = power + eps
+    return torch.sqrt(power).to(y.dtype)
 
 
 def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,

@@ -9,11 +9,14 @@ from pathlib import Path
 NOT_PORTED = "is not yet ported to zipvoice_tpu_torch"
 
 
-def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02):
+def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02,
+                    tokenizer: str = "emilia", variant: bool = False):
+    """The flags every training CLI takes.  ``variant``: the distill and
+    dialog CLIs' set, where --exp-dir is required and --num-iters exists."""
     p.add_argument("--train-manifest", type=str, required=True)
     p.add_argument("--dev-manifest", type=str, default=None)
     p.add_argument("--token-file", type=str, required=True)
-    p.add_argument("--tokenizer", type=str, default="emilia",
+    p.add_argument("--tokenizer", type=str, default=tokenizer,
                    choices=["emilia", "espeak", "dialog", "libritts", "simple"])
     p.add_argument("--lang", type=str, default="en-us")
     p.add_argument("--max-duration", type=float, default=200.0,
@@ -25,8 +28,14 @@ def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02):
                    help="model.json (architecture + feature sections)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="initial checkpoint (e.g. for finetuning)")
-    p.add_argument("--exp-dir", type=str, default="exp/zipvoice")
+    if variant:
+        p.add_argument("--exp-dir", type=str, required=True)
+    else:
+        p.add_argument("--exp-dir", type=str, default="exp/zipvoice")
     p.add_argument("--num-epochs", type=int, default=11)
+    if variant:
+        p.add_argument("--num-iters", type=int, default=0,
+                       help="stop after this many steps (0 = epoch-driven)")
     p.add_argument("--start-epoch", type=int, default=1,
                    help="resume from exp-dir/epoch-{start_epoch-1}.pt if > 1")
     p.add_argument("--base-lr", type=float, default=base_lr)
@@ -66,7 +75,9 @@ def refuse_unported(args, *extra):
             raise SystemExit(f"{flag} {NOT_PORTED}")
 
 
-def build_data(args, tokenizer, feat_cfg, pad_id, device):
+def build_data(args, tokenizer, feat_cfg, pad_id, device, skip_dev: bool = False):
+    """(sampler, collate, dev batches or None); ``skip_dev`` leaves the dev
+    manifest unread."""
     from zipvoice_tpu_torch.data.dataset import (
         DurationBucketSampler,
         OnDeviceFbankCollator,
@@ -78,7 +89,7 @@ def build_data(args, tokenizer, feat_cfg, pad_id, device):
                                     min_len=args.min_len, seed=args.seed)
     collate = OnDeviceFbankCollator(tokenizer, feat_cfg, device=device, pad_id=pad_id)
     dev_batches = None
-    if args.dev_manifest:
+    if args.dev_manifest and not skip_dev:
         dev_sampler = DurationBucketSampler(read_tsv_manifest(args.dev_manifest),
                                             max_duration=args.max_duration, shuffle=False,
                                             max_len=args.max_len, min_len=args.min_len)

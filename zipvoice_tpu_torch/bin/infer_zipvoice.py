@@ -9,7 +9,9 @@ Usage (single sentence):
 ``--model-name zipvoice_distill`` samples with the distilled student (8
 steps, guidance 3.0 embedded, no CFG batch, by default).  The tokenizer
 defaults to ``emilia`` (espeak IPA for English through piper, the espeak-ng
-binary or the offline G2P; pinyin for Chinese).
+binary or the offline G2P; pinyin for Chinese).  The model's feature type
+picks the vocoder: a ``"type": "bigvgan"`` model dir takes a BigVGAN
+generator checkpoint (``bigvgan_generator.pt``) as --vocoder-path.
 
 Batch mode reads a TSV (``name\\tprompt_text\\tprompt_wav\\ttext`` per line)
 with --test-list and writes ``<res-dir>/<name>.wav``.  ``--long-form``
@@ -41,7 +43,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-name", type=str, default="model.pt",
                         help="The name of model checkpoint")
     parser.add_argument("--vocoder-path", type=str, default=None,
-                        help="Vocos checkpoint (pytorch_model.bin / .safetensors)")
+                        help="Vocoder checkpoint: Vocos (pytorch_model.bin / "
+                             ".safetensors) or, for bigvgan features, the BigVGAN "
+                             "generator (bigvgan_generator.pt)")
     parser.add_argument("--tokenizer", type=str, default="emilia",
                         help="Tokenizer type")
     parser.add_argument("--lang", type=str, default="en-us",
@@ -88,15 +92,28 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def load_vocoder_params(path: str, kind: str = "vocos"):
+    """The vocoder weights at ``path`` in the port's layout: Vocos, or the
+    BigVGAN generator (a ``generator.`` key prefix stripped, weight norm
+    fused)."""
+    from zipvoice_tpu_torch.io.checkpoint import load_torch_state_dict
+
+    sd = load_torch_state_dict(path)
+    if kind == "bigvgan":
+        from zipvoice_tpu_torch.audio.bigvgan import load_bigvgan_params
+
+        return load_bigvgan_params({k[len("generator."):] if k.startswith("generator.")
+                                    else k: v for k, v in sd.items()})
+    from zipvoice_tpu_torch.audio.vocos import load_vocos_params
+
+    return load_vocos_params(sd)
+
+
 def build_pipeline(args):
     """The pipeline of the model the CLI arguments name (the variant from
     its registry entry), and its sampling defaults resolved against
     --num-step / --guidance-scale."""
-    from zipvoice_tpu_torch.audio.vocos import (
-        load_vocos_params,
-        vocos_config_from_params,
-    )
-    from zipvoice_tpu_torch.io.checkpoint import load_torch_state_dict
+    from zipvoice_tpu_torch.audio.vocos import VocosConfig, vocos_config_from_params
     from zipvoice_tpu_torch.io.model_dir import load_model_dir
     from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
 
@@ -107,18 +124,22 @@ def build_pipeline(args):
                             tokenizer_name=args.tokenizer, lang=args.lang)
     feat_cfg = dataclasses.replace(assets.feat_cfg, feat_scale=args.feat_scale,
                                    feat_bias=args.feat_bias)
-    vocos_params = load_vocos_params(load_torch_state_dict(args.vocoder_path))
+    # the feature type picks the vocoder family
+    vocoder = "bigvgan" if feat_cfg.type == "bigvgan" else "vocos"
+    vocoder_params = load_vocoder_params(args.vocoder_path, vocoder)
     pipeline = ZipVoicePipeline(
         model=assets.model,
         model_cfg=assets.model_cfg,
         feat_cfg=feat_cfg,
-        vocos_params=vocos_params,
-        vocos_cfg=vocos_config_from_params(vocos_params, feat_cfg.hop_length),
+        vocos_params=vocoder_params,
+        vocos_cfg=(vocos_config_from_params(vocoder_params, feat_cfg.hop_length)
+                   if vocoder == "vocos" else VocosConfig(hop_length=feat_cfg.hop_length)),
         tokenizer=assets.tokenizer,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         device=args.device,
         distill=assets.defaults["distill"],
         variant=assets.defaults["variant"],
+        vocoder=vocoder,
     )
     d = assets.defaults
     num_step = args.num_step if args.num_step is not None else d["num_step"]

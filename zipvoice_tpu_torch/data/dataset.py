@@ -4,8 +4,11 @@ computed on the device.
 Manifest format: ``id\\ttext\\twav_path`` or ``id\\ttext\\twav_path\\tstart\\tend``
 (start/end in seconds within the wav); a trailing tokens column may follow.
 Audio is read and resampled on the host (numpy), padded to a frame
-bucket, and its log-mel runs on the device through the B8 kernel
-(``ops/melspec.fused_log_mel``) at any frame count.
+bucket, and its log-mel runs on the device: the Vocos features through the
+B8 kernel (``ops/melspec.fused_log_mel``) at any frame count, the BigVGAN
+features through ``audio/mel.bigvgan_log_mel`` (plain PyTorch, as the
+reference package computes them outside any kernel).  The stereo recipe's
+collator (``three_channel``) gives [ch0 mel, ch1 mel, mel of the mix].
 """
 
 from __future__ import annotations
@@ -191,12 +194,15 @@ class OnDeviceFbankCollator:
     Returns tokens (B, S) int64, tokens_lens (B,), features_lens (B,) as
     host numpy arrays and features (B, T, n_mels) f32 on the device; B and T
     are padded to batch_bucket and frame_bucket (padded rows have length
-    0)."""
+    0).  ``three_channel`` (the stereo recipe) needs stereo wavs and gives
+    (B, T, 3 n_mels) features: channel 0's, channel 1's and the mix's, the
+    3B rows in one fbank call."""
 
     def __init__(self, tokenizer, feat_cfg, device="cuda", pad_id: int = 0,
-                 frame_bucket: int = 64, token_bucket: int = 16, batch_bucket: int = 8):
-        if feat_cfg.type != "vocos":
-            raise NotImplementedError(f"{feat_cfg.type!r} features are not yet ported")
+                 frame_bucket: int = 64, token_bucket: int = 16, batch_bucket: int = 8,
+                 three_channel: bool = False):
+        if feat_cfg.type not in ("vocos", "bigvgan"):
+            raise ValueError(f"unknown feature type {feat_cfg.type!r}")
         self.tokenizer = tokenizer
         self.feat_cfg = feat_cfg
         self.device = torch.device(device)
@@ -204,12 +210,16 @@ class OnDeviceFbankCollator:
         self.frame_bucket = frame_bucket
         self.token_bucket = token_bucket
         self.batch_bucket = batch_bucket
+        self.three_channel = three_channel
 
     def load_audio(self, utt: Utterance) -> np.ndarray:
         from zipvoice_tpu_torch.audio.wav import read_wav, resample
 
         wav, sr = read_wav(utt.wav_path)
-        if wav.shape[0] > 1:
+        if self.three_channel:
+            if wav.shape[0] != 2:
+                raise ValueError(f"{utt.wav_path}: stereo wav required")
+        elif wav.shape[0] > 1:
             wav = wav.mean(axis=0, keepdims=True)
         if utt.start or (utt.duration is not None and utt.num_samples is None):
             # a manifest segment row: crop with rounding
@@ -217,17 +227,23 @@ class OnDeviceFbankCollator:
             wav = wav[:, a:a + int(round(utt.duration * sr))]
         if sr != self.feat_cfg.sampling_rate:
             wav = resample(wav, sr, self.feat_cfg.sampling_rate)
-        return wav[0]
+        return wav if self.three_channel else wav[0]
 
     def fbank(self, audio: torch.Tensor) -> torch.Tensor:
-        """(B, L) f32 on the device, L a multiple of hop -> (B, L/hop + 1,
-        n_mels) model-space features (center-padded Vocos log-mel)."""
+        """(R, L) f32 on the device, L a multiple of hop -> (R, >= L/hop,
+        n_mels) model-space features: the center-padded Vocos log-mel (L/hop
+        + 1 frames) through B8, or the BigVGAN log-mel (L/hop frames)."""
+        from zipvoice_tpu_torch.audio.mel import bigvgan_log_mel
         from zipvoice_tpu_torch.ops.melspec import fused_log_mel
 
         fc = self.feat_cfg
-        pad = fc.n_fft // 2
-        padded = torch.nn.functional.pad(audio[:, None, :], (pad, pad), mode="reflect")[:, 0]
-        mel = fused_log_mel(padded, fc.sampling_rate, fc.n_fft, fc.hop_length, fc.n_mels)
+        if fc.type == "bigvgan":
+            mel = bigvgan_log_mel(audio, fc)
+        else:
+            pad = fc.n_fft // 2
+            padded = torch.nn.functional.pad(audio[:, None, :], (pad, pad),
+                                             mode="reflect")[:, 0]
+            mel = fused_log_mel(padded, fc.sampling_rate, fc.n_fft, fc.hop_length, fc.n_mels)
         return (mel + fc.feat_bias) * fc.feat_scale
 
     def __call__(self, utts: List[Utterance]) -> Dict:
@@ -240,10 +256,16 @@ class OnDeviceFbankCollator:
         num_frames = [compute_num_frames(w.shape[-1], hop) for w in wavs]
         t_pad = round_up(max(num_frames), self.frame_bucket)
         b_pad = round_up(len(utts), self.batch_bucket)
-        audio = np.zeros((b_pad, t_pad * hop), np.float32)
+        audio = np.zeros((b_pad,) + wavs[0].shape[:-1] + (t_pad * hop,), np.float32)
         for i, w in enumerate(wavs):
-            audio[i, : len(w)] = w[: t_pad * hop]
-        feats = self.fbank(torch.from_numpy(audio).to(self.device))[:, :t_pad]
+            audio[i, ..., : w.shape[-1]] = w[..., : t_pad * hop]
+        audio = torch.from_numpy(audio).to(self.device)
+        if self.three_channel:
+            rows = torch.cat([audio[:, 0], audio[:, 1], audio.mean(dim=1)])
+            feats = self.fbank(rows)[:, :t_pad].reshape(3, b_pad, t_pad, -1)
+            feats = torch.cat(tuple(feats), dim=-1)
+        else:
+            feats = self.fbank(audio)[:, :t_pad]
 
         tokens = pad_labels([u.tokens for u in utts], self.pad_id)
         tokens_padded = np.full((b_pad, round_up(tokens.shape[1], self.token_bucket)),

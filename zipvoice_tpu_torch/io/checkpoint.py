@@ -10,7 +10,10 @@ exactly those names and torch layouts, so loading is a strict
 numpy arrays) and undoes its two layout changes:
 
 * Linear ``weight``: (in, out) -> (out, in);
-* depthwise conv ``weight``: (K, C) -> (C, 1, K).
+* depthwise conv ``weight``: (K, C) -> (C, 1, K);
+* a 3-D conv ``weight`` (BigVGAN): (K, Cin, Cout) -> (Cout, Cin, K), and
+  the transposed convs' (K, Cout, Cin) -> (Cin, Cout, K), the same axis
+  reversal.
 
 The token and speaker embeddings (``embed``, ``spk_embed``) are
 nn.Embedding tables and are not transposed; ``guidance_scale_embed`` is a
@@ -77,6 +80,8 @@ def from_jax_params(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
         parts = name.split(".")
         if name.endswith("depthwise_conv.weight") and arr.ndim == 2:
             arr = np.transpose(arr)[:, None, :]  # (K, C) -> (C, 1, K)
+        elif parts[-1] == "weight" and arr.ndim == 3:
+            arr = np.transpose(arr, (2, 1, 0))
         elif (parts[-1] == "weight" and arr.ndim == 2
               and not (len(parts) >= 2 and parts[-2] in _EMBEDDING_MODULES)):
             arr = np.transpose(arr)  # (in, out) -> (out, in)

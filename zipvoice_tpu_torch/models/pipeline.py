@@ -8,7 +8,8 @@ graph per shape bucket, as the reference package jits them:
   1. ``_sample_fn``:     text embed + text encoder + duration expansion +
                          N-step Euler ODE (CFG, or the distill variant's
                          embedded scale) + prompt strip + unscaling
-  2. ``_vocode_i16_fn``: Vocos + ISTFT + clip + PCM16
+  2. ``_vocode_i16_fn``: the vocoder (Vocos + ISTFT, or BigVGAN) + clip +
+                         PCM16
   3. ``_sample_pcm_fn``: both in one graph (one request, one readback)
 
 Token counts, frame counts and prompt lengths ride as (B,) tensors over the
@@ -22,6 +23,9 @@ samples in 2F (noise, x and the generated mel; ``sample_feat_dim``) while
 ``model_cfg.feat_dim`` stays the per-channel F; its prompt fbank keeps two
 channels, and the vocoder decodes the two halves at batch 2, giving a
 (2, L) wav.
+
+The vocoder follows the model's features: ``vocos`` (the default) or
+``bigvgan``; ``vocos_params`` holds the chosen vocoder's weights.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from zipvoice_tpu_torch.audio.mel import (
     extract_features,
     stft_pad_amount,
 )
+from zipvoice_tpu_torch.audio.bigvgan import bigvgan_decode, build_bigvgan
 from zipvoice_tpu_torch.audio.vocos import VocosConfig, vocos_decode
 from zipvoice_tpu_torch.audio.wav import resample
 from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig
@@ -52,6 +57,7 @@ from zipvoice_tpu_torch.utils.shapes import round_up
 
 
 VARIANTS = ("zipvoice", "dialog", "dialog_stereo")
+VOCODERS = ("vocos", "bigvgan")
 
 
 @dataclasses.dataclass
@@ -109,10 +115,8 @@ class ZipVoicePipeline:
             raise NotImplementedError(
                 "int8 quantization is not yet ported to zipvoice_tpu_torch"
             )
-        if vocoder != "vocos":
-            raise NotImplementedError(
-                f"the {vocoder!r} vocoder is not yet ported to zipvoice_tpu_torch"
-            )
+        if vocoder not in VOCODERS:
+            raise ValueError(f"unknown vocoder {vocoder!r}; one of {VOCODERS}")
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
         if distill and variant != "zipvoice":
@@ -124,6 +128,10 @@ class ZipVoicePipeline:
             else {k: v.to(device=self.device, dtype=dtype)
                   for k, v in vocos_params.items()}
         )
+        self.vocoder = vocoder
+        # BigVGAN runs as a module over the same (cast, on-device) tensors
+        self._bigvgan = (build_bigvgan(self.vocos_params)
+                         if vocoder == "bigvgan" and vocos_params is not None else None)
         self.model_cfg = model_cfg
         self.feat_cfg = feat_cfg
         self.vocos_cfg = vocos_cfg
@@ -188,21 +196,24 @@ class ZipVoicePipeline:
                         timesteps), run, fused_flags)
 
     def _decode_i16(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, T, F) mel -> (B, (T - 1) * hop) PCM16: Vocos, clip, round.  A
-        (B, T, 2F) stereo mel decodes its two halves as 2B rows, ->
-        (B, 2, (T - 1) * hop)."""
+        """(B, T, F) mel -> (B, L) PCM16: the vocoder, clip, round; L is
+        (T - 1) * hop for Vocos, T * hop for BigVGAN.  A (B, T, 2F) stereo
+        mel decodes its two halves as 2B rows, -> (B, 2, L)."""
         b, t, width = mel.shape
         f = self.model_cfg.feat_dim
         if width != f:
             mel = mel.reshape(b, t, width // f, f).transpose(1, 2).reshape(-1, t, f)
-        wav = vocos_decode(self.vocos_params, mel.to(self.dtype), self.vocos_cfg)
+        if self._bigvgan is not None:
+            wav = bigvgan_decode(self._bigvgan, mel.to(self.dtype))
+        else:
+            wav = vocos_decode(self.vocos_params, mel.to(self.dtype), self.vocos_cfg)
         pcm = torch.round(torch.clamp(wav.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
         return pcm if width == f else pcm.reshape(b, width // f, -1)
 
     @instance_cache
     def _vocode_i16_fn(self) -> Program:
         """The vocoder emitting PCM16 (half the readback of f32)."""
-        return Program(self.graphs, "vocode_i16", (), self._decode_i16)
+        return Program(self.graphs, "vocode_i16", (self.vocoder,), self._decode_i16)
 
     @instance_cache
     def _sample_pcm_fn(self, num_step: int, guidance_scale: float,
@@ -216,8 +227,8 @@ class ZipVoicePipeline:
             return decode(sample(*args))
 
         return Program(self.graphs, "sample_pcm",
-                       (self.variant, self.distill, num_step, guidance_scale, t_shift),
-                       run, fused_flags)
+                       (self.variant, self.distill, num_step, guidance_scale, t_shift,
+                        self.vocoder), run, fused_flags)
 
     # ------------------------------------------------------------- inputs
 
@@ -379,8 +390,15 @@ class ZipVoicePipeline:
             fcfg, num_channels=self.num_channels, pre_padded=True,
         )
         feats = (feats + fcfg.feat_bias) * fcfg.feat_scale
-        # the vocos pad always yields at least the lhotse frame count
-        return feats[: compute_num_frames(length, fcfg.hop_length)], prompt_rms
+        # the frame contract (round-half-up of length / hop): crop to it;
+        # where the unbucketed STFT would come up short (bigvgan's smaller
+        # pad can), replicate its last frame, as extract_features does
+        n_true = compute_num_frames(length, fcfg.hop_length)
+        f_unpadded = 1 + (length + 2 * pad - fcfg.n_fft) // fcfg.hop_length
+        if f_unpadded >= n_true:
+            return feats[:n_true], prompt_rms
+        last = feats[f_unpadded - 1:f_unpadded]
+        return torch.cat([feats[:f_unpadded], last.expand(n_true - f_unpadded, -1)]), prompt_rms
 
     def _request_inputs(self, text, prompt_text, prompt_wav, prompt_sr, target_rms,
                         precomputed: Optional[Dict]):

@@ -4,8 +4,9 @@ averaging two checkpoints, and keep-last-k pruning.
 A checkpoint is a ``torch.save`` dict: ``"model"`` is the module's
 state_dict under the published names (so the file serves as a model dir's
 ``model.pt``), ``"model_avg"`` the running average in float64,
-``"opt_state"`` the optimizer state, ``"sampler"`` the data sampler's
-resume state, and the bookkeeping scalars (batch_idx_train, epoch, ...) sit
+``"model_ema"`` the distillation's EMA teacher (a state_dict; stage two
+only), ``"opt_state"`` the optimizer state, ``"sampler"`` the data
+sampler's resume state, and the bookkeeping scalars (batch_idx_train, epoch, ...) sit
 at the top level.
 """
 
@@ -27,11 +28,16 @@ def _cpu(sd: Dict[str, torch.Tensor], dtype=None) -> Dict[str, torch.Tensor]:
 def save_checkpoint(filename: str, model: nn.Module,
                     model_avg: Optional[Dict[str, torch.Tensor]] = None,
                     opt_state: Any = None, sampler_state: Any = None,
-                    info: Optional[Dict] = None):
-    """Write atomically (a temporary file, then a rename)."""
-    ckpt: Dict[str, Any] = {"model": _cpu(model.state_dict())}
+                    info: Optional[Dict] = None,
+                    model_ema: Optional[Dict[str, torch.Tensor]] = None):
+    """Write atomically (a temporary file, then a rename).  ``model`` is a
+    module or a state_dict."""
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    ckpt: Dict[str, Any] = {"model": _cpu(sd)}
     if model_avg is not None:
         ckpt["model_avg"] = _cpu(model_avg, torch.float64)
+    if model_ema is not None:
+        ckpt["model_ema"] = _cpu(model_ema)
     if opt_state is not None:
         ckpt["opt_state"] = opt_state
     if sampler_state is not None:
@@ -44,12 +50,14 @@ def save_checkpoint(filename: str, model: nn.Module,
 
 def load_checkpoint(filename: str) -> Dict[str, Any]:
     """-> {"model": state_dict, "model_avg": f64 state_dict or None,
-    "opt_state", "sampler", "info": the remaining top-level entries}.  The
-    average keeps its saved dtype (float64)."""
+    "model_ema": state_dict or None, "opt_state", "sampler", "info": the
+    remaining top-level entries}.  The average keeps its saved dtype
+    (float64)."""
     ckpt = torch.load(filename, map_location="cpu", weights_only=False)
     out = {
         "model": ckpt.pop("model"),
         "model_avg": ckpt.pop("model_avg", None),
+        "model_ema": ckpt.pop("model_ema", None),
         "opt_state": ckpt.pop("opt_state", None),
         "sampler": ckpt.pop("sampler", None),
     }

@@ -10,11 +10,13 @@ index), so a step is reproducible.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from zipvoice_tpu_torch.models.dialog import compute_fm_loss_dialog
 from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel, compute_fm_loss
 from zipvoice_tpu_torch.train.lr_schedule import eden_lr, fixed_lr
 from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
@@ -34,11 +36,41 @@ class TrainConfig:
     # training-time stochastic regularizers (dropout, layerdrop, balancers,
     # whitening, ...); their schedule values are computed on the host per step
     use_regularizers: bool = True
+    # the loss: "base" (interior-span condition mask) or "dialog" (suffix
+    # mask + speaker embeddings); "dialog" with stereo=True adds the
+    # both-speaking energy penalty weighted by se_weight
+    loss: str = "base"
+    stereo: bool = False
+    se_weight: float = 0.0
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """tokens / lengths (host numpy or tensors) and features on ``device``."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _loss_fn(train_cfg: TrainConfig):
+    """The loss of ``train_cfg.loss``, as compute_fm_loss's signature."""
+    if train_cfg.loss == "base":
+        return compute_fm_loss
+    if train_cfg.loss != "dialog":
+        raise ValueError(f"unknown loss {train_cfg.loss!r}")
+    return functools.partial(compute_fm_loss_dialog, se_weight=train_cfg.se_weight,
+                             stereo=train_cfg.stereo)
+
+
+def draw_t_and_noise(seed: int, features: torch.Tensor):
+    """A step's draws from its seed: t (B, 1, 1) ~ U(0, 1) in f32, the
+    noise drawn in f32 and cast to the features' dtype, and the loss's own
+    seed."""
+    dev = features.device
+    k_t, k_noise, k_loss = np.random.default_rng(seed).integers(0, 2**62, size=3)
+    gen = torch.Generator(device=dev)
+    t = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(k_t)),
+                   device=dev)
+    noise = torch.randn(features.shape, generator=gen.manual_seed(int(k_noise)),
+                        device=dev).to(features.dtype)
+    return t, noise, int(k_loss)
 
 
 def learning_rate(train_cfg: TrainConfig, step_idx: int, epoch: float) -> float:
@@ -55,22 +87,18 @@ def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfi
     features_lens (B,).  The metrics are device scalars (loss, the clip
     diagnostics) and the float lr; reading them is the caller's sync."""
     dtype = _DTYPES[train_cfg.compute_dtype]
+    loss_fn = _loss_fn(train_cfg)
 
     def step(batch, seed: int, step_idx: int, epoch: float,
              schedules: Optional[Dict] = None) -> Dict:
         dev = next(model.parameters()).device
         batch = batch_to_device(batch, dev)
         features = batch["features"].to(dtype)
-        k_t, k_noise, k_loss = np.random.default_rng(seed).integers(0, 2**62, size=3)
-        gen = torch.Generator(device=dev)
-        t = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(k_t)),
-                       device=dev)
-        noise = torch.randn(features.shape, generator=gen.manual_seed(int(k_noise)),
-                            device=dev).to(dtype)
-        loss = compute_fm_loss(model, batch["tokens"], batch["tokens_lens"], features,
-                               batch["features_lens"], noise, t, int(k_loss),
-                               condition_drop_ratio=train_cfg.condition_drop_ratio,
-                               schedules=schedules)
+        t, noise, k_loss = draw_t_and_noise(seed, features)
+        loss = loss_fn(model, batch["tokens"], batch["tokens_lens"], features,
+                       batch["features_lens"], noise, t, k_loss,
+                       condition_drop_ratio=train_cfg.condition_drop_ratio,
+                       schedules=schedules)
         opt.zero_grad()
         loss.backward()
         lr = learning_rate(train_cfg, step_idx, epoch)
@@ -81,8 +109,10 @@ def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfi
 
 
 def make_eval_step(model: ZipVoiceModel, train_cfg: TrainConfig = TrainConfig()):
-    """Validation loss averaged over 4 fixed timesteps per utterance."""
+    """Validation loss averaged over 4 fixed timesteps per utterance, on
+    the training objective."""
     dtype = _DTYPES[train_cfg.compute_dtype]
+    loss_fn = _loss_fn(train_cfg)
 
     @torch.no_grad()
     def eval_step(batch, seed: int) -> torch.Tensor:
@@ -96,9 +126,9 @@ def make_eval_step(model: ZipVoiceModel, train_cfg: TrainConfig = TrainConfig())
             t = torch.full((b, 1, 1), tv, dtype=dtype, device=dev)
             noise = torch.randn(features.shape, device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(int(k_noise)))
-            losses.append(compute_fm_loss(model, batch["tokens"], batch["tokens_lens"],
-                                          features, batch["features_lens"], noise.to(dtype),
-                                          t, int(k_loss)))
+            losses.append(loss_fn(model, batch["tokens"], batch["tokens_lens"],
+                                  features, batch["features_lens"], noise.to(dtype),
+                                  t, int(k_loss)))
         return torch.mean(torch.stack(losses))
 
     return eval_step

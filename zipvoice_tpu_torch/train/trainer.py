@@ -83,6 +83,9 @@ class Trainer:
         self.best_train_loss = float("inf")
         self.best_valid_loss = float("inf")
         self.step_fn = make_train_step(model, opt, train_cfg)
+        # a variant with an objective a batch (the stereo alternation) sets
+        # the step of the next batch here
+        self.active_step_fn = None
         self.eval_fn = make_eval_step(model, train_cfg)
         self.tracker = MetricsTracker()
         self._sched_fn = None
@@ -129,7 +132,8 @@ class Trainer:
             count = self.opts.batch_count_offset + adjusted_batch_count(
                 self.batch_idx_train, self.opts.max_duration, 1, self.opts.ref_duration)
             schedules = self._sched_fn(count)
-        metrics = self.step_fn(batch, step_seed(self.opts.seed, self.batch_idx_train),
+        step_fn = self.active_step_fn or self.step_fn
+        metrics = step_fn(batch, step_seed(self.opts.seed, self.batch_idx_train),
                                self.batch_idx_train, self._epoch_value(), schedules)
         if self.batch_idx_train % self.opts.average_period == 0:
             ckpt.update_averaged_model(self.model_avg, self.model, self.batch_idx_train,
