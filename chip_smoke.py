@@ -115,6 +115,25 @@ Phases (each raises on failure; nothing is caught):
      (launches pinned); 13c, one full-width compute_distill_loss gradient
      and one stereo compute_fm_loss_dialog gradient card vs CPU (relative
      L2 per parameter group).
+  14. data parallelism and the training CLIs' tools at full width, bf16,
+     on phase 8's corpus: 14a, ``torchrun --standalone --nproc-per-node 1``
+     over the train CLI with --distributed (NCCL, world size 1; this file
+     is the rank, ``--ddp-worker``), 6 steps with the regularizers: finite
+     losses, the launches a step at phase 8's pins, the last step profiled
+     (the gradient sync's range and any NCCL kernel), the warm step ms
+     beside phase 8's, the checkpoint served by the inference CLI; 14b,
+     NCCL's answer to two ranks on the one card (it refuses), then two
+     gloo ranks sharing it (``train/dryrun.spawn``): the first batch's
+     summed f32 gradient against one process's on both ranks' rows with
+     the same draws (relative L2 a group <= 1e-5), 3 steps with the
+     regularizers and 3 without with the parameters bit-identical after
+     each, the launches a rank's step pinned, files in rank 0's exp dir
+     only; 14c, one regularized step under each --remat-policy (full, all,
+     dots, xprobs, xprobs_ff) at B=8, T=1024: step ms (medians of 3 in
+     turns), peak memory, B1/B2/B3 launches pinned, and the f32 gradients
+     at T=512 against full's (and full's against itself); 14d,
+     --print-diagnostics (every statistic finite) and --scan-oom (the
+     state after it bit-equal to a fresh one).
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -1137,7 +1156,7 @@ def check_checkpoint_serves(root: Path, exp: Path, card: str):
     """Phase 10: the training checkpoint as a model dir's model.pt drives the
     inference CLI (one f32 request, pinned launches, a finite wav)."""
     ckpts = sorted(exp.glob("epoch-*.pt"))
-    shutil.copy(ckpts[-1], exp / "model.pt")
+    ckpts[-1].rename(exp / "model.pt")  # moved, not copied: disk writes are bounded
     metrics, _ = run_cli(root, ["r4s"], "float32", card, model_dir=exp)
     return metrics
 
@@ -2014,15 +2033,19 @@ def _recipe_args(rd: Path, manifest: str, tokens: str, exp: Path, steps: int):
     return ["--device", "cuda", "--train-manifest", str(rd / manifest),
             "--token-file", str(rd / tokens), "--model-config", str(rd / "model.json"),
             "--exp-dir", str(exp), "--num-iters", str(steps), "--max-duration", "100",
-            "--save-every-n", "1", "--keep-last-k", "2", "--average-period", "1",
+            # a checkpoint every half of the steps: the last step's and an
+            # older one are what the average reads; a full-width checkpoint
+            # with the optimizer state is ~2.5 GB, and the whole run must
+            # keep its disk writes under 45 GiB
+            "--save-every-n", str(steps // 2), "--keep-last-k", "2", "--average-period", "1",
             "--log-interval", "1", "--dtype", "bfloat16"]
 
 
 class _StepTimer:
     """Within the block: each distill step and each trainer step timed on
     the host clock, the device synchronized at both ends (``ms``).  The
-    recipes save a checkpoint every step, which the intervals between steps
-    would include."""
+    recipes save checkpoints between steps, which the intervals between
+    steps would include."""
 
     def __enter__(self):
         import torch
@@ -2342,6 +2365,555 @@ def run_phase13(root: Path, card: str):
     return bigvgan, recipes, grads
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: data parallelism across processes (14a, 14b), the remat policies
+# (14c), and the diagnostics and scan-oom CLIs (14d)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "all", "dots", "xprobs", "xprobs_ff")
+# a regularized step's B1, B2 and B3 launches under each policy: "all"
+# recomputes no layer; "xprobs" and "xprobs_ff" keep B2's outputs (its entry
+# point is a custom op the policy saves) and recompute B1's probabilities;
+# "dots" recomputes both, as "full" does
+PER_STEP_BY_POLICY = {
+    "full": {"B1": 2 * LAYERS, "B2": 4 * LAYERS, "B3": 3 * LAYERS},
+    "all": {"B1": LAYERS, "B2": 2 * LAYERS, "B3": 3 * LAYERS},
+    "dots": {"B1": 2 * LAYERS, "B2": 4 * LAYERS, "B3": 3 * LAYERS},
+    "xprobs": {"B1": 2 * LAYERS, "B2": 2 * LAYERS, "B3": 3 * LAYERS},
+    "xprobs_ff": {"B1": 2 * LAYERS, "B2": 2 * LAYERS, "B3": 3 * LAYERS},
+}
+DDP_STEPS = 6
+
+
+def _train_argv(root: Path, manifest: Path, exp: Path, steps: int, *extra):
+    """Phase 8's train CLI arguments (full width, bf16, regularizers)."""
+    return ["--device", "cuda", "--train-manifest", str(manifest),
+            "--token-file", str(root / "tokens.txt"), "--tokenizer", "simple",
+            "--model-config", str(root / "model.json"), "--exp-dir", str(exp),
+            "--num-epochs", "1", "--num-steps-per-epoch", str(steps),
+            "--max-duration", "100", "--log-interval", "1", "--dtype", "bfloat16", *extra]
+
+
+def _ddp_worker(out: str, argv) -> int:
+    """14a, a rank inside torchrun: the train CLI's main with --distributed
+    (NCCL from torchrun's environment), the kernel launches counted and its
+    last step profiled; the results, with a digest of the trained
+    parameters, into ``out``/rank-R.json."""
+    import hashlib
+    import os
+
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zipvoice_tpu_torch.bin.train_zipvoice import main as train_main
+    from zipvoice_tpu_torch.train.trainer import Trainer
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    steps = int(argv[argv.index("--num-steps-per-epoch") + 1])
+    step_and_log = Trainer.step_and_log
+    prof_res = {}
+
+    def profiled(self, batch, *a, **k):
+        if self.batch_idx_train + 1 < steps:
+            return step_and_log(self, batch, *a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            m = step_and_log(self, batch, *a, **k)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        averages = prof.key_averages()
+        events = [e for e in averages if e.device_type == DeviceType.CUDA]
+        sync = [e for e in averages if e.key == "all_reduce_gradients"]
+        prof_res.update(
+            backend=dist.get_backend(), world=dist.get_world_size(), wall_ms=wall * 1e3,
+            busy_ms=sum(_dev_us(e) for e in events) / 1e3,
+            nccl={e.key: [_dev_us(e) / 1e3, e.count] for e in events
+                  if "nccl" in e.key.lower()},
+            # the sync's range: the flatten, the all-reduce and the views back
+            sync_device_ms=sum(getattr(e, "device_time_total", None)
+                               or getattr(e, "cuda_time_total", 0) for e in sync) / 1e3,
+            sync_host_ms=sum(e.cpu_time_total for e in sync) / 1e3,
+            features=list(torch.as_tensor(batch["features"]).shape))
+        return m
+
+    Trainer.step_and_log = profiled
+    res = train_main(argv)
+    torch.cuda.synchronize()
+    digest = hashlib.blake2b()
+    for p in res["trainer"].model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    (Path(out) / f"rank-{os.environ['RANK']}.json").write_text(json.dumps({
+        "digest": digest.hexdigest(),
+        "losses": [loss for _, loss in res["steps"]], "ends": [t for t, _ in res["steps"]],
+        "launches": {k: c.launches for k, c in counters.items()},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **prof_res}))
+    return 0
+
+
+def run_distributed_cli(root: Path, manifest: Path, card: str, single_ms: float):
+    """14a: ``torchrun --standalone --nproc-per-node 1`` over the train CLI
+    with --distributed (NCCL, world size 1), DDP_STEPS steps with the
+    regularizers: finite losses, the launches a step at phase 8's pins, the
+    NCCL all-reduce's device time in the last (profiled) step, the warm
+    step ms beside phase 8's single-process step, and the checkpoint served
+    by the inference CLI.  Returns the results."""
+    import numpy as np
+
+    exp = root / "exp_ddp"
+    out = root / "ddp"
+    out.mkdir()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", str(Path(__file__).resolve()), "--ddp-worker", str(out),
+           *_train_argv(root, manifest, exp, DDP_STEPS, "--distributed")]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=420, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train CLI exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    wall = time.monotonic() - t0
+    res = json.loads((out / "rank-0.json").read_text())
+    n = len(res["losses"])
+    want = {k: PER_STEP.get(k, 0) * n for k in res["launches"]}
+    want["B4"] = 0
+    if n != DDP_STEPS or res["launches"] != want:
+        raise AssertionError(f"distributed CLI: {n} steps, launches {res['launches']}, "
+                             f"want {want}")
+    if not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"distributed CLI: non-finite losses {res['losses']}")
+    if res["backend"] != "nccl" or res["world"] != 1:
+        raise AssertionError(f"distributed CLI: backend {res['backend']}, world {res['world']}")
+    # warm intervals: after the first, before the profiled last step
+    res["step_ms"] = float(np.median(np.diff(res["ends"])[1:-1])) * 1e3
+    res["nccl_ms"] = sum(ms for ms, _ in res["nccl"].values())
+    print(f"14a distributed train CLI (torchrun, NCCL, world 1, bf16, full width): {n} "
+          f"steps in {wall:.1f} s, losses {[round(x, 4) for x in res['losses']]}, launches "
+          f"{ {k: v / n for k, v in res['launches'].items()} } a step, warm step "
+          f"{res['step_ms']:.1f} ms (phase 8's single process {single_ms:.1f} ms), profiled "
+          f"step (features {res['features']}) wall {res['wall_ms']:.1f} ms, busy "
+          f"{res['busy_ms']:.1f} ms, NCCL all-reduce {res['nccl_ms']:.3f} ms device "
+          f"({res['nccl'] or 'no nccl kernel in the trace'}), the gradient sync's range "
+          f"{res['sync_device_ms']:.3f} ms device / {res['sync_host_ms']:.1f} ms host, peak "
+          f"{res['peak_gib']:.2f} GiB on {card}", flush=True)
+    check_checkpoint_serves(root, exp, card)
+    return res
+
+
+def _nccl_probe_worker():
+    """14b's probe: two NCCL ranks on the one card."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from zipvoice_tpu_torch.parallel import mesh
+
+    os.environ["LOCAL_RANK"] = "0"
+    mesh.init_from_env("cuda")
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"nccl accepted: rank {mesh.rank()} sum {x.tolist()}", flush=True)
+    mesh.shutdown()
+
+
+def _two_ranks_worker(root: str, manifest: str, out: str, steps: int):
+    """14b, one of two ranks sharing the card over gloo: the gradient of
+    its first batch (f32, no regularizers, its own draws kept) summed over
+    the ranks; then ``steps`` Trainer steps with the regularizers and
+    ``steps`` without (bf16), the parameters' digests compared across the
+    ranks after every step, the launches counted; rank 0's exp dir only
+    may hold files."""
+    import hashlib
+    import itertools
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from zipvoice_tpu_torch.config import load_model_json
+    from zipvoice_tpu_torch.data.dataset import (
+        DurationBucketSampler,
+        OnDeviceFbankCollator,
+        read_tsv_manifest,
+    )
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.parallel import mesh
+    from zipvoice_tpu_torch.text.tokenizer import SimpleTokenizer
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.step import TrainConfig, draw_t_and_noise
+    from zipvoice_tpu_torch.train.trainer import Trainer, TrainerOptions
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    dev = mesh.init_from_env("cuda", backend="gloo")
+    r, n = mesh.rank(), mesh.world_size()
+    root, out = Path(root), Path(out)
+    tok = SimpleTokenizer(str(root / "tokens.txt"))
+    cfg, fcfg = load_model_json(root / "model.json", vocab_size=tok.vocab_size,
+                                pad_id=tok.pad_id)
+    model = zv.init_zipvoice(cfg, torch.Generator(device=dev).manual_seed(42), device=dev)
+    mesh.broadcast_module(model)
+    sampler = DurationBucketSampler(read_tsv_manifest(manifest), max_duration=100.0, seed=42,
+                                    process_index=r, process_count=n)
+    sampler.set_epoch(1)
+    collate = OnDeviceFbankCollator(tok, fcfg, device=dev, pad_id=cfg.pad_id)
+    utts = list(itertools.islice(sampler, 1 + 2 * steps))
+
+    b0 = {k: torch.as_tensor(v).to(dev) for k, v in collate(utts[0]).items()}
+    t, noise, k_loss = draw_t_and_noise(7, b0["features"])
+    masks = []
+    drawn = zv.condition_time_mask
+    zv.condition_time_mask = lambda *a, **k: masks.append(drawn(*a, **k)) or masks[-1]
+    try:
+        loss = zv.compute_fm_loss(model, b0["tokens"], b0["tokens_lens"], b0["features"],
+                                  b0["features_lens"], noise, t, k_loss)
+    finally:
+        zv.condition_time_mask = drawn
+    loss.backward()
+    (total,) = mesh.all_reduce_gradients(list(model.parameters()), [loss.detach()])
+    keep = {"batch": {k: v.cpu() for k, v in b0.items()}, "t": t.cpu(), "noise": noise.cpu(),
+            "mask": masks[0].cpu(), "loss": float(total)}
+    if r == 0:
+        keep["grads"] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    torch.save(keep, out / f"draws-{r}.pt")
+    model.zero_grad(set_to_none=True)
+
+    counters = _counters()
+    res = {}
+    for regs, part in ((True, utts[1:1 + steps]), (False, utts[1 + steps:])):
+        trainer = Trainer(cfg, model, ScaledAdam(model.named_parameters()),
+                          TrainConfig(compute_dtype="bfloat16", use_regularizers=regs),
+                          TrainerOptions(exp_dir=str(out / f"exp-{r}"), save_every_n=10**9,
+                                         log_interval=1, frame_rate=fcfg.frame_rate,
+                                         max_duration=100.0))
+        for c in counters.values():
+            c.launches = 0
+        losses, same = [], []
+        for batch in part:
+            losses.append(float(trainer.step_and_log(collate(batch))["loss"]))
+            h = hashlib.blake2b()
+            for p in model.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+            digests = [None] * n
+            dist.all_gather_object(digests, h.hexdigest())
+            same.append(len(set(digests)) == 1)
+        res["regularizers" if regs else "no-regularizers"] = {
+            "losses": losses, "identical": same,
+            "launches": {k: c.launches / len(part) for k, c in counters.items()}}
+    # one checkpoint, without the optimizer state (disk writes are bounded)
+    trainer.save(str(out / f"exp-{r}" / "last.pt"), with_opt=False)
+    (out / f"ranks-{r}.json").write_text(json.dumps(res))
+    mesh.shutdown()
+
+
+def _concat_rows(parts, key, pad=0):
+    """The ranks' (B, T, ...) tensors along the batch, padded in every
+    other dim to the largest."""
+    import torch
+
+    xs = [p[key] for p in parts]
+    shape = [max(x.shape[d] for x in xs) for d in range(1, xs[0].dim())]
+    out = []
+    for x in xs:
+        y = torch.full((x.shape[0], *shape), pad, dtype=x.dtype)
+        y[(slice(None),) + tuple(slice(0, s) for s in x.shape[1:])] = x
+        out.append(y)
+    return torch.cat(out)
+
+
+def check_two_ranks(root: Path, manifest: Path, card: str, steps: int = 3):
+    """14b: NCCL's answer to two ranks on one card, then two gloo ranks on
+    it (``_two_ranks_worker``): the summed gradient of the first batch
+    equals one process's gradient on the two ranks' batches together with
+    the same draws (relative L2 per parameter group <= 1e-5, f32), the
+    parameters bit-identical across the ranks after every step, the
+    launches a step per rank at the pins, and only rank 0's exp dir
+    holding files.  Returns the results."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.train.dryrun import spawn
+
+    here = str(Path(__file__).resolve().parent)  # the workers import this file
+    t0 = time.monotonic()
+    try:
+        spawn("chip_smoke:_nccl_probe_worker", 2, {}, timeout=60, path=[here])
+        nccl = "accepted two ranks on one card"
+    except RuntimeError as ex:  # the refusal this probe expects
+        lines = [ln for ln in str(ex).splitlines()
+                 if "uplicate" in ln or "nvalid" in ln or "outlived" in ln]
+        nccl = "refused: " + (lines[0].strip()[:300] if lines else str(ex)[-300:])
+    print(f"14b NCCL, two ranks on one card: {nccl} ({time.monotonic() - t0:.1f} s)",
+          flush=True)
+
+    out = root / "two_ranks"
+    out.mkdir()
+    t0 = time.monotonic()
+    spawn("chip_smoke:_two_ranks_worker", 2,
+          {"root": str(root), "manifest": str(manifest), "out": str(out), "steps": steps},
+          timeout=480, path=[here])
+    wall = time.monotonic() - t0
+    ranks = [json.loads((out / f"ranks-{r}.json").read_text()) for r in range(2)]
+    for kind in ("regularizers", "no-regularizers"):
+        a, b = ranks[0][kind], ranks[1][kind]
+        if not (all(a["identical"]) and all(b["identical"])):
+            raise AssertionError(f"two ranks ({kind}): parameters differ after a step: "
+                                 f"{a['identical']}")
+        if a["losses"] != b["losses"] or not np.all(np.isfinite(a["losses"])):
+            raise AssertionError(f"two ranks ({kind}): losses {a['losses']} / {b['losses']}")
+        want = {k: float(PER_STEP.get(k, 0)) for k in a["launches"]}
+        want["B4" if kind == "regularizers" else "B3"] = 0.0
+        for r, res in enumerate((a, b)):
+            if res["launches"] != want:
+                raise AssertionError(f"two ranks ({kind}) rank {r}: launches a step "
+                                     f"{res['launches']}, want {want}")
+    written = {r: sorted(p.name for p in (out / f"exp-{r}").iterdir()) for r in range(2)}
+    if "last.pt" not in written[0] or written[1]:
+        raise AssertionError(f"two ranks: files written {written}")
+
+    draws = [torch.load(out / f"draws-{r}.pt") for r in range(2)]
+    batches = [d["batch"] for d in draws]
+    inputs = {k: _concat_rows(batches, k) for k in ("tokens", "features")}
+    for k in ("tokens_lens", "features_lens"):
+        inputs[k] = torch.cat([b[k] for b in batches])
+    noise = _concat_rows([{"x": d["noise"]} for d in draws], "x")
+    t = torch.cat([d["t"] for d in draws])
+    mask = _concat_rows([{"x": d["mask"]} for d in draws], "x", pad=False)
+    model = zv.init_zipvoice(_model_cfg(root), torch.Generator(device="cuda").manual_seed(42),
+                             device="cuda")
+    drawn = zv.condition_time_mask
+    zv.condition_time_mask = lambda *a, **k: mask.to("cuda")
+    try:
+        loss = zv.compute_fm_loss(model, *(inputs[k].to("cuda") for k in (
+            "tokens", "tokens_lens", "features", "features_lens")), noise.to("cuda"), t.to("cuda"), 0)
+    finally:
+        zv.condition_time_mask = drawn
+    loss.backward()
+    groups = {}
+    for name, p in model.named_parameters():
+        g = p.grad.cpu()
+        d2, r2 = groups.get(_param_group(name), (0.0, 0.0))
+        groups[_param_group(name)] = (d2 + float(((draws[0]["grads"][name] - g) ** 2).sum()),
+                                      r2 + float((g ** 2).sum()))
+    errs = {k: (d / max(r, 1e-30)) ** 0.5 for k, (d, r) in groups.items()}
+    worst = max(errs.values())
+    loss_err = abs(draws[0]["loss"] - float(loss.detach())) / abs(float(loss.detach()))
+    if not (worst <= 1e-5 and loss_err <= 1e-5):
+        raise AssertionError(f"two ranks: summed gradient vs one process: {errs}, loss "
+                             f"{draws[0]['loss']} vs {float(loss)}")
+    del model
+    print(f"14b two gloo ranks on one card (bf16 steps, full width): {steps} steps with the "
+          f"regularizers and {steps} without in {wall:.1f} s, parameters bit-identical "
+          f"after every step, losses {ranks[0]['regularizers']['losses']} / "
+          f"{ranks[0]['no-regularizers']['losses']}, launches a step per rank "
+          f"{ranks[0]['regularizers']['launches']} / {ranks[0]['no-regularizers']['launches']}, "
+          f"only rank 0 wrote ({written[0]}); the first batch's summed f32 gradient vs one "
+          f"process on both ranks' rows (T {[b['features'].shape[1] for b in batches]}): worst "
+          f"relative L2 a group {worst:.2e} (tol 1e-5), loss {loss_err:.2e} on {card}",
+          flush=True)
+    return {"nccl": nccl, "ranks": ranks, "grad_err": worst}
+
+
+def _policy_batch(cfg, b: int = 8, t: int = 1024, s: int = 160):
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab_size, (b, s), generator=g)
+    tokens_lens = torch.randint(s // 2, s - 1, (b,), generator=g)
+    tokens[torch.arange(s)[None, :] >= tokens_lens[:, None]] = 0
+    return {"tokens": tokens, "tokens_lens": tokens_lens,
+            "features": 0.5 * torch.randn((b, t, cfg.feat_dim), generator=g),
+            "features_lens": torch.randint(t - 160, t + 1, (b,), generator=g)}
+
+
+def compare_remat_policies(root: Path, card: str, rounds: int = 3):
+    """14c: the five --remat-policy choices on one regularized bf16 step at
+    B=8, T=1024 (full width): step ms (median of ``rounds``, the policies in
+    turns after a warm round), peak memory and the B1/B2/B3 launches a step
+    (pinned); then one f32 gradient under each at B=8, T=512 against
+    full's (bit-equal tensors counted, the largest relative L2; "full"
+    against a second run of itself).  Returns {policy: results}."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.nn import zipformer as zf
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+    from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
+
+    cfg = _model_cfg(root)
+    model = zv.init_zipvoice(cfg, torch.Generator(device="cuda").manual_seed(42),
+                             device="cuda")
+    step = make_train_step(model, ScaledAdam(model.named_parameters()),
+                           TrainConfig(compute_dtype="bfloat16"))
+    batch = _policy_batch(cfg)
+    scheds = zipvoice_schedules(1000.0, cfg)
+    counters = _counters()
+    res = {p: {"ms": [], "peak_gib": 0.0} for p in REMAT_POLICIES}
+    try:
+        for rnd in range(rounds + 1):
+            for pol in REMAT_POLICIES:
+                zf.set_remat_policy(pol)
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.monotonic()
+                float(step(batch, 5, rnd + 1, 0.0, scheds)["loss"])
+                torch.cuda.synchronize()
+                ms = (time.monotonic() - t0) * 1e3
+                launches = {k: counters[k].launches for k in ("B1", "B2", "B3")}
+                if launches != PER_STEP_BY_POLICY[pol]:
+                    raise AssertionError(f"remat {pol}: launches {launches}, want "
+                                         f"{PER_STEP_BY_POLICY[pol]}")
+                res[pol]["launches"] = launches
+                res[pol]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                if rnd:
+                    res[pol]["ms"].append(ms)
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+        inputs = {k: v.to("cuda") for k, v in _policy_batch(cfg, t=512).items()}
+        gen = torch.Generator().manual_seed(12)
+        noise = torch.randn(inputs["features"].shape, generator=gen).to("cuda")
+        t = torch.rand((8, 1, 1), generator=gen).to("cuda")
+
+        def f32_grads():
+            model.zero_grad(set_to_none=True)
+            loss = zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"],
+                                      inputs["features"], inputs["features_lens"], noise, t,
+                                      9, condition_drop_ratio=0.2, schedules=scheds)
+            loss.backward()
+            return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+        def against(g, ref):
+            equal = sum(torch.equal(v, ref[n]) for n, v in g.items())
+            rel = max(float(torch.linalg.vector_norm(v - ref[n]))
+                      / max(float(torch.linalg.vector_norm(ref[n])), 1e-30)
+                      for n, v in g.items())
+            return {"bit_equal": f"{equal}/{len(ref)}", "max_rel_l2": rel}
+
+        # "full" twice first: what two backwards of one policy differ by
+        zf.set_remat_policy("full")
+        ref = f32_grads()
+        res["full"].update(against(f32_grads(), ref))
+        for pol in REMAT_POLICIES[1:]:
+            zf.set_remat_policy(pol)
+            res[pol].update(against(f32_grads(), ref))
+    finally:
+        zf.set_remat_policy("full")
+    for pol, r in res.items():
+        r["step_ms"] = float(np.median(r["ms"]))
+    print("14c remat policies (one regularized bf16 step, B=8 T=1024, full width; medians "
+          f"of {rounds} in turns): "
+          + "; ".join(f"{p} {r['step_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB, launches "
+                      f"{r['launches']}, f32 gradient vs full's: {r['bit_equal']} tensors "
+                      f"bit-equal, max relative L2 {r['max_rel_l2']:.2e}"
+                      for p, r in res.items()) + f" on {card}", flush=True)
+    model.zero_grad(set_to_none=True)
+    return res
+
+
+def _model_cfg(root: Path):
+    from zipvoice_tpu_torch.config import load_model_json
+    from zipvoice_tpu_torch.text.tokenizer import SimpleTokenizer
+
+    tok = SimpleTokenizer(str(root / "tokens.txt"))
+    return load_model_json(root / "model.json", vocab_size=tok.vocab_size,
+                           pad_id=tok.pad_id)[0]
+
+
+def check_diagnostics_and_scan_oom(root: Path, manifest: Path, card: str):
+    """14d: the train CLI's --print-diagnostics on the card (every tap's
+    statistics finite; its wall time), then --scan-oom with no epoch after
+    it: one step on the largest batch (B1 launched a step's count) and the
+    state bit-equal to a fresh one (weights of the same seed, a fresh
+    ScaledAdam's state, no step, no hours).  Returns the results."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from zipvoice_tpu_torch.bin.train_zipvoice import main as train_main
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        if train_main(_train_argv(root, manifest, root / "exp_diag", 1,
+                                  "--print-diagnostics")) is not None:
+            raise AssertionError("--print-diagnostics trained")
+    diag_s = time.monotonic() - t0
+    rows = [ln for ln in buf.getvalue().splitlines() if ln and not ln.startswith(" ")]
+    bad = []
+    for ln in rows:
+        nums = [float(x) for x in re_numbers(ln.split(" ", 1)[1])]
+        if not all(math.isfinite(x) for x in nums):
+            bad.append(ln.split()[0])
+    taps = [ln.split()[0] for ln in rows if ln.split()[0].startswith("encoders.")]
+    attn = [ln for ln in rows if ln.split()[0].endswith("self_attn_weights")]
+    if bad or len(attn) != 16 or not all("attn_entropy=" in ln for ln in attn):
+        raise AssertionError(f"diagnostics: non-finite {bad[:10]}, {len(attn)} attention taps")
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.monotonic()
+    res = train_main(_train_argv(root, manifest, root / "exp_scan", 1, "--scan-oom")
+                     + ["--num-epochs", "0"])
+    torch.cuda.synchronize()
+    scan_s = time.monotonic() - t0
+    trainer = res["trainer"]
+    fresh = init_zipvoice(trainer.model.cfg, torch.Generator(device="cuda").manual_seed(42),
+                          device="cuda")
+    differ = [n for (n, p), q in zip(trainer.model.named_parameters(), fresh.parameters())
+              if not torch.equal(p, q)]
+    opt, ref = trainer.opt, ScaledAdam(fresh.named_parameters())
+    differ += [f"opt.{n}.{k}" for n, st, rst in zip(opt.names, opt.state, ref.state)
+               for k in st if not torch.equal(st[k], rst[k])]
+    differ += [f"opt.{k}" for k in ("model_norms", "model_norm_threshold")
+               if not torch.equal(getattr(opt, k), getattr(ref, k))]
+    if (trainer.batch_idx_train, trainer.seen_seconds, opt.step_count) != (0, 0.0, 0):
+        differ.append("counters")
+    if differ or counters["B1"].launches != PER_STEP["B1"]:
+        raise AssertionError(f"scan-oom: state differs {differ[:10]}, B1 launches "
+                             f"{counters['B1'].launches}")
+    del fresh, res, trainer
+    print(f"14d --print-diagnostics on the card: {len(rows)} tensors ({len(taps)} backbone "
+          f"taps, {len(attn)} attention taps with entropy), every statistic finite, "
+          f"{diag_s:.1f} s; --scan-oom: one step on the largest batch (launches "
+          f"{ {k: c.launches for k, c in counters.items()} }) and the state bit-equal to a "
+          f"fresh one, {scan_s:.1f} s on {card}", flush=True)
+    return {"diag_s": diag_s, "scan_s": scan_s, "tensors": len(rows)}
+
+
+def re_numbers(text: str):
+    import re
+
+    return re.findall(r"-?(?:\d+\.\d*|\d+)(?:e[-+]?\d+)?|nan|inf", text)
+
+
+def run_phase14(root: Path, manifest: Path, card: str, single_ms: float):
+    """Phase 14 (14a-14d) with its wall time."""
+    t0 = time.monotonic()
+    ddp = run_distributed_cli(root, manifest, card, single_ms)
+    two = check_two_ranks(root, manifest, card)
+    policies = compare_remat_policies(root, card)
+    tools = check_diagnostics_and_scan_oom(root, manifest, card)
+    print(f"phase 14: {time.monotonic() - t0:.1f} s on {card}", flush=True)
+    return ddp, two, policies, tools
+
+
 def _variant_extras(results, variants, key):
     """B1's / B2's launches a request of each variant (replayed) and its
     times at the distill shape (B=1, H=4, T=1024, f32)."""
@@ -2352,6 +2924,16 @@ def _variant_extras(results, variants, key):
                 variants["zipvoice_dialog_stereo"]["replay_launches"][key],
             "distill_shape_ms": case["ms"], "distill_shape_plain_ms": case["plain_ms"],
             "distill_shape_bound_ms": case["bound_ms"]}
+
+
+def _phase14_launches(ddp, two_ranks, policies, key):
+    """A kernel's launches a step in phase 14: a distributed CLI step
+    (14a), a rank's step of two on one card (14b, regularizers) and a step
+    under each remat policy (14c)."""
+    return {"launches_per_distributed_step": ddp["launches"][key] / DDP_STEPS,
+            "launches_per_two_rank_step": two_ranks["ranks"][0]["regularizers"]["launches"][key],
+            "launches_per_train_step_by_policy": {p: r["launches"][key]
+                                                   for p, r in policies.items()}}
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -2453,6 +3035,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         bigvgan, recipes, variant_grads = run_phase13(root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2467,6 +3052,7 @@ def main() -> int:
                       launches_per_bigvgan_request=bigvgan["launches"]["B1"] // 2,
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B1"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B1"],
+                      **_phase14_launches(ddp, two_ranks, policies, "B1"),
                       **_variant_extras(results, variants, "B1")),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
@@ -2479,6 +3065,7 @@ def main() -> int:
                       launches_per_bigvgan_request=bigvgan["launches"]["B2"] // 2,
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B2"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B2"],
+                      **_phase14_launches(ddp, two_ranks, policies, "B2"),
                       **_variant_extras(results, variants, "B2")),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
@@ -2486,12 +3073,15 @@ def main() -> int:
                       ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 vd=12 f32",
                       launches_per_train_step=reg_step["B3"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B3"],
-                      launches_per_stereo_step=recipes["stereo"]["launches"]["B3"]),
+                      launches_per_stereo_step=recipes["stereo"]["launches"]["B3"],
+                      **_phase14_launches(ddp, two_ranks, policies, "B3")),
         _kernel_entry(results, "B4", "rel_attention_ds", "zipvoice_tpu_torch/csrc/rel_ds.cu",
                       "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
                       ("main", 1024, 4, 12, "float32", 0.0, False), "B=8 H=4 T=1024 f32",
                       launches_per_train_step=noreg_step["B4"],
-                      launches_per_distill_step=recipes["distill stage 1"]["launches"]["B4"]),
+                      launches_per_distill_step=recipes["distill stage 1"]["launches"]["B4"],
+                      launches_per_two_rank_step=two_ranks["ranks"][0]["no-regularizers"][
+                          "launches"]["B4"]),
         _kernel_entry(results, "B5", "rel_attention_apply",
                       "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
                       "zipvoice_tpu/ops/attention.py:643", apply_launches["B5"],
@@ -2513,6 +3103,7 @@ def main() -> int:
                       next(k for k in results["B8"] if k[0] == "10 s"), "B=8 10 s (938 frames)",
                       launches_per_train_step=reg_step["B8"],
                       launches_per_stereo_step=recipes["stereo"]["launches"]["B8"],
+                      launches_per_distributed_step=ddp["launches"]["B8"] / DDP_STEPS,
                       cufft_ms=next(r["cufft_ms"] for k, r in results["B8"].items()
                                     if k[0] == "10 s")),
         _kernel_entry(results, "B9", "conv_glu_swoosh_out", "zipvoice_tpu_torch/csrc/conv_glu.cu",
@@ -2587,4 +3178,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:  # 14a's rank, under torchrun
+        sys.exit(_ddp_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.distill", "models.dialog", "bin.infer_zipvoice_dialog",
                  "audio.bigvgan", "train.distill_step", "bin.train_zipvoice_distill",
                  "bin.train_zipvoice_dialog", "bin.train_zipvoice_dialog_stereo",
-                 "bin.generate_averaged_model"):
+                 "bin.generate_averaged_model", "parallel.mesh", "utils.diagnostics",
+                 "utils.hooks", "train.dryrun"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

@@ -222,29 +222,32 @@ def test_compute_fm_loss_matches_jax(monkeypatch, regularizers):
         assert _rel_l2(q.grad.numpy(), ref[name]) < 1e-4, name
 
 
-def test_remat_gradients_equal_no_remat():
-    """Regularizers live with their real random draws: a rematerialized
+@pytest.mark.parametrize("policy", ["all", "dots", "xprobs", "xprobs_ff", "names"])
+def test_remat_gradients_equal_no_remat(policy):
+    """Regularizers live with their real random draws: under each remat
+    policy the loss and gradients equal full remat's.  A rematerialized
     layer rebuilds its generator from the seed drawn before the
-    checkpointed call, so its recompute draws what the forward drew."""
+    checkpointed call, so its recompute draws what the forward drew; the
+    selective policies save the draws and whatever else they keep."""
     cfg = ZipVoiceConfig(**TINY)
     model = tzv.init_zipvoice(cfg, torch.Generator().manual_seed(0))
     tokens, tl, feats, fl, noise, tt, _ = _batch(seed=1)
     args = [torch.from_numpy(a) for a in (tokens, tl, feats, fl, noise, tt)]
     scheds = zipvoice_schedules(50.0, cfg)
 
-    def grads(remat):
-        tzf.set_remat(remat)
+    def grads(name):
+        tzf.set_remat_policy(name)
         try:
             model.zero_grad()
             loss = tzv.compute_fm_loss(model, *args, 7, condition_drop_ratio=0.2,
                                        schedules=scheds)
             loss.backward()
         finally:
-            tzf.set_remat(True)
+            tzf.set_remat_policy("full")
         return float(loss.detach()), {n: q.grad.clone() for n, q in model.named_parameters()}
 
-    l1, g1 = grads(True)
-    l0, g0 = grads(False)
+    l1, g1 = grads("full")
+    l0, g0 = grads(policy)
     assert l1 == l0
     for name in g0:
         torch.testing.assert_close(g1[name], g0[name], rtol=1e-6, atol=1e-7, msg=name)
@@ -320,12 +323,77 @@ def test_train_cli_saves_resumes_and_serves(corpus, tmp_path):
     assert torch.equal(assets.model.embed.weight, trainer.model.embed.weight.detach())
 
 
-@pytest.mark.parametrize("flag", [["--distributed"], ["--unroll-layers"],
-                                  ["--remat-policy", "dots"], ["--print-diagnostics"],
-                                  ["--scan-oom"]])
-def test_train_cli_refuses_unported_flags(corpus, tmp_path, flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        _cli(corpus, tmp_path / "exp", *flag)
+@pytest.mark.parametrize("flags", [["--unroll-layers"], ["--remat-policy", "all"],
+                                   ["--remat-policy", "dots"], ["--remat-policy", "xprobs"],
+                                   ["--remat-policy", "xprobs_ff"]])
+def test_train_cli_runs_remat_policies_and_unrolled_layers(corpus, tmp_path, flags):
+    """Two steps under each --remat-policy the CLI offers, and with
+    --unroll-layers (which changes nothing in the port): finite losses,
+    the same as under the default policy, and the policy in force while
+    the CLI ran."""
+    seen = []
+    step = tzf._encoder_stack
+
+    def spy(*a, **k):
+        seen.append(tzf._REMAT_POLICY)
+        return step(*a, **k)
+
+    try:
+        tzf._encoder_stack = spy
+        got = _cli(corpus, tmp_path / "exp", "--num-epochs", "1", *flags)
+        want = _cli(corpus, tmp_path / "ref", "--num-epochs", "1")
+    finally:
+        tzf._encoder_stack = step
+        tzf.set_remat_policy("full")
+    losses = [loss for _, loss in got["steps"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses == [loss for _, loss in want["steps"]]
+    policy = flags[1] if flags[0] == "--remat-policy" else "full"
+    assert seen and set(seen[: len(seen) // 2]) == {policy}
+
+
+def test_train_cli_print_diagnostics(corpus, tmp_path, capsys):
+    """--print-diagnostics prints the parameters' statistics and the
+    fm_decoder's per-module activation statistics on the first batch, then
+    exits without training."""
+    assert _cli(corpus, tmp_path / "exp", "--print-diagnostics") is None
+    out = capsys.readouterr().out
+    names = [line.split()[0] for line in out.splitlines() if not line.startswith(" ")]
+    assert "embed.weight" in names and "fm_decoder.out_proj.weight" in names
+    for name in ("in_proj", "encoders.0", "encoders.1.layer1.feed_forward1",
+                 "encoders.2.layer0.conv_module2", "encoders.0.layer0.output", "out_proj"):
+        assert name in names, name
+    attn = [line for line in out.splitlines() if line.split()[0].endswith("self_attn_weights")]
+    assert attn and all("attn_entropy=" in line for line in attn)
+    assert not (tmp_path / "exp" / "epoch-1.pt").exists()
+
+
+def test_train_cli_scan_oom_restores_state(corpus, tmp_path, caplog):
+    """--scan-oom trains one step on the epoch's largest batch, then puts
+    the state before it back: the run that follows ends bit for bit where
+    the same run without --scan-oom ends (weights, optimizer state, the
+    float64 average, steps, hours)."""
+    import logging
+
+    from zipvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    with caplog.at_level(logging.INFO):
+        got = _cli(corpus, tmp_path / "scan", "--num-epochs", "1", "--scan-oom")
+    assert "scan-oom: ok" in caplog.text
+    want = _cli(corpus, tmp_path / "ref", "--num-epochs", "1")
+    a, b = got["trainer"], want["trainer"]
+    assert [x for _, x in got["steps"]] == [x for _, x in want["steps"]]
+    assert (a.batch_idx_train, a.seen_seconds) == (b.batch_idx_train, b.seen_seconds)
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+    sa, sb = (load_checkpoint(str(d / "epoch-1.pt")) for d in (tmp_path / "scan",
+                                                               tmp_path / "ref"))
+    assert sa["opt_state"]["step"] == sb["opt_state"]["step"] == 2
+    for name, st in sa["opt_state"]["params"].items():
+        for k, v in st.items():
+            assert torch.equal(v, sb["opt_state"]["params"][name][k]), (name, k)
+    for k, v in sa["model_avg"].items():
+        assert torch.equal(v, sb["model_avg"][k]), k
 
 
 def test_train_cli_defaults_to_cuda(corpus, tmp_path):

@@ -604,3 +604,26 @@ def test_recipe_chain_cpu(corpus, tmp_path, recipe):
         assert all(np.isfinite([x for _, x in res["steps"]]))
         assert res["trainer"].model.fm_decoder.in_proj[0].in_features == 5 * F
         average(st, 2, "zipvoice_dialog_stereo")
+
+
+@pytest.mark.parametrize("cli", ["distill", "dialog"])
+def test_variant_clis_take_remat_policy_and_unroll_layers(corpus, tmp_path, cli):
+    """The distill and dialog CLIs train a step under --remat-policy xprobs
+    with --unroll-layers (no longer refused): a finite loss."""
+    from zipvoice_tpu_torch.bin.train_zipvoice_dialog import main as dialog
+    from zipvoice_tpu_torch.bin.train_zipvoice_distill import main as distill
+    from zipvoice_tpu_torch.nn import zipformer as tzf
+
+    flags = ["--remat-policy", "xprobs", "--unroll-layers"]
+    try:
+        if cli == "distill":
+            res = distill(_train_args(corpus, "mono.tsv", "tokens_base.txt", tmp_path, 1)
+                          + ["--teacher-checkpoint", str(corpus / "base.pt"), *flags])
+        else:
+            res = dialog(_train_args(corpus, "dialog.tsv", "tokens_dialog.txt", tmp_path, 1)
+                         + ["--checkpoint", str(corpus / "base.pt"), *flags])
+        assert tzf._REMAT_POLICY == "xprobs"
+    finally:
+        tzf.set_remat_policy("full")
+    losses = [x for _, x in res["steps"]]
+    assert len(losses) == 1 and np.isfinite(losses[0])

@@ -1,12 +1,23 @@
-"""Shared pieces of the training CLIs: common arguments, the flags whose
-paths are not ported yet, and the data wiring."""
+"""Shared pieces of the training CLIs: common arguments, the process group
+and the device, the remat policy, and the data wiring."""
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
 
-NOT_PORTED = "is not yet ported to zipvoice_tpu_torch"
+UNROLL_LAYERS_HELP = (
+    "accepted for the JAX CLIs' flag set; the port's layers always run as a "
+    "Python loop, which is what this flag selects there, so it changes "
+    "nothing here (the layers keep --remat-policy)")
+
+REMAT_POLICY_HELP = (
+    "what the backward of each layer keeps from its forward "
+    "(nn.zipformer.set_remat_policy): 'full' recomputes the whole layer (the "
+    "default, least memory), 'all' recomputes nothing, 'dots' saves the "
+    "matmul outputs, 'xprobs' saves everything but the attention "
+    "probabilities, 'xprobs_ff' also recomputes the feedforward, conv and "
+    "nonlin-attention hidden stages")
 
 
 def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02,
@@ -20,7 +31,7 @@ def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02,
                    choices=["emilia", "espeak", "dialog", "libritts", "simple"])
     p.add_argument("--lang", type=str, default="en-us")
     p.add_argument("--max-duration", type=float, default=200.0,
-                   help="max batch size in seconds of audio")
+                   help="max batch size in seconds of audio (a rank's batch)")
     p.add_argument("--max-len", type=float, default=30.0,
                    help="drop utterances longer than this (seconds)")
     p.add_argument("--min-len", type=float, default=1.0)
@@ -55,51 +66,64 @@ def add_common_args(p: argparse.ArgumentParser, base_lr: float = 0.02,
                    help="disable training-time stochastic regularizers")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device to train on")
-    # flags of the JAX CLIs whose paths are not ported: they raise
-    p.add_argument("--distributed", action="store_true", help=f"multi-process ({NOT_PORTED})")
-    p.add_argument("--unroll-layers", action="store_true", help=f"({NOT_PORTED})")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over the processes torchrun starts (one a card, "
+                        "NCCL; the device is cuda:LOCAL_RANK); --max-duration is a rank's "
+                        "batch")
+    p.add_argument("--unroll-layers", action="store_true", help=UNROLL_LAYERS_HELP)
     p.add_argument("--remat-policy", type=str, default=None,
                    choices=["full", "all", "dots", "xprobs", "xprobs_ff"],
-                   help="activation rematerialization; only 'full' (the default: "
-                        "each layer recomputed in the backward) is ported")
+                   help=REMAT_POLICY_HELP)
     return p
 
 
-def refuse_unported(args, *extra):
-    """Raise for any flag whose path the port does not have."""
-    flags = [("--distributed", args.distributed), ("--unroll-layers", args.unroll_layers),
-             (f"--remat-policy {args.remat_policy}",
-              args.remat_policy not in (None, "full")), *extra]
-    for flag, on in flags:
-        if on:
-            raise SystemExit(f"{flag} {NOT_PORTED}")
+def setup(args, backend=None):
+    """The remat policy, then with --distributed the process group from the
+    launcher's environment (NCCL unless ``backend`` names another); returns
+    the device to train on."""
+    from zipvoice_tpu_torch.nn.zipformer import set_remat_policy
+    from zipvoice_tpu_torch.parallel.mesh import init_from_env
+    from zipvoice_tpu_torch.utils.device import resolve_device
+
+    set_remat_policy(args.remat_policy)
+    device = resolve_device(args.device)
+    if args.distributed:
+        device = init_from_env(device.type, backend)
+    return device
 
 
 def build_data(args, tokenizer, feat_cfg, pad_id, device, skip_dev: bool = False):
-    """(sampler, collate, dev batches or None); ``skip_dev`` leaves the dev
-    manifest unread."""
+    """(sampler, collate, dev batches or None), each manifest sharded over
+    the ranks; ``skip_dev`` leaves the dev manifest unread."""
     from zipvoice_tpu_torch.data.dataset import (
         DurationBucketSampler,
         OnDeviceFbankCollator,
         read_tsv_manifest,
     )
+    from zipvoice_tpu_torch.parallel.mesh import rank, world_size
 
+    shard = dict(process_index=rank(), process_count=world_size())
     sampler = DurationBucketSampler(read_tsv_manifest(args.train_manifest),
                                     max_duration=args.max_duration, max_len=args.max_len,
-                                    min_len=args.min_len, seed=args.seed)
+                                    min_len=args.min_len, seed=args.seed, **shard)
     collate = OnDeviceFbankCollator(tokenizer, feat_cfg, device=device, pad_id=pad_id)
     dev_batches = None
     if args.dev_manifest and not skip_dev:
         dev_sampler = DurationBucketSampler(read_tsv_manifest(args.dev_manifest),
                                             max_duration=args.max_duration, shuffle=False,
-                                            max_len=args.max_len, min_len=args.min_len)
+                                            max_len=args.max_len, min_len=args.min_len,
+                                            **shard)
         dev_batches = [collate(b) for b in dev_sampler]
     return sampler, collate, dev_batches
 
 
 def copy_model_dir_contract(args, exp_dir):
-    """model.json and tokens.txt go into the exp dir, so that the exp dir
-    plus a checkpoint renamed model.pt is a model dir."""
+    """model.json and tokens.txt go into the exp dir (rank 0), so that the
+    exp dir plus a checkpoint renamed model.pt is a model dir."""
+    from zipvoice_tpu_torch.parallel.mesh import rank
+
+    if rank() != 0:
+        return
     exp = Path(exp_dir)
     exp.mkdir(parents=True, exist_ok=True)
     (exp / "model.json").write_text(Path(args.model_config).read_text())

@@ -2,6 +2,9 @@
 
 Data comes from TSV manifests (id\\ttext\\twav_path[\\tstart\\tend]); the
 fbank is computed on the device.  ``--device cpu`` trains on the CPU.
+``--distributed`` trains data-parallel over the processes torchrun starts,
+one a card (``torchrun --nproc-per-node N -m
+zipvoice_tpu_torch.bin.train_zipvoice --distributed ...``).
 
 Example:
   python -m zipvoice_tpu_torch.bin.train_zipvoice \\
@@ -20,7 +23,7 @@ from pathlib import Path
 
 
 def get_parser() -> argparse.ArgumentParser:
-    from zipvoice_tpu_torch.bin._train_common import NOT_PORTED, add_common_args
+    from zipvoice_tpu_torch.bin._train_common import add_common_args
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -32,39 +35,42 @@ def get_parser() -> argparse.ArgumentParser:
                    help="cap steps per epoch (0 = full manifest)")
     p.add_argument("--inf-check", action="store_true",
                    help="detect non-finite losses/params during training")
-    p.add_argument("--print-diagnostics", action="store_true", help=f"({NOT_PORTED})")
-    p.add_argument("--scan-oom", action="store_true", help=f"({NOT_PORTED})")
+    p.add_argument("--print-diagnostics", action="store_true",
+                   help="print parameter and per-module activation statistics on the "
+                        "first batch, then exit")
+    p.add_argument("--scan-oom", action="store_true",
+                   help="run one step on the epoch's largest batch first (a rank's "
+                        "own), then restore the state before it")
     return p
 
 
-def main(argv=None):
+def main(argv=None, backend=None):
     """Train; returns {"trainer": Trainer, "steps": [(monotonic end time,
-    loss or None), ...]} (the loss is read only at the log interval)."""
+    loss or None), ...]} (the loss is read only at the log interval), or
+    None after --print-diagnostics.  ``backend``: the process group's
+    backend under --distributed (NCCL when None)."""
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from zipvoice_tpu_torch.bin._train_common import (
         build_data,
         copy_model_dir_contract,
-        refuse_unported,
+        setup,
     )
 
-    refuse_unported(args, ("--print-diagnostics", args.print_diagnostics),
-                    ("--scan-oom", args.scan_oom))
-
+    device = setup(args, backend)
     import torch
 
     from zipvoice_tpu_torch.config import load_model_json
     from zipvoice_tpu_torch.data.prefetch import PrefetchBatches
     from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+    from zipvoice_tpu_torch.parallel import mesh
     from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
     from zipvoice_tpu_torch.train.checkpoint import load_checkpoint
     from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
     from zipvoice_tpu_torch.train.step import TrainConfig
     from zipvoice_tpu_torch.train.trainer import Trainer, TrainerOptions
-    from zipvoice_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     tokenizer = get_tokenizer(args.tokenizer, args.token_file, lang=args.lang)
     model_cfg, feat_cfg = load_model_json(args.model_config, vocab_size=tokenizer.vocab_size,
                                           pad_id=tokenizer.pad_id)
@@ -78,6 +84,12 @@ def main(argv=None):
         with torch.no_grad():
             for k, v in model.state_dict().items():
                 v.copy_(sd[k])
+    mesh.broadcast_module(model)
+
+    if args.print_diagnostics:
+        print_diagnostics(model, collate(next(iter(sampler))))
+        mesh.shutdown()
+        return None
 
     trainer = Trainer(
         model_cfg=model_cfg,
@@ -110,6 +122,13 @@ def main(argv=None):
         ),
     )
 
+    if args.scan_oom:
+        largest = sampler.pessimistic_batches(1)
+        if largest:
+            logging.info("scan-oom: one step on the largest batch")
+            trainer.scan_oom(collate(largest[0]))
+            logging.info("scan-oom: ok (state restored)")
+
     exp = Path(args.exp_dir)
     if args.start_epoch > 1:
         resume_path = exp / f"epoch-{args.start_epoch - 1}.pt"
@@ -137,7 +156,31 @@ def main(argv=None):
             batches.close()
         trainer.save(str(exp / f"epoch-{epoch}.pt"), batches.state_dict())
         logging.info("saved epoch-%d.pt", epoch)
+    mesh.shutdown()
     return {"trainer": trainer, "steps": steps}
+
+
+def print_diagnostics(model, batch) -> None:
+    """Parameter statistics, then the fm_decoder's per-module activation
+    statistics on ``batch`` (its features three times over as the input, t
+    = 0.5), on rank 0."""
+    import torch
+
+    from zipvoice_tpu_torch.parallel.mesh import rank
+    from zipvoice_tpu_torch.utils.diagnostics import (
+        activation_diagnostics,
+        format_diagnostics,
+        param_diagnostics,
+    )
+
+    if rank() != 0:
+        return
+    print(format_diagnostics(param_diagnostics(model)))
+    feats = torch.as_tensor(batch["features"])
+    b = feats.shape[0]
+    print(format_diagnostics(activation_diagnostics(
+        model.fm_decoder, torch.cat([feats] * 3, dim=-1),
+        t=torch.full((b,), 0.5, device=feats.device))))
 
 
 if __name__ == "__main__":

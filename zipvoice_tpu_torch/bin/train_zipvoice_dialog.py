@@ -37,21 +37,21 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None, stereo: bool = False):
+def main(argv=None, stereo: bool = False, backend=None):
     """Fine-tune; returns {"trainer": Trainer, "steps": [(monotonic end
     time, loss or None), ...]}.  ``stereo``: the stereo model from a mono
-    dialog checkpoint, its objective alternating a batch."""
+    dialog checkpoint, its objective alternating a batch.  ``backend``:
+    the process group's backend under --distributed (NCCL when None)."""
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from zipvoice_tpu_torch.bin._train_common import (
         build_data,
         copy_model_dir_contract,
-        refuse_unported,
+        setup,
     )
 
-    refuse_unported(args)
-
+    device = setup(args, backend)
     import torch
 
     from zipvoice_tpu_torch.config import load_model_json
@@ -62,14 +62,13 @@ def main(argv=None, stereo: bool = False):
         extend_vocab_params,
         init_zipvoice_dialog,
     )
+    from zipvoice_tpu_torch.parallel import mesh
     from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
     from zipvoice_tpu_torch.train.checkpoint import load_checkpoint
     from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
     from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
     from zipvoice_tpu_torch.train.trainer import Trainer, TrainerOptions
-    from zipvoice_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     tokenizer = get_tokenizer(args.tokenizer, args.token_file, lang=args.lang)
     model_cfg, feat_cfg = load_model_json(args.model_config, vocab_size=tokenizer.vocab_size,
                                           pad_id=tokenizer.pad_id)
@@ -85,6 +84,7 @@ def main(argv=None, stereo: bool = False):
         with torch.no_grad():
             for k, v in model.state_dict().items():
                 v.copy_(sd[k])
+    mesh.broadcast_module(model)
 
     sampler, collate, dev_batches = build_data(args, tokenizer, feat_cfg, model_cfg.pad_id,
                                                device, skip_dev=stereo)
@@ -161,6 +161,7 @@ def main(argv=None, stereo: bool = False):
         logging.info("saved epoch-%d.pt", epoch)
         if done():
             break
+    mesh.shutdown()
     return {"trainer": trainer, "steps": steps}
 
 

@@ -16,8 +16,8 @@ from zipvoice_tpu_torch.bin.train_zipvoice_dialog import get_parser  # noqa: F40
 from zipvoice_tpu_torch.bin.train_zipvoice_dialog import main as _dialog_main
 
 
-def main(argv=None):
-    return _dialog_main(argv, stereo=True)
+def main(argv=None, backend=None):
+    return _dialog_main(argv, stereo=True, backend=backend)
 
 
 if __name__ == "__main__":

@@ -56,20 +56,21 @@ def _merge_into_fresh(model, loaded) -> None:
                 v.copy_(loaded[k])
 
 
-def main(argv=None):
+def main(argv=None, backend=None):
     """Train; returns {"student", "teacher", "steps": [(monotonic end time,
-    loss or None), ...], "step_idx"}."""
+    loss or None), ...], "step_idx"}.  ``backend``: the process group's
+    backend under --distributed (NCCL when None); the average and every
+    checkpoint are rank 0's."""
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from zipvoice_tpu_torch.bin._train_common import (
         build_data,
         copy_model_dir_contract,
-        refuse_unported,
+        setup,
     )
 
-    refuse_unported(args)
-
+    device = setup(args, backend)
     import numpy as np
     import torch
 
@@ -78,15 +79,14 @@ def main(argv=None):
     from zipvoice_tpu_torch.io.checkpoint import load_into
     from zipvoice_tpu_torch.models.distill import init_zipvoice_distill
     from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel
+    from zipvoice_tpu_torch.parallel import mesh
     from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
     from zipvoice_tpu_torch.train import checkpoint as ckpt
     from zipvoice_tpu_torch.train.distill_step import draw_t_schedule, make_distill_train_step
     from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
     from zipvoice_tpu_torch.train.step import TrainConfig
     from zipvoice_tpu_torch.train.trainer import step_seed
-    from zipvoice_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     tokenizer = get_tokenizer(args.tokenizer, args.token_file, lang=args.lang)
     base_cfg, feat_cfg = load_model_json(args.model_config, vocab_size=tokenizer.vocab_size,
                                          pad_id=tokenizer.pad_id)
@@ -94,6 +94,7 @@ def main(argv=None):
     student = init_zipvoice_distill(
         base_cfg, torch.Generator(device=device).manual_seed(args.seed), device=device)
     _merge_into_fresh(student, loaded)
+    mesh.broadcast_module(student)
     if args.distill_stage == "first":
         # the fixed base-model teacher (CFG path)
         with torch.device("meta"):
@@ -110,7 +111,8 @@ def main(argv=None):
         student, teacher, opt,
         TrainConfig(base_lr=args.base_lr, compute_dtype=args.dtype, use_regularizers=False),
         stage=args.distill_stage)
-    model_avg = ckpt.init_averaged_model(student)
+    lead = mesh.rank() == 0
+    model_avg = ckpt.init_averaged_model(student) if lead else None
 
     copy_model_dir_contract(args, args.exp_dir)
     exp = Path(args.exp_dir)
@@ -134,10 +136,10 @@ def main(argv=None):
                     logging.info("step %d loss %.4f ref_loss %.4f", step_idx, loss,
                                  float(m["ref_loss"]))
                 steps.append((time.monotonic(), loss))
-                if step_idx % args.average_period == 0:
+                if lead and step_idx % args.average_period == 0:
                     ckpt.update_averaged_model(model_avg, student, step_idx,
                                                args.average_period)
-                if step_idx % args.save_every_n == 0:
+                if lead and step_idx % args.save_every_n == 0:
                     ckpt.save_checkpoint(
                         str(exp / f"checkpoint-{step_idx}.pt"), student, model_avg=model_avg,
                         model_ema=(teacher.state_dict() if args.distill_stage == "second"
@@ -151,9 +153,11 @@ def main(argv=None):
         if step_idx >= max_iters:
             break
 
-    ckpt.save_checkpoint(str(exp / f"iter-{step_idx}.pt"), student, model_avg=model_avg,
-                         info=info())
-    logging.info("saved iter-%d.pt", step_idx)
+    if lead:
+        ckpt.save_checkpoint(str(exp / f"iter-{step_idx}.pt"), student, model_avg=model_avg,
+                             info=info())
+        logging.info("saved iter-%d.pt", step_idx)
+    mesh.shutdown()
     return {"student": student, "teacher": teacher, "steps": steps, "step_idx": step_idx}
 
 

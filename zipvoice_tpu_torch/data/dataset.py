@@ -9,11 +9,16 @@ B8 kernel (``ops/melspec.fused_log_mel``) at any frame count, the BigVGAN
 features through ``audio/mel.bigvgan_log_mel`` (plain PyTorch, as the
 reference package computes them outside any kernel).  The stereo recipe's
 collator (``three_channel``) gives [ch0 mel, ch1 mel, mel of the mix].
+``PrecomputedFeatureCollator`` reads offline fbank shards instead (npz
+shards and an index TSV, as ``zipvoice_tpu/bin/compute_fbank.py`` writes
+them) and returns host arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
+from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -77,7 +82,8 @@ def probe_duration(utt: Utterance) -> float:
 class DurationBucketSampler:
     """Duration-bucketed batching: sorts a shuffled window by duration,
     emits batches capped at `max_duration` seconds, reshuffles per epoch,
-    and exposes resume state (epoch, batch cursor)."""
+    shards the epoch's batches over ``process_count`` ranks (an equal count
+    each) and exposes resume state (epoch, batch cursor)."""
 
     def __init__(
         self,
@@ -88,6 +94,8 @@ class DurationBucketSampler:
         seed: int = 42,
         shuffle: bool = True,
         num_buckets: int = 30,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         utterances = list(utterances)
         unprobed = [u for u in utterances if u.duration is None]
@@ -105,6 +113,8 @@ class DurationBucketSampler:
         self.seed = seed
         self.shuffle = shuffle
         self.num_buckets = num_buckets
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self.batch_cursor = 0  # batches already consumed this epoch
         self._batches_cache = None  # (epoch, batches) memo
@@ -153,8 +163,13 @@ class DurationBucketSampler:
         if self.shuffle:
             rng = np.random.default_rng(self.seed * 7919 + self.epoch)
             rng.shuffle(batches)
-        self._batches_cache = (self.epoch, batches)
-        return batches
+        # this rank's shard, truncated to an equal count on every rank: a
+        # rank with one batch more would wait in a collective the others
+        # never join
+        usable = len(batches) - len(batches) % self.process_count
+        shard = batches[self.process_index:usable:self.process_count]
+        self._batches_cache = (self.epoch, shard)
+        return shard
 
     def pessimistic_batches(self, n: int = 1) -> List[List[Utterance]]:
         """The n largest batches (by total audio seconds) of the current
@@ -184,6 +199,23 @@ def _ensure_tokens(tokenizer, utts: List[Utterance]) -> None:
         token_lists = tokenizer.texts_to_token_ids([u.text for u in utts])
         for u, toks in zip(utts, token_lists):
             u.tokens = toks
+
+
+def _pad_token_batch(utts: List[Utterance], pad_id: int, token_bucket: int, b_pad: int,
+                     num_frames: List[int]):
+    """(tokens (b_pad, S) padded to the token bucket, tokens_lens,
+    features_lens), int64 host arrays; padded rows have length 0."""
+    from zipvoice_tpu_torch.models.zipvoice import pad_labels
+
+    tokens = pad_labels([u.tokens for u in utts], pad_id)
+    tokens_padded = np.full((b_pad, round_up(tokens.shape[1], token_bucket)), pad_id,
+                            np.int64)
+    tokens_padded[: len(utts), : tokens.shape[1]] = tokens
+    tokens_lens = np.zeros((b_pad,), np.int64)
+    tokens_lens[: len(utts)] = [len(u.tokens) for u in utts]
+    features_lens = np.zeros((b_pad,), np.int64)
+    features_lens[: len(utts)] = num_frames
+    return tokens_padded, tokens_lens, features_lens
 
 
 class OnDeviceFbankCollator:
@@ -248,7 +280,6 @@ class OnDeviceFbankCollator:
 
     def __call__(self, utts: List[Utterance]) -> Dict:
         from zipvoice_tpu_torch.audio.mel import compute_num_frames
-        from zipvoice_tpu_torch.models.zipvoice import pad_labels
 
         hop = self.feat_cfg.hop_length
         _ensure_tokens(self.tokenizer, utts)
@@ -267,13 +298,61 @@ class OnDeviceFbankCollator:
         else:
             feats = self.fbank(audio)[:, :t_pad]
 
-        tokens = pad_labels([u.tokens for u in utts], self.pad_id)
-        tokens_padded = np.full((b_pad, round_up(tokens.shape[1], self.token_bucket)),
-                                self.pad_id, np.int64)
-        tokens_padded[: len(utts), : tokens.shape[1]] = tokens
-        tokens_lens = np.zeros((b_pad,), np.int64)
-        tokens_lens[: len(utts)] = [len(u.tokens) for u in utts]
-        features_lens = np.zeros((b_pad,), np.int64)
-        features_lens[: len(utts)] = num_frames
+        tokens_padded, tokens_lens, features_lens = _pad_token_batch(
+            utts, self.pad_id, self.token_bucket, b_pad, num_frames)
         return {"tokens": tokens_padded, "tokens_lens": tokens_lens,
                 "features": feats, "features_lens": features_lens}
+
+
+class PrecomputedFeatureCollator:
+    """Collate from offline fbank shards: an index TSV (``uid\t..\t..\t
+    shard name``) and npz shards under ``feats_dir`` holding each uid's
+    (frames, n_mels) features.  Features are scaled to model space ((x +
+    bias) * scale) and padded to the frame and batch buckets; everything
+    is returned as host numpy arrays (the step moves them to the device).
+    The five shards used last stay open."""
+
+    def __init__(self, tokenizer, index_tsv: str, feats_dir: str,
+                 feat_scale: float = 0.1, feat_bias: float = 0.0,
+                 pad_id: int = 0, frame_bucket: int = 64,
+                 token_bucket: int = 16, batch_bucket: int = 8):
+        self.tokenizer = tokenizer
+        self.feat_scale = feat_scale
+        self.feat_bias = feat_bias
+        self.pad_id = pad_id
+        self.frame_bucket = frame_bucket
+        self.token_bucket = token_bucket
+        self.batch_bucket = batch_bucket
+        self.feats_dir = Path(feats_dir)
+        self.index: Dict[str, str] = {}
+        with open(index_tsv, encoding="utf-8") as f:
+            for line in f:
+                items = line.rstrip("\r\n").split("\t")
+                if len(items) >= 4:
+                    self.index[items[0]] = items[3]
+        self._shard_cache: "OrderedDict[str, object]" = OrderedDict()
+
+    def _features(self, uid: str) -> np.ndarray:
+        shard_name = self.index[uid]
+        cache = self._shard_cache
+        if shard_name in cache:
+            cache.move_to_end(shard_name)
+        else:
+            if len(cache) > 4:
+                cache.popitem(last=False)[1].close()
+            cache[shard_name] = np.load(self.feats_dir / shard_name)
+        return cache[shard_name][uid].astype(np.float32)
+
+    def __call__(self, utts: List[Utterance]) -> Dict[str, np.ndarray]:
+        _ensure_tokens(self.tokenizer, utts)
+        feats = [self._features(u.uid) for u in utts]
+        num_frames = [f.shape[0] for f in feats]
+        t_pad = round_up(max(num_frames), self.frame_bucket)
+        b_pad = round_up(len(utts), self.batch_bucket)
+        out = np.zeros((b_pad, t_pad, feats[0].shape[1]), np.float32)
+        for i, f in enumerate(feats):
+            out[i, : f.shape[0]] = (f + self.feat_bias) * self.feat_scale
+        tokens_padded, tokens_lens, features_lens = _pad_token_batch(
+            utts, self.pad_id, self.token_bucket, b_pad, num_frames)
+        return {"tokens": tokens_padded, "tokens_lens": tokens_lens,
+                "features": out, "features_lens": features_lens}

@@ -29,6 +29,7 @@ from torch import nn
 from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.models import zipvoice as zv
 from zipvoice_tpu_torch.nn.zipformer import TrainCtx, TTSZipformer
+from zipvoice_tpu_torch.parallel.mesh import fold_rank, global_sum
 
 # the turn-token ids the released dialog vocabulary puts [S1]/[S2] at; the
 # sampler takes these, not the tokenizer's ids (as the reference package)
@@ -156,7 +157,8 @@ def compute_fm_loss_dialog(
     adds se_weight times the energy penalty of the one-step denoised
     estimate x_t + v (1 - t), averaged over the loss frames.  ``seed``
     seeds the mask, the text-condition drop and the training contexts, in
-    compute_fm_loss's order."""
+    compute_fm_loss's order; both means are over the global batch as in
+    compute_fm_loss."""
     num_frames = features.shape[1]
     dev = features.device
     seeds = np.random.default_rng(seed).integers(0, 2**62, size=4)
@@ -170,11 +172,11 @@ def compute_fm_loss_dialog(
                                                              features_lens, num_frames)
     gen = torch.Generator(device=dev)
     speech_condition_mask = condition_time_mask_suffix(features_lens, num_frames,
-                                                       gen.manual_seed(int(seeds[0])))
+                                                       gen.manual_seed(fold_rank(seeds[0])))
     speech_condition = features.masked_fill(speech_condition_mask[:, :, None], 0.0)
     if condition_drop_ratio > 0.0:
-        drop = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(seeds[1])),
-                          device=dev)
+        drop = torch.rand((features.shape[0], 1, 1),
+                          generator=gen.manual_seed(fold_rank(seeds[1])), device=dev)
         text_condition = text_condition * (drop > condition_drop_ratio).to(text_condition.dtype)
     tm = t.to(features.dtype)
     xt = features * tm + noise * (1.0 - tm)
@@ -184,14 +186,16 @@ def compute_fm_loss_dialog(
     loss_mask = speech_condition_mask & ~padding_mask
     w = loss_mask[:, :, None].float()
     se = torch.square((vt - ut).float()) * w
-    fm_loss = torch.sum(se) / torch.clamp(torch.sum(w) * features.shape[-1], min=1.0)
+    fm_loss = torch.sum(se) / torch.clamp(global_sum(torch.sum(w)) * features.shape[-1],
+                                          min=1.0)
     if not (stereo and se_weight > 0):
         return fm_loss
     f = model.cfg.feat_dim
     target = xt + vt * (1.0 - t)
     pen = energy_based_loss(target[:, :, :f], target[:, :, f:], features, f)
     wm = loss_mask.float()
-    return fm_loss + se_weight * torch.sum(pen * wm) / torch.clamp(torch.sum(wm), min=1.0)
+    return fm_loss + se_weight * torch.sum(pen * wm) / torch.clamp(global_sum(torch.sum(wm)),
+                                                                   min=1.0)
 
 
 # ---------------------------------------------------------------------------

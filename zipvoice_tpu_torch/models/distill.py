@@ -27,6 +27,7 @@ import torch
 from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.models import zipvoice as zv
 from zipvoice_tpu_torch.nn.functional import make_pad_mask
+from zipvoice_tpu_torch.parallel.mesh import global_sum
 from zipvoice_tpu_torch.sampling.euler import cfg_velocity, get_time_steps
 
 
@@ -139,7 +140,8 @@ def compute_distill_loss(
     The teacher's hops run without autograd; so does the student's text
     encoder (only its fm_decoder trains), so the graph holds the student's
     fm_decoder alone.  ref_loss is the student's error against the
-    flow-matching target features - noise."""
+    flow-matching target features - noise.  Both are normalized by the
+    valid count over every rank, as ``zipvoice.compute_fm_loss`` is."""
     if teacher_distill is None:
         teacher_distill = stage != "first"
     if stage not in ("first", "second"):
@@ -178,7 +180,7 @@ def compute_distill_loss(
     target_v = (target_x1 - xt).float() / denom
     padding_mask = make_pad_mask(features_lens, num_frames)
     w = (speech_condition_mask & ~padding_mask)[:, :, None].float()
-    n = torch.clamp(torch.sum(w) * features.shape[-1], min=1.0)
+    n = torch.clamp(global_sum(torch.sum(w)) * features.shape[-1], min=1.0)
     loss = torch.sum(torch.square(pred_v - target_v) * w) / n
     ut = (features - noise).float()
     ref_loss = torch.sum(torch.square(pred_v.detach() - ut) * w) / n

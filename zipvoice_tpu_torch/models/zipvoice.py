@@ -17,6 +17,7 @@ from torch import nn
 
 from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.nn.functional import make_pad_mask
+from zipvoice_tpu_torch.parallel.mesh import fold_rank, global_sum
 from zipvoice_tpu_torch.nn.zipformer import (
     BiasNorm,
     TrainCtx,
@@ -225,9 +226,11 @@ def compute_fm_loss(
     features / noise: (B, T, F) in the compute dtype; t: (B, 1, 1) in (0, 1),
     f32.  ``seed`` seeds the condition mask, the text-condition drop and,
     with ``schedules`` ({"fm_decoder": ..., "text_encoder": ...} from
-    train/schedules.zipvoice_schedules), the backbones' training contexts.
-    Returns the mean over masked, non-padded
-    positions, f32."""
+    train/schedules.zipvoice_schedules), the backbones' training contexts;
+    the per-row draws take the rank's fold of it (``parallel/mesh``).
+    Returns the sum over this rank's masked, non-padded positions divided
+    by their count over every rank, f32: the mean over the global batch
+    once summed over the ranks (the mean itself in one process)."""
     num_frames = features.shape[1]
     dev = features.device
     seeds = np.random.default_rng(seed).integers(0, 2**62, size=4)
@@ -240,11 +243,11 @@ def compute_fm_loss(
         dtype=features.dtype, ctx=text_ctx)
     gen = torch.Generator(device=dev)
     speech_condition_mask = condition_time_mask(features_lens, num_frames,
-                                                gen.manual_seed(int(seeds[0])))
+                                                gen.manual_seed(fold_rank(seeds[0])))
     speech_condition = features.masked_fill(speech_condition_mask[:, :, None], 0.0)
     if condition_drop_ratio > 0.0:
-        drop = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(seeds[1])),
-                          device=dev)
+        drop = torch.rand((features.shape[0], 1, 1),
+                          generator=gen.manual_seed(fold_rank(seeds[1])), device=dev)
         text_condition = text_condition * (drop > condition_drop_ratio).to(text_condition.dtype)
     # mix in the features' compute dtype (t is drawn in f32 and must not
     # promote x_t to f32)
@@ -256,7 +259,8 @@ def compute_fm_loss(
     loss_mask = speech_condition_mask & ~padding_mask
     w = loss_mask[:, :, None].float()
     se = torch.square((vt - ut).float()) * w
-    return torch.sum(se) / torch.clamp(torch.sum(w) * features.shape[-1], min=1.0)
+    return torch.sum(se) / torch.clamp(global_sum(torch.sum(w)) * features.shape[-1],
+                                       min=1.0)
 
 
 def sample(

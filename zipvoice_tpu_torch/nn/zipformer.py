@@ -30,9 +30,17 @@ layer without gradient, each of the three consumers contracting it in the
 forward and recomputing it in its flash backward (B3).  Without a ctx the
 forward is the eval one, differentiable through B1's backward (B4) and
 B2's einsum adjoints.  Under autograd each layer of a multi-layer stack is
-rematerialized (``torch.utils.checkpoint``), and its random draws come from
-a seed drawn before the checkpointed call, so the recompute draws the same
-values as the forward.
+rematerialized as ``set_remat_policy`` says (``torch.utils.checkpoint``,
+selectively for the policies that save part of the layer), and its random
+draws come from a seed drawn before the checkpointed call, so the
+recompute draws the same values as the forward.  A context's host gates
+are the same on every rank of a process group; its device draws (masks,
+dropout, layerdrop) are per row and come from the rank's own seed
+(``parallel/mesh.fold_rank``), except the positional-encoding dropout,
+which is shared by the whole batch as in the JAX package.
+
+``set_diagnostics_tap`` reports every submodule output of a forward by
+name (``utils/diagnostics.activation_diagnostics``).
 
 Attention probabilities and normalization statistics are f32 inside;
 everything else follows the input dtype.
@@ -40,12 +48,18 @@ everything else follows the input dtype.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from zipvoice_tpu_torch.config import ZipformerConfig
 from zipvoice_tpu_torch.nn import regularizers as reg
@@ -58,6 +72,7 @@ from zipvoice_tpu_torch.nn.functional import (
     timestep_embedding,
 )
 from zipvoice_tpu_torch.ops.attention import (
+    REL_PROBS_OP,
     rel_attention_consume,
     rel_attention_head0_consume,
     rel_attention_probs,
@@ -65,15 +80,111 @@ from zipvoice_tpu_torch.ops.attention import (
     rel_attention_probs_consume,
 )
 from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
+from zipvoice_tpu_torch.parallel.mesh import fold_rank
 
-# Rematerialize each layer of a multi-layer stack under autograd (the JAX
-# package's default "full" policy: nothing but the layer input is saved).
-_REMAT = True
+_REMAT_POLICY = "full"
+REMAT_POLICIES = ("full", "all", "dots", "xprobs", "xprobs_ff", "names")
+# the tensors a layer's named stages produce (the JAX package's
+# checkpoint_name tags); attn_probs is the output of B1's entry point
+_STAGE_NAMES = ("ff_hidden", "conv_mid", "nonlin_mid")
+_NAME_STACK: list = []
 
 
-def set_remat(enabled: bool) -> None:
-    global _REMAT
-    _REMAT = bool(enabled)
+def set_remat_policy(name: Optional[str]) -> None:
+    """What the backward of a multi-layer stack's layer keeps from its
+    forward (the JAX package's policies, same names):
+
+    * ``None`` / ``"full"``: nothing but the layer input; the whole layer
+      forward is recomputed in the backward (the default);
+    * ``"all"``: no rematerialization; every intermediate the backward
+      needs stays alive;
+    * ``"dots"``: the matmul outputs are saved, the rest recomputed;
+    * ``"xprobs"``: everything is saved but the attention probabilities,
+      which B1 recomputes;
+    * ``"xprobs_ff"``: as ``xprobs``, also recomputing the named stages
+      ff_hidden, conv_mid and nonlin_mid;
+    * ``"names"``: only the attention probabilities and the named stages
+      are saved.
+
+    The selective policies (all but ``full`` and ``all``) save every
+    random draw, so the recompute advances no generator and the draws it
+    does make match the forward's.  B1's and B2's entry points are custom
+    ops (``ops/attention.py``), so a saved probabilities tensor or B2
+    output is not recomputed and its kernel is not launched again."""
+    global _REMAT_POLICY
+    name = "full" if name is None else name
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}; one of {REMAT_POLICIES}")
+    _REMAT_POLICY = name
+
+
+@contextlib.contextmanager
+def _named(name: str):
+    """Tag the ops run inside as producing the named stage ``name``."""
+    _NAME_STACK.append(name)
+    try:
+        yield
+    finally:
+        _NAME_STACK.pop()
+
+
+_DOT_OPS = frozenset(
+    getattr(torch.ops.aten, op).default for op in ("mm", "addmm", "bmm", "baddbmm"))
+
+
+def _remat_policy_fn(policy: str, ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    if torch.Tag.nondeterministic_seeded in func.tags:
+        return CheckpointPolicy.MUST_SAVE
+    tag = "attn_probs" if func is REL_PROBS_OP else (_NAME_STACK[-1] if _NAME_STACK
+                                                     else None)
+    if policy == "dots":
+        save = func in _DOT_OPS
+    elif policy == "xprobs":
+        save = tag != "attn_probs"
+    elif policy == "xprobs_ff":
+        save = tag not in ("attn_probs", *_STAGE_NAMES)
+    else:  # names
+        save = tag in ("attn_probs", *_STAGE_NAMES)
+    return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_kwargs() -> Dict:
+    if _REMAT_POLICY == "full":
+        return {}
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts,
+        functools.partial(_remat_policy_fn, _REMAT_POLICY))}
+
+
+# The diagnostics tap: when set, fn(name, tensor) sees every submodule
+# output of a forward under its dotted name (eager runs only; the JAX
+# package's set_diagnostics_tap).
+_DIAG_TAP = None
+_DIAG_PREFIX: list = []
+
+
+def set_diagnostics_tap(fn) -> None:
+    """fn(name: str, value: torch.Tensor), or None to disable."""
+    global _DIAG_TAP
+    _DIAG_TAP = fn
+
+
+@contextlib.contextmanager
+def _diag_scope(name: str):
+    """Push a name segment onto the tap prefix (nothing when no tap)."""
+    if _DIAG_TAP is None:
+        yield
+        return
+    _DIAG_PREFIX.append(name)
+    try:
+        yield
+    finally:
+        _DIAG_PREFIX.pop()
+
+
+def _tap(name: str, x: torch.Tensor) -> None:
+    if _DIAG_TAP is not None:
+        _DIAG_TAP(".".join(_DIAG_PREFIX + [name]), x)
 
 
 # The fused eval path (module docstring).  Off by default, as in the JAX
@@ -257,10 +368,12 @@ class TrainCtx:
 
     ``s`` is a schedule dict from train/schedules.zipformer_schedules.
     Gates and seeds are Python values drawn on the host from a numpy
-    Generator; masks are drawn on ``device`` from a torch.Generator; both
-    are seeded from ``seed``.  ``child`` gives a layer its own context from
-    a seed, so a rematerialized layer redraws exactly what it drew in the
-    forward.  Subclasses (tests) may override ``gate``."""
+    Generator seeded from ``seed``, the same on every rank; the per-row
+    masks are drawn on ``device`` from ``gen``, seeded from the rank's fold
+    of ``seed``; ``shared_gen`` (seeded from ``seed``) draws what the whole
+    batch shares.  ``child`` gives a layer its own context from a seed, so
+    a rematerialized layer redraws exactly what it drew in the forward.
+    Subclasses (tests) may override ``gate``."""
 
     def __init__(self, seed: int, s: Dict, device, layerdrop: float = 0.0):
         self.seed = int(seed)
@@ -269,14 +382,22 @@ class TrainCtx:
         self.host = np.random.default_rng(self.seed)
         self.layerdrop = layerdrop
         self._gen = None
+        self._shared_gen = None
         self._stack = 0
 
     @property
     def gen(self) -> torch.Generator:
         if self._gen is None:
             self._gen = torch.Generator(device=self.device)
-            self._gen.manual_seed(self.seed)
+            self._gen.manual_seed(fold_rank(self.seed))
         return self._gen
+
+    @property
+    def shared_gen(self) -> torch.Generator:
+        if self._shared_gen is None:
+            self._shared_gen = torch.Generator(device=self.device)
+            self._shared_gen.manual_seed(self.seed)
+        return self._shared_gen
 
     def gate(self, prob: float) -> bool:
         """Apply-with-probability."""
@@ -406,14 +527,16 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
     """NonlinAttention; head0: (B, T, T) head-0 probabilities, a
     _SharedAttn whose head 0 is contracted (with the const-attention branch
     when const_gate), or an _EvalAttn whose head 0 is recomputed (B7)."""
-    s, v, y = _lin(m.in_proj, x).chunk(3, dim=-1)
+    with _named("nonlin_mid"):
+        s, v, y = _lin(m.in_proj, x).chunk(3, dim=-1)
     if ctx is not None:
         s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
                             min_positive=ctx.s["nonlin_balancer_min_pos"],
                             max_positive=ctx.s["nonlin_balancer_max_pos"],
                             min_abs=0.5, max_abs=5.0)
     v = _maybe_whiten(ctx, v, "whiten_5", 0.01)
-    v = v * torch.tanh(s)
+    with _named("nonlin_mid"):
+        v = v * torch.tanh(s)
     if isinstance(head0, _EvalAttn):
         a = head0
         v = rel_attention_head0_consume(a.q, a.k, a.pq, a.pe, a.mask, v)
@@ -428,8 +551,9 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
                                   const_gate=const_gate)[:, :, 0]
     else:
         v = torch.matmul(head0.to(x.dtype), v)
-    out = _lin(m.out_proj, v * y)
-    return _maybe_whiten(ctx, out, "whiten_5x3", 0.01)
+    with _named("nonlin_mid"):
+        vy = v * y
+    return _maybe_whiten(ctx, _lin(m.out_proj, vy), "whiten_5x3", 0.01)
 
 
 def _conv_module(m: ConvModule, x: torch.Tensor,
@@ -438,7 +562,8 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
     """GLU gate -> key mask -> depthwise conv over time (SAME) -> SwooshR
     -> out linear; with the fused conv path, everything after in_proj is
     one kernel (B9)."""
-    proj = _lin(m.in_proj, x)
+    with _named("conv_mid"):
+        proj = _lin(m.in_proj, x)
     if _fused(_FUSED_CONV, ctx):
         conv = m.depthwise_conv
         return conv_glu_swoosh_out(proj, conv.weight, conv.bias, key_padding_mask,
@@ -448,32 +573,37 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
         s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
                             min_positive=ctx.s["conv_balancer1_min_pos"], max_positive=1.0,
                             min_abs=1.5, max_abs=ctx.s["conv_balancer1_max_abs"])
-    v = v * torch.sigmoid(s)
-    if key_padding_mask is not None:
-        v = v.masked_fill(key_padding_mask[:, :, None], 0.0)
-    conv = m.depthwise_conv
-    out = torch.nn.functional.conv1d(
-        v.transpose(1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-        padding=conv.padding, groups=conv.groups,
-    ).transpose(1, 2)
+    with _named("conv_mid"):
+        v = v * torch.sigmoid(s)
+        if key_padding_mask is not None:
+            v = v.masked_fill(key_padding_mask[:, :, None], 0.0)
+        conv = m.depthwise_conv
+        out = torch.nn.functional.conv1d(
+            v.transpose(1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+            padding=conv.padding, groups=conv.groups,
+        ).transpose(1, 2)
     if ctx is not None:
         out = _maybe_balancer(ctx, out, ctx.s["balancer_prob"],
                               min_positive=ctx.s["conv_balancer2_min_pos"], max_positive=1.0,
                               min_abs=ctx.s["conv_balancer2_min_abs"], max_abs=10.0)
     out = _maybe_whiten(ctx, out, "whiten_7_5", 0.01)
-    return _lin(m.out_proj, swoosh_r(out))
+    with _named("conv_mid"):
+        out = swoosh_r(out)
+    return _lin(m.out_proj, out)
 
 
 def _feedforward(m: _InOut, x: torch.Tensor, ctx: Optional[TrainCtx] = None) -> torch.Tensor:
     """Linear -> [balancer] -> SwooshL -> [dropout shared over time] ->
     Linear -> [whiten]."""
-    h = _lin(m.in_proj, x)
+    with _named("ff_hidden"):
+        h = _lin(m.in_proj, x)
     if ctx is not None:
         h = _maybe_balancer(ctx, h, ctx.s["balancer_prob"], min_positive=0.3,
                             max_positive=1.0, min_abs=0.75, max_abs=5.0)
-    h = swoosh_l(h)
-    if ctx is not None:
-        h = reg.dropout_shared(h, ctx.gen, ctx.s["dropout"], shared_dim=1)
+    with _named("ff_hidden"):
+        h = swoosh_l(h)
+        if ctx is not None:
+            h = reg.dropout_shared(h, ctx.gen, ctx.s["dropout"], shared_dim=1)
     return _maybe_whiten(ctx, _lin(m.out_proj, h), "whiten_7_5", 0.01)
 
 
@@ -508,10 +638,16 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         attn = _EvalAttn(q, k, pq, pe, key_padding_mask)
     else:
         attn = _attention_weights(m.self_attn_weights, cfg, src, pos_emb, key_padding_mask)
+    if isinstance(attn, torch.Tensor):
+        _tap("self_attn_weights", attn)
+    elif isinstance(attn, _SharedAttn):
+        _tap("self_attn_weights", attn.probs)
     te = None if time_emb is None else time_emb[:, None, :].to(src.dtype)
     if te is not None:
         src = src + te
-    src = src + _feedforward(m.feed_forward1, src, ctx)
+    ff1 = _feedforward(m.feed_forward1, src, ctx)
+    _tap("feed_forward1", ff1)
+    src = src + ff1
 
     # one per-sequence attention-skip mask for nonlin-attn and both self-attns
     attn_keep = None
@@ -527,10 +663,13 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
     na = _maybe_balancer(ctx, na, 0.05, min_positive=0.3, max_positive=0.7,
                          min_abs=ctx.s["balancer_na_min_abs"] if ctx else 0.0,
                          max_abs=100.0)
+    _tap("nonlin_attention", na)
     src = src + (na if attn_keep is None else na * attn_keep)
     sa = _self_attention(m.self_attn1, cfg, src, attn, ctx, use_pen=True)
     if isinstance(attn, _EvalAttn):
         sa, attn = sa  # SelfAttention-2 contracts the probabilities B6 wrote
+        _tap("self_attn_weights", attn)
+    _tap("self_attn1", sa)
     src = src + (sa if attn_keep is None else sa * attn_keep)
     if cfg.use_conv:
         if te is not None:
@@ -538,8 +677,10 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         cv = _conv_module(m.conv_module1, src, key_padding_mask, ctx)
         if ctx is not None:
             cv = _maybe_seq_dropout(ctx, cv, ctx.s["conv_skip_rate"])
+        _tap("conv_module1", cv)
         src = src + cv
     ff2 = _feedforward(m.feed_forward2, src, ctx)
+    _tap("feed_forward2", ff2)
     if ctx is not None:
         ff2 = _maybe_balancer(ctx, ff2, 0.05, min_positive=0.3, max_positive=0.7,
                               min_abs=ctx.s["balancer_ff2_min_abs"], max_abs=2.0)
@@ -547,6 +688,7 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
     src = src + ff2
     src = _bypass(m.bypass_mid.bypass_scale, src_orig, src, ctx)
     sa = _self_attention(m.self_attn2, cfg, src, attn, ctx)
+    _tap("self_attn2", sa)
     src = src + (sa if attn_keep is None else sa * attn_keep)
     if cfg.use_conv:
         if te is not None:
@@ -554,8 +696,10 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         cv = _conv_module(m.conv_module2, src, key_padding_mask, ctx)
         if ctx is not None:
             cv = _maybe_seq_dropout(ctx, cv, ctx.s["conv_skip_rate"])
+        _tap("conv_module2", cv)
         src = src + cv
     ff3 = _feedforward(m.feed_forward3, src, ctx)
+    _tap("feed_forward3", ff3)
     if ctx is not None:
         ff3 = _maybe_balancer(ctx, ff3, 0.05, min_positive=0.3, max_positive=0.7,
                               min_abs=ctx.s["balancer_ff3_min_abs"], max_abs=4.0)
@@ -571,6 +715,7 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         src = _maybe_balancer(ctx, src, ctx.s["balancer_prob"], min_positive=0.45,
                               max_positive=0.55, min_abs=0.1, max_abs=4.0)
         src = _maybe_whiten(ctx, src, "whiten_4x3", 0.01)
+    _tap("output", src)
     return src
 
 
@@ -581,13 +726,13 @@ def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
     pos_emb = compact_rel_positional_encoding(src.shape[1], cfg.pos_dim,
                                               device=src.device)
     if ctx is not None:
-        pos_emb = reg.dropout_shared(pos_emb, ctx.gen, 0.15)
+        pos_emb = reg.dropout_shared(pos_emb, ctx.shared_gen, 0.15)
     stack_time_emb = None
     if cfg.use_time_embed:
         if time_emb is None:
             raise ValueError("this Zipformer needs a timestep")
         stack_time_emb = _lin(m.time_emb[1], swoosh_r(time_emb))
-    remat = _REMAT and len(m.layers) > 1 and torch.is_grad_enabled()
+    remat = _REMAT_POLICY != "all" and len(m.layers) > 1 and torch.is_grad_enabled()
     for i, layer in enumerate(m.layers):
         layer_ctx = None
         if ctx is not None:
@@ -601,9 +746,10 @@ def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
 
         if remat:
             src = checkpoint(run, src, pos_emb, stack_time_emb, key_padding_mask,
-                             use_reentrant=False)
+                             use_reentrant=False, **_checkpoint_kwargs())
         else:
-            src = run(src, pos_emb, stack_time_emb, key_padding_mask)
+            with _diag_scope(f"layer{i}"):
+                src = run(src, pos_emb, stack_time_emb, key_padding_mask)
     return src
 
 
@@ -637,6 +783,30 @@ def _downsampled_encoder_stack(m: DownsampledEncoder, cfg: ZipformerConfig,
     return _bypass(m.out_combiner.bypass_scale, src, x, ctx)
 
 
+def _time_embedding(m: TTSZipformer, t: torch.Tensor, dtype: torch.dtype,
+                    guidance_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (B, time_embed_dim) embedding of t (plus the guidance scale's
+    in the distill variant), in ``dtype``."""
+    cfg = m.cfg
+    # f32_closers runs the whole time-embed MLP in f32; otherwise the
+    # sinusoid is cast to the compute dtype before the MLP
+    emb_dtype = torch.float32 if cfg.f32_closers else dtype
+    time_emb = timestep_embedding(t, cfg.time_embed_dim).to(emb_dtype)
+    if guidance_scale is not None:
+        gs_emb = timestep_embedding(guidance_scale, cfg.guidance_scale_embed_dim).to(emb_dtype)
+        time_emb = time_emb + _lin(m.guidance_scale_embed, gs_emb)
+    return _lin(m.time_embed[2], swoosh_r(_lin(m.time_embed[0], time_emb))).to(dtype)
+
+
+def _stack_forward(m: TTSZipformer, i: int, h: torch.Tensor, time_emb, padding_mask,
+                   ctx: Optional[TrainCtx] = None) -> torch.Tensor:
+    """Stack i of the backbone (downsampled, or at the full frame rate)."""
+    enc, cfg = m.encoders[i], m.cfg
+    if cfg.downsampling_factor[i] == 1:
+        return _encoder_stack(enc, cfg, h, time_emb, padding_mask, ctx, i)
+    return _downsampled_encoder_stack(enc, cfg, i, h, time_emb, padding_mask, ctx)
+
+
 def tts_zipformer_forward(
     m: TTSZipformer,
     x: torch.Tensor,
@@ -660,26 +830,9 @@ def tts_zipformer_forward(
             stream = 1 - stream
         in_proj, out_proj = in_proj[stream], out_proj[stream]
     h = _lin(in_proj, x)
-    time_emb = None
-    if t is not None:
-        # f32_closers runs the whole time-embed MLP in f32; otherwise the
-        # sinusoid is cast to the compute dtype before the MLP
-        emb_dtype = torch.float32 if cfg.f32_closers else x.dtype
-        time_emb = timestep_embedding(t, cfg.time_embed_dim).to(emb_dtype)
-        if guidance_scale is not None:
-            gs_emb = timestep_embedding(
-                guidance_scale, cfg.guidance_scale_embed_dim
-            ).to(emb_dtype)
-            time_emb = time_emb + _lin(m.guidance_scale_embed, gs_emb)
-        time_emb = _lin(
-            m.time_embed[2], swoosh_r(_lin(m.time_embed[0], time_emb))
-        ).to(x.dtype)
-
-    for i, enc in enumerate(m.encoders):
-        if cfg.downsampling_factor[i] == 1:
-            h = _encoder_stack(enc, cfg, h, time_emb, padding_mask, ctx, i)
-        else:
-            h = _downsampled_encoder_stack(enc, cfg, i, h, time_emb, padding_mask, ctx)
+    time_emb = None if t is None else _time_embedding(m, t, x.dtype, guidance_scale)
+    for i in range(len(m.encoders)):
+        h = _stack_forward(m, i, h, time_emb, padding_mask, ctx)
 
     if cfg.f32_closers:
         # the velocity head feeds the cancellation-prone CFG combination

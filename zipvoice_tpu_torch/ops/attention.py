@@ -278,7 +278,14 @@ def _raise_on(code: int, name: str, shape_note: str):
                            f"for {shape_note}")
 
 
-def _rel_probs_forward(q, k, pq, pe, key_padding_mask, out_dtype):
+# B1's and B2's forward entry points are custom ops, so that the
+# dispatcher, and a selective checkpoint policy with it (nn/zipformer.
+# set_remat_policy), sees the allocation and the launch as one op: a saved
+# output is then reused in the recompute and its kernel not launched again.
+@torch.library.custom_op("zipvoice::rel_probs", mutates_args=())
+def _rel_probs_forward(q: torch.Tensor, k: torch.Tensor, pq: torch.Tensor, pe: torch.Tensor,
+                       key_padding_mask: Optional[torch.Tensor],
+                       out_dtype: torch.dtype) -> torch.Tensor:
     if q.device.type == "cpu":
         return rel_attention_probs_plain(q, k, pq, pe, key_padding_mask, out_dtype)
     _check_cuda("rel_attention_probs", q, k, pq, pe)
@@ -371,9 +378,12 @@ def rel_attention_probs(
 
 
 rel_attention_probs.launches = 0
+# the op whose output is the attention probabilities (remat policies)
+REL_PROBS_OP = torch.ops.zipvoice.rel_probs.default
 
 
-def _probs_apply_forward(probs, v):
+@torch.library.custom_op("zipvoice::probs_apply", mutates_args=())
+def _probs_apply_forward(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if probs.device.type == "cpu":
         return rel_attention_probs_apply_plain(probs, v)
     _check_cuda("rel_attention_probs_apply", probs, v)

@@ -1,4 +1,4 @@
-"""The distillation training step, on one device.
+"""The distillation training step, on one device a process.
 
 A step draws its (t, d_fix, d_ema) triple on the host (``draw_t_schedule``),
 runs the teacher's two hops without autograd and the student's hop with it
@@ -6,7 +6,10 @@ runs the teacher's two hops without autograd and the student's hop with it
 ScaledAdam.  Only the student's fm_decoder trains: the other parameters get
 no gradient, which ScaledAdam takes as zeros, so they keep their values.
 In stage ``second`` the teacher then moves toward the student by EMA (decay
-0.9999, f32).
+0.9999, f32).  In a process group the step is data-parallel as
+``train/step.py``'s: per-row draws from the rank's fold of the seed, the
+losses normalized over the global batch, the gradients and the losses summed
+over the ranks before the update.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 
 from zipvoice_tpu_torch.models.distill import compute_distill_loss, ema_update
 from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel
+from zipvoice_tpu_torch.parallel.mesh import all_reduce_gradients, fold_rank
 from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
 from zipvoice_tpu_torch.train.step import _DTYPES, TrainConfig, batch_to_device
 
@@ -45,13 +49,14 @@ def make_distill_train_step(student: ZipVoiceModel, teacher: ZipVoiceModel, opt:
         features = batch["features"].to(dtype)
         loss, ref_loss = compute_distill_loss(
             student, teacher, batch["tokens"], batch["tokens_lens"], features,
-            batch["features_lens"], seed, *t_triple, stage=stage)
+            batch["features_lens"], fold_rank(seed), *t_triple, stage=stage)
         opt.zero_grad()
         loss.backward()
+        loss, ref_loss = all_reduce_gradients(opt.params, [loss.detach(), ref_loss])
         lr = float(train_cfg.base_lr)
         opt.step(lr)
         if stage == "second":
             ema_update(teacher, student, EMA_DECAY)
-        return {"loss": loss.detach(), "ref_loss": ref_loss, "lr": lr}
+        return {"loss": loss, "ref_loss": ref_loss, "lr": lr}
 
     return step

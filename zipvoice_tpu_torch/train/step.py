@@ -1,10 +1,15 @@
-"""The flow-matching training step and the validation step, on one device.
+"""The flow-matching training step and the validation step, on one device
+a process.
 
 Master weights stay f32 in the module; the forward runs in
 ``compute_dtype`` (every op casts the weights it uses), and t and the noise
 are drawn in f32 before the compute dtype applies.  Randomness comes from a
 per-step integer seed (the trainer derives it from its seed and the batch
-index), so a step is reproducible.
+index), so a step is reproducible; a rank draws its rows from its own fold
+of it (``parallel/mesh.fold_rank``).  In a process group the loss is this
+rank's share of the global-batch mean, and the gradients (with the loss
+riding along) are summed over the ranks before the update, so every rank
+applies the global batch's gradient and the metrics are global.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 from zipvoice_tpu_torch.models.dialog import compute_fm_loss_dialog
 from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel, compute_fm_loss
+from zipvoice_tpu_torch.parallel.mesh import all_reduce_gradients, fold_rank, global_sum
 from zipvoice_tpu_torch.train.lr_schedule import eden_lr, fixed_lr
 from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
 
@@ -61,14 +67,14 @@ def _loss_fn(train_cfg: TrainConfig):
 
 def draw_t_and_noise(seed: int, features: torch.Tensor):
     """A step's draws from its seed: t (B, 1, 1) ~ U(0, 1) in f32, the
-    noise drawn in f32 and cast to the features' dtype, and the loss's own
-    seed."""
+    noise drawn in f32 and cast to the features' dtype (both from the
+    rank's fold), and the loss's own seed."""
     dev = features.device
     k_t, k_noise, k_loss = np.random.default_rng(seed).integers(0, 2**62, size=3)
     gen = torch.Generator(device=dev)
-    t = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(int(k_t)),
+    t = torch.rand((features.shape[0], 1, 1), generator=gen.manual_seed(fold_rank(k_t)),
                    device=dev)
-    noise = torch.randn(features.shape, generator=gen.manual_seed(int(k_noise)),
+    noise = torch.randn(features.shape, generator=gen.manual_seed(fold_rank(k_noise)),
                         device=dev).to(features.dtype)
     return t, noise, int(k_loss)
 
@@ -101,16 +107,17 @@ def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfi
                        schedules=schedules)
         opt.zero_grad()
         loss.backward()
+        (loss,) = all_reduce_gradients(opt.params, [loss.detach()])
         lr = learning_rate(train_cfg, step_idx, epoch)
         diag = opt.step(lr)
-        return {"loss": loss.detach(), "lr": lr, **diag}
+        return {"loss": loss, "lr": lr, **diag}
 
     return step
 
 
 def make_eval_step(model: ZipVoiceModel, train_cfg: TrainConfig = TrainConfig()):
     """Validation loss averaged over 4 fixed timesteps per utterance, on
-    the training objective."""
+    the training objective, over the global batch."""
     dtype = _DTYPES[train_cfg.compute_dtype]
     loss_fn = _loss_fn(train_cfg)
 
@@ -125,10 +132,11 @@ def make_eval_step(model: ZipVoiceModel, train_cfg: TrainConfig = TrainConfig())
             k_noise, k_loss = np.random.default_rng([seed, i]).integers(0, 2**62, size=2)
             t = torch.full((b, 1, 1), tv, dtype=dtype, device=dev)
             noise = torch.randn(features.shape, device=dev,
-                                generator=torch.Generator(device=dev).manual_seed(int(k_noise)))
+                                generator=torch.Generator(device=dev).manual_seed(
+                                    fold_rank(k_noise)))
             losses.append(loss_fn(model, batch["tokens"], batch["tokens_lens"],
                                   features, batch["features_lens"], noise.to(dtype),
                                   t, int(k_loss)))
-        return torch.mean(torch.stack(losses))
+        return global_sum(torch.mean(torch.stack(losses)))
 
     return eval_step

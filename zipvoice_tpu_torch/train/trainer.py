@@ -4,10 +4,17 @@ The regularizer schedules are evaluated on the host each step from the
 data-normalized batch count and passed to the step as Python floats.
 Metrics are read from the device only at the logging cadence, so a step
 does not wait for the previous one.
+
+In a process group (``parallel/mesh``) every rank runs the same loop on its
+own shard of the data: hours of speech and the schedules count the global
+batch (a rank's frames times the world size, as each rank holds an equal
+share), the metrics and the validation loss are global, and only rank 0
+writes: checkpoints, their rotation, the log, TensorBoard and bad-model.pt.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import logging
@@ -17,6 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from zipvoice_tpu_torch.parallel.mesh import rank, world_size
 from zipvoice_tpu_torch.train import checkpoint as ckpt
 from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
 from zipvoice_tpu_torch.train.step import TrainConfig, make_eval_step, make_train_step
@@ -107,6 +115,8 @@ class Trainer:
         return float(self.epoch - 1)
 
     def _log(self, record: Dict):
+        if rank() != 0:
+            return
         record = {k: (float(v) if hasattr(v, "item") else v) for k, v in record.items()}
         with open(self._log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -124,13 +134,15 @@ class Trainer:
 
     def train_step(self, batch) -> Dict:
         self.batch_idx_train += 1
-        self.seen_seconds += float(np.sum(batch["features_lens"])) / self.opts.frame_rate
+        world = world_size()
+        self.seen_seconds += (float(np.sum(batch["features_lens"])) * world
+                              / self.opts.frame_rate)
         schedules = None
         if self._sched_fn is not None:
             from zipvoice_tpu_torch.train.schedules import adjusted_batch_count
 
             count = self.opts.batch_count_offset + adjusted_batch_count(
-                self.batch_idx_train, self.opts.max_duration, 1, self.opts.ref_duration)
+                self.batch_idx_train, self.opts.max_duration, world, self.opts.ref_duration)
             schedules = self._sched_fn(count)
         step_fn = self.active_step_fn or self.step_fn
         metrics = step_fn(batch, step_seed(self.opts.seed, self.batch_idx_train),
@@ -159,6 +171,9 @@ class Trainer:
         }
 
     def save(self, filename: str, sampler_state=None, with_opt: bool = True):
+        """Write a checkpoint (rank 0 only)."""
+        if rank() != 0:
+            return
         ckpt.save_checkpoint(filename, self.model, model_avg=self.model_avg,
                              opt_state=self.opt.state_dict() if with_opt else None,
                              sampler_state=sampler_state, info=self._info())
@@ -167,7 +182,8 @@ class Trainer:
         if self.batch_idx_train % self.opts.save_every_n == 0:
             out = Path(self.opts.exp_dir)
             self.save(str(out / f"checkpoint-{self.batch_idx_train}.pt"), sampler_state)
-            ckpt.remove_checkpoints(str(out), self.opts.keep_last_k)
+            if rank() == 0:
+                ckpt.remove_checkpoints(str(out), self.opts.keep_last_k)
 
     def resume(self, filename: str):
         """Restore weights, the float64 average, the optimizer and the
@@ -188,6 +204,28 @@ class Trainer:
         self.best_valid_loss = info.get("best_valid_loss", float("inf"))
         return state["sampler"]
 
+    def scan_oom(self, batch) -> None:
+        """One training step on ``batch`` (the largest of the epoch, to meet
+        an out-of-memory failure before the run starts), then the state
+        before it back bit for bit: parameters, optimizer state, the
+        average, the step count, the hours seen, the best losses and the
+        tracker."""
+        opt = self.opt
+        saved = ([p.detach().clone() for p in self.model.parameters()],
+                 copy.deepcopy((opt.state, opt.step_count, opt.model_norms,
+                                opt.model_norm_threshold)),
+                 copy.deepcopy((self.model_avg, self.batch_idx_train, self.seen_seconds,
+                                self.best_train_loss, self.best_valid_loss, self.tracker)))
+        self.train_step(batch)
+        opt.zero_grad()
+        params, opt_state, bookkeeping = saved
+        with torch.no_grad():
+            for p, v in zip(self.model.parameters(), params):
+                p.copy_(v)
+        opt.state, opt.step_count, opt.model_norms, opt.model_norm_threshold = opt_state
+        (self.model_avg, self.batch_idx_train, self.seen_seconds, self.best_train_loss,
+         self.best_valid_loss, self.tracker) = bookkeeping
+
     # ---------------------------------------------------------------- loop
 
     def step_and_log(self, batch, valid_batches=None, sampler_state_fn=None) -> Dict:
@@ -197,7 +235,8 @@ class Trainer:
             # keep the failing state for a post-mortem, then re-raise
             bad = Path(self.opts.exp_dir) / "bad-model.pt"
             self.save(str(bad), with_opt=False)
-            logging.warning("step failed; saved %s", bad)
+            if rank() == 0:
+                logging.warning("step failed; saved %s", bad)
             raise
         log_now = self.batch_idx_train % self.opts.log_interval == 0
         if self.opts.inf_check or log_now:
@@ -209,10 +248,10 @@ class Trainer:
                     "(%.1f%% of rms-scaled grad^2)", self.batch_idx_train, clip,
                     self.opt.names[idx], 100.0 * float(metrics["grad_dominant_frac"]))
         if self.opts.inf_check and not np.isfinite(float(metrics["loss"])):
-            bad_params = [n for n, p in self.model.named_parameters()
-                          if not bool(torch.isfinite(p).all())]
+            from zipvoice_tpu_torch.utils.hooks import find_nonfinite
+
             logging.warning("inf-check: non-finite loss at step %d; bad params: %s",
-                            self.batch_idx_train, bad_params[:10])
+                            self.batch_idx_train, find_nonfinite(self.model)[:10])
         if log_now:
             running = self.tracker.update({"loss": float(metrics["loss"]),
                                            "lr": float(metrics["lr"])})
