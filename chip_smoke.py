@@ -121,7 +121,9 @@ Phases (each raises on failure; nothing is caught):
      is the rank, ``--ddp-worker``), 6 steps with the regularizers: finite
      losses, the launches a step at phase 8's pins, the last step profiled
      (the gradient sync's range and any NCCL kernel), the warm step ms
-     beside phase 8's, the checkpoint served by the inference CLI; 14b,
+     beside phase 8's, and rank 0's checkpoint as a model dir (its
+     parameters bit-equal to the trained ones, one f32 fm_decoder forward
+     on the card against the CPU); 14b,
      NCCL's answer to two ranks on the one card (it refuses), then two
      gloo ranks sharing it (``train/dryrun.spawn``): the first batch's
      summed f32 gradient against one process's on both ranks' rows with
@@ -135,6 +137,34 @@ Phases (each raises on failure; nothing is caught):
      --print-diagnostics (every statistic finite) and --scan-oom (the
      state after it bit-equal to a fresh one).
 
+  15. int8 serving, export and MFU at full width (phase 4's model dir):
+     15a, nn/functional.linear_int8 on the card against the CPU (both
+     modes, f32 and bf16, at full-width shapes); for --quantize int8 and
+     int8-dynamic, bf16 and f32, on the ~8 s request: the model's MB before
+     and after quantizing, every weight_scale f32, the launches of a request
+     unfused (B1 260, B2 520) and with the fused eval path (B2, B6, B7 260
+     each, B1 and B9 0: B9 is gated off by the int8 out-projection), the
+     replayed sampler equal to its eager run bit for bit, the mel MSE and
+     the largest PCM16 difference against the unquantized request on the
+     same noise, the warm replayed RTF (median of 4) in turns with the
+     unquantized pipeline; the infer CLI with --quantize int8-dynamic and
+     the serve CLI with --quantize int8, one request each; 15b, in a worker
+     process (``--export-worker``) started after phase 4 at low priority:
+     bin/export_model (bf16 with the fused sampler at 16 steps, bf16
+     int8-dynamic at 1 step, both at 256 tokens and 3072 frames, and a CPU
+     export of a tiny model) as three processes, the trace and total
+     seconds and each artifact's MB, then bin/infer_exported's loads of
+     both modes; after 15a, on the card: its request in both modes on the
+     ~8 s text (launches a request B1 260 / B2 520 in each; a finite wav of
+     the expected length), the fused exported sampler against the
+     pipeline's own sample on the same inputs (relative L2 <= 1e-2), the
+     warm RTF of the fused sampler replayed and of the host loop, both at
+     16 steps (medians of 4 in turns), the int8-dynamic export's fused
+     sampler against the int8-dynamic pipeline's sample at 1 step
+     (relative L2 <= 1e-3), and the loader's refusal of the CPU export on
+     the card; 15c, the MFU (utils/flops.py, against the card's dense bf16
+     peak) of phase 5e's replayed bf16 request and of phase 8's warm step.
+
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 zipvoice_tpu_torch package beside it, the script exits non-zero and prints
@@ -144,6 +174,8 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import gc
 import json
 import shutil
@@ -819,11 +851,12 @@ class _FusedEval:
 
 
 def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
-            fused: bool = False, vocoder: Path = None):
+            fused: bool = False, vocoder: Path = None, extra=()):
     """Phase 5 helper: one CLI run over `names` (with the model dir `root`,
     or `model_dir`, and phase 4's Vocos or the checkpoint `vocoder`; the
-    fused eval path on when `fused`); returns its metrics and launches
-    after checking the wavs and the per-request kernel launches."""
+    fused eval path on when `fused`; `extra` CLI arguments); returns its
+    metrics and launches after checking the wavs and the per-request kernel
+    launches."""
     import contextlib
 
     import numpy as np
@@ -834,6 +867,8 @@ def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
     tag = f"{dtype}_fused" if fused else dtype
     if vocoder is not None:
         tag = f"{tag}_{vocoder.stem}"
+    if extra:
+        tag = f"{tag}_{'_'.join(a.strip('-') for a in extra)}"
     lst = root / f"list_{tag}.tsv"
     lst.write_text("".join(f"{n}\t{PROMPT_TEXT}\t{root / 'prompt.wav'}\t{TEXTS[n]}\n"
                            for n in names))
@@ -847,7 +882,7 @@ def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
             "--vocoder-path", str(vocoder or root / "vocos.bin"),
             "--tokenizer", "simple", "--test-list", str(lst), "--res-dir", str(out_dir),
             "--num-step", str(N_STEP), "--guidance-scale", "1.0", "--dtype", dtype,
-            "--device", "cuda",
+            "--device", "cuda", *extra,
         ])
     launches = {k: c.launches for k, c in counters.items()}
     per_request = FUSED_PER_REQUEST if fused else UNFUSED_PER_REQUEST
@@ -865,10 +900,11 @@ def run_cli(root: Path, names, dtype: str, card: str, model_dir: Path = None,
     return metrics, launches
 
 
-def check_forward_against_cpu(root: Path, fused: bool = False):
+def check_forward_against_cpu(root: Path, fused: bool = False, model_dir: Path = None):
     """Phase 6: one full-width fm_decoder velocity on the card (kernels) and
     on the CPU (plain versions, unfused), same weights and inputs, T=256
-    with a padded tail; 6b (`fused`): the card runs the fused eval path."""
+    with a padded tail, of the model dir `root` (or `model_dir`); 6b
+    (`fused`): the card runs the fused eval path."""
     import contextlib
 
     import torch
@@ -876,7 +912,7 @@ def check_forward_against_cpu(root: Path, fused: bool = False):
     from zipvoice_tpu_torch.io.model_dir import load_model_dir
     from zipvoice_tpu_torch.models.zipvoice import forward_fm_decoder
 
-    model = load_model_dir(str(root), tokenizer_name="simple").model.eval()
+    model = load_model_dir(str(model_dir or root), tokenizer_name="simple").model.eval()
     g = torch.Generator().manual_seed(3)
     b, t, f = 2, 256, model.cfg.feat_dim
     xt, tc, sc = (torch.randn((b, t, f), generator=g) for _ in range(3))
@@ -2461,9 +2497,10 @@ def run_distributed_cli(root: Path, manifest: Path, card: str, single_ms: float)
     """14a: ``torchrun --standalone --nproc-per-node 1`` over the train CLI
     with --distributed (NCCL, world size 1), DDP_STEPS steps with the
     regularizers: finite losses, the launches a step at phase 8's pins, the
-    NCCL all-reduce's device time in the last (profiled) step, the warm
-    step ms beside phase 8's single-process step, and the checkpoint served
-    by the inference CLI.  Returns the results."""
+    NCCL all-reduce's device time in the last (profiled) step and the warm
+    step ms beside phase 8's single-process step; then the checkpoint rank
+    0 wrote, as a model dir (``check_distributed_checkpoint``).  Returns
+    the results."""
     import numpy as np
 
     exp = root / "exp_ddp"
@@ -2501,8 +2538,34 @@ def run_distributed_cli(root: Path, manifest: Path, card: str, single_ms: float)
           f"({res['nccl'] or 'no nccl kernel in the trace'}), the gradient sync's range "
           f"{res['sync_device_ms']:.3f} ms device / {res['sync_host_ms']:.1f} ms host, peak "
           f"{res['peak_gib']:.2f} GiB on {card}", flush=True)
-    check_checkpoint_serves(root, exp, card)
+    res["checkpoint_err"] = check_distributed_checkpoint(root, exp, res["digest"], card)
     return res
+
+
+def check_distributed_checkpoint(root: Path, exp: Path, digest: str, card: str) -> float:
+    """14a's checkpoint (rank 0's epoch-*.pt, moved to model.pt beside the
+    model.json and tokens.txt the CLI wrote) loads through
+    ``load_model_dir``: its parameters bit-equal to the trained ones (the
+    rank's digest), and one f32 fm_decoder forward on the card against the
+    CPU (phase 6's check).  Returns that forward's error."""
+    import hashlib
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+
+    ckpts = sorted(exp.glob("epoch-*.pt"))
+    ckpts[-1].rename(exp / "model.pt")  # moved, not copied: disk writes are bounded
+    model = load_model_dir(str(exp), tokenizer_name="simple").model
+    h = hashlib.blake2b()
+    for p in model.parameters():
+        h.update(p.detach().numpy().tobytes())
+    if h.hexdigest() != digest:
+        raise AssertionError(f"{ckpts[-1].name}: parameters differ from the trained ones")
+    del model
+    err = check_forward_against_cpu(root, model_dir=exp)
+    print(f"14a checkpoint {ckpts[-1].name} as a model dir: parameters bit-equal to the "
+          f"trained ones, f32 fm_decoder forward card vs CPU max_abs_err {err:.3g} on {card}",
+          flush=True)
+    return err
 
 
 def _nccl_probe_worker():
@@ -2914,6 +2977,614 @@ def run_phase14(root: Path, manifest: Path, card: str, single_ms: float):
     return ddp, two, policies, tools
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: int8 serving (15a), export and exported-model inference (15b),
+# model-FLOPs utilization (15c)
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "int8-dynamic")
+# a request with the fused eval path on under int8: B6, B7 and SelfAttention-2's
+# B2 as without int8; B9 gated off (the ConvolutionModule's out_proj is int8)
+INT8_FUSED_PER_REQUEST = {"B2": LAYERS_PER_REQUEST, "B6": LAYERS_PER_REQUEST,
+                          "B7": LAYERS_PER_REQUEST}
+# linear_int8 on the card against its CPU result: (M, K, N) of the full
+# width's serving shapes (CFG batch 2 x 1024 frames through an fm_decoder
+# feed-forward's two linears; 2 x 192 tokens into a text-encoder one)
+INT8_LINEAR_SHAPES = ((2048, 512, 1536), (2048, 1536, 512), (384, 192, 512))
+# the exported fused sampler's steps: the recipe's 16.  torch.export has no
+# loop, so the steps unroll (about 64k graph nodes), and its trace, save and
+# load take minutes on the host: 15b's exports and loads run in a worker
+# process started after phase 4, beside phases 5-15a
+EXPORT_STEPS = N_STEP
+# the int8-dynamic export's steps: one shows that its programs compute what
+# the int8-dynamic pipeline computes
+EXPORT_STEPS_INT8 = 1
+
+
+def _export_pins(steps: int):
+    layers = 4 + steps * 16
+    return {"B1": layers, "B2": 2 * layers}
+
+
+EXPORT_FUSED_PER_REQUEST = _export_pins(EXPORT_STEPS)
+# an exported fused sampler against the pipeline's own sample on the same
+# inputs (relative L2): bf16 at 16 steps; int8-dynamic at 1 step, where the
+# check prints the export's own quantization error against the float model
+# beside it
+EXPORT_REL_L2 = 1e-2
+EXPORT_INT8_REL_L2 = 1e-3
+
+
+def _launched(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _pins(per_request, counters, n=1):
+    return {k: per_request.get(k, 0) * n for k in counters}
+
+
+def _zero(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _quantized_pipeline(root: Path, dtype: str, mode: str):
+    from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline, get_parser
+
+    args = get_parser().parse_args([
+        "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
+        "--tokenizer", "simple", "--dtype", dtype, "--device", "cuda", "--quantize", mode])
+    return build_pipeline(args)[0]
+
+
+def check_linear_int8_against_cpu(card: str):
+    """15a: ``nn/functional.linear_int8`` on the card (``torch.mm`` with an
+    f32 output for bf16, ``torch._int_mm`` for int8-dynamic) against its
+    CPU result on the same inputs, f32 and bf16, both modes, at
+    INT8_LINEAR_SHAPES.  Weight-only f32: within 1e-5 of the largest
+    |value| (the sum's order); bf16: each value within one bf16 rounding
+    (2**-7 of it) plus 1e-5 of the largest; dynamic: the int8 rows and
+    their scales equal, the output within 1e-6 of the largest.  Returns
+    the worst error over the largest |value| for each (mode, dtype)."""
+    import torch
+
+    from zipvoice_tpu_torch.nn.functional import linear_int8, quantize_rows
+    from zipvoice_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(11)
+    worst = {}
+    for m, k, n in INT8_LINEAR_SHAPES:
+        w_q, w_s = quantize_weight(torch.randn((n, k), generator=g) * 0.05)
+        x32 = torch.randn((m, k), generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for mode in QUANT_MODES:
+                dynamic = mode == "int8-dynamic"
+                ref = linear_int8(x, w_q, w_s, dynamic=dynamic).float()
+                out = linear_int8(x.cuda(), w_q.cuda(), w_s.cuda(),
+                                  dynamic=dynamic).float().cpu()
+                diff = (out - ref).abs()
+                scale = float(ref.abs().max())
+                if dynamic:
+                    (qc, sc), (qr, sr) = quantize_rows(x.cuda()), quantize_rows(x)
+                    ok = (torch.equal(qc.cpu(), qr) and torch.equal(sc.cpu(), sr)
+                          and float(diff.max()) <= 1e-6 * scale)
+                elif dtype == torch.float32:
+                    ok = float(diff.max()) <= 1e-5 * scale
+                else:
+                    ok = bool((diff <= 2**-7 * ref.abs() + 1e-5 * scale).all())
+                key = (mode, str(dtype).split(".")[-1])
+                worst[key] = max(worst.get(key, 0.0), float(diff.max()) / scale)
+                if not ok:
+                    raise AssertionError(f"linear_int8 {key} at (M, K, N) {(m, k, n)}: card vs "
+                                         f"CPU max |diff| {float(diff.max()):.3g} (|ref| max "
+                                         f"{scale:.3g})")
+    print("15a linear_int8 card vs CPU at (M, K, N) " + str(list(INT8_LINEAR_SHAPES)) + ": "
+          + ", ".join(f"{mode} {dt} {e:.3g}" for (mode, dt), e in worst.items())
+          + f" (max |diff| over max |ref|) on {card}", flush=True)
+    return worst
+
+
+def run_int8_serving(root: Path, card: str):
+    """15a: linear_int8 on the card against the CPU; then for int8 and
+    int8-dynamic, bf16 and f32: the model's MB before and after quantizing;
+    the launches of a request unfused (B1 260, B2 520) and fused (B2, B6, B7
+    260 each; B9 gated off); the replayed sampler equal to its eager run bit
+    for bit; the mel MSE and the largest PCM16 difference against the
+    unquantized request on the same inputs and noise; the warm replayed
+    RTF, medians of 4 in turns with the unquantized pipeline.  Then the
+    infer CLI with --quantize int8-dynamic and the serve CLI with
+    --quantize int8, one request each.  Returns {(dtype, mode): {...}}, the
+    CLI's and the server's launches and the bf16 request's (token, frame)
+    buckets."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import read_wav, read_wav_bytes, wav_bytes
+    from zipvoice_tpu_torch.bin.serve import build_server, get_parser
+    from zipvoice_tpu_torch.ops.quant import QuantizedLinear, quantized_bytes
+
+    check_linear_int8_against_cpu(card)
+    counters = _counters()
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        base, kw = _r8s_pipeline(root, dtype)
+        s = _r8s_inputs(base, kw)
+        gen = s.gen_lens[0]
+        base_mel = base._sample_fn(N_STEP, 1.0, 0.5)(*s.args)[0, :gen]
+        vocode = base._vocode_i16_fn()
+        base_pcm = vocode(base._sample_fn(N_STEP, 1.0, 0.5)(*s.args))
+        for mode in QUANT_MODES:
+            q = _quantized_pipeline(root, dtype, mode)
+            scales = {m.weight_scale.dtype for m in q.model.modules()
+                      if isinstance(m, QuantizedLinear)}
+            if scales != {torch.float32}:
+                raise AssertionError(f"{dtype} {mode}: weight_scale dtypes {scales}")
+            r = out[(dtype, mode)] = dict(
+                mb_before=quantized_bytes(base.model) / 1e6,
+                mb_after=quantized_bytes(q.model) / 1e6)
+            for fused in (False, True):
+                _zero(counters)
+                with _FusedEval() if fused else contextlib.nullcontext():
+                    res = q.synthesize(**kw)  # first use of its buckets: eager, captured
+                got = _launched(counters)
+                want = _pins(INT8_FUSED_PER_REQUEST if fused else UNFUSED_PER_REQUEST,
+                             counters)
+                if got != want or not np.isfinite(res.wav).all():
+                    raise AssertionError(f"{dtype} {mode} fused={fused}: launches {got}, "
+                                         f"want {want}")
+                r["fused_launches" if fused else "launches"] = got
+            prog = q._sample_fn(N_STEP, 1.0, 0.5)
+            prog(*s.args)
+            replayed = prog(*s.args)
+            with torch.no_grad():
+                eager = prog.fn(*s.args)
+            if not torch.equal(replayed, eager):
+                raise AssertionError(f"{dtype} {mode}: replay differs from eager by "
+                                     f"{_diff(replayed, eager)[0]}")
+            mel = replayed[0, :gen]
+            pcm = q._vocode_i16_fn()(replayed)
+            if not torch.isfinite(mel.float()).all():
+                raise AssertionError(f"{dtype} {mode}: mel not finite")
+            r["mel_mse"] = float(((mel.float() - base_mel.float()) ** 2).mean())
+            r["pcm_max_diff"] = float((pcm.int() - base_pcm.int()).abs().max())
+
+            runs = {"float": [], mode: []}
+            base.synthesize(**kw)
+            q.synthesize(**kw)
+            for tag in ("float", mode, mode, "float") * 2:
+                runs[tag].append((base if tag == "float" else q).synthesize(**kw).metrics["rtf"])
+            r["rtf"] = float(np.median(runs[mode]))
+            r["rtf_float"] = float(np.median(runs["float"]))
+            print(f"15a {dtype} {mode}: model {r['mb_before']:.1f} -> {r['mb_after']:.1f} MB, "
+                  f"launches a request {r['launches']} (fused {r['fused_launches']}), replay = "
+                  f"eager bitwise, mel MSE vs float {r['mel_mse']:.3g}, PCM16 max diff "
+                  f"{r['pcm_max_diff']:.0f} counts, warm replayed rtf {r['rtf']:.5f} "
+                  f"{[round(x, 5) for x in runs[mode]]} against float {r['rtf_float']:.5f} "
+                  f"{[round(x, 5) for x in runs['float']]} (medians of 4 in turns) on {card}",
+                  flush=True)
+            del q, prog
+        if dtype == "bfloat16":
+            buckets = (s.tokens_padded.shape[1], s.noise.shape[1])
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the infer CLI, int8-dynamic (f32, the unfused pins)
+    metrics, cli_launches = run_cli(root, ["r4s"], "float32", card,
+                                    extra=("--quantize", "int8-dynamic"))
+    # the serve CLI, int8 (bf16, its default), one request
+    srv = build_server(get_parser().parse_args([
+        "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
+        "--tokenizer", "simple", "--device", "cuda", "--port", "0", "--quantize", "int8"]))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        prompt, sr = read_wav(root / "prompt.wav")
+        body = json.dumps({"text": TEXTS["r4s"], "prompt_text": PROMPT_TEXT,
+                           "prompt_wav_b64": base64.b64encode(wav_bytes(prompt, sr)).decode()})
+        _zero(counters)
+        t0 = time.monotonic()
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/synthesize",
+                                     data=body.encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            data = resp.read()
+        lat = time.monotonic() - t0
+        serve_launches = _launched(counters)
+        wav, _ = read_wav_bytes(data)
+        want = expected_samples(TEXTS["r4s"], 3 * 24000)
+        if (wav.shape != (1, want) or not np.isfinite(wav).all()
+                or serve_launches != _pins(UNFUSED_PER_REQUEST, counters)):
+            raise AssertionError(f"int8 server: wav {wav.shape} (want {want}), launches "
+                                 f"{serve_launches}")
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+    print(f"15a CLIs: infer --quantize int8-dynamic f32 rtf {metrics[0]['rtf']:.4f}, launches "
+          f"{cli_launches}; serve --quantize int8 (bf16) one request in {lat * 1e3:.1f} ms "
+          f"(first use: eager and captured), launches {serve_launches} on {card}", flush=True)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, cli_launches, serve_launches, buckets
+
+
+def _tiny_model_dir(root: Path) -> Path:
+    """A model dir of a narrow two-layer ZipVoice (phase 4's tokens): the
+    CPU export, which only has to exist for the loader's refusal."""
+    import torch
+
+    from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig, save_model_json
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+
+    d = root / "tiny_model"
+    d.mkdir()
+    shutil.copy(root / "tokens.txt", d / "tokens.txt")
+    cfg = ZipVoiceConfig(
+        vocab_size=len((root / "tokens.txt").read_text().splitlines()), pad_id=0,
+        fm_decoder_downsampling_factor=(1,), fm_decoder_num_layers=(1,),
+        fm_decoder_cnn_module_kernel=(9,), fm_decoder_feedforward_dim=64,
+        fm_decoder_num_heads=2, fm_decoder_dim=32, text_encoder_num_layers=1,
+        text_encoder_feedforward_dim=64, text_encoder_num_heads=2, text_encoder_dim=32,
+        time_embed_dim=32, text_embed_dim=32, query_head_dim=8, value_head_dim=8,
+        pos_head_dim=4, pos_dim=32)
+    save_model_json(d / "model.json", cfg, FeatureConfig())
+    torch.save({"model": init_zipvoice(cfg, torch.Generator().manual_seed(0)).state_dict()},
+               d / "model.pt")
+    return d
+
+
+def _die_with_parent():
+    """In a child before exec: SIGKILL when the process that started it
+    ends (prctl PR_SET_PDEATHSIG), so no worker outlives the script."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+
+
+def start_exports(root: Path):
+    """15b's three export CLI runs as processes started together: bf16
+    (EXPORT_STEPS steps) and bf16 int8-dynamic (EXPORT_STEPS_INT8) at the
+    default static sizes (256 tokens, 3072 frames) on the card, and a CPU
+    export of a tiny model (for the loader's refusal).  Returns {name:
+    (Popen, log path, out dir)}."""
+    import os
+
+    runs = {
+        "bf16": (root, ["--num-step", str(EXPORT_STEPS)]),
+        "int8-dynamic": (root, ["--quantize", "int8-dynamic",
+                                "--num-step", str(EXPORT_STEPS_INT8)]),
+        "cpu": (_tiny_model_dir(root), ["--device", "cpu", "--num-step", "1",
+                                        "--max-tokens", "32", "--max-frames", "128"]),
+    }
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, (model_dir, extra) in runs.items():
+        out = root / f"export_{name}"
+        log = root / f"export_{name}.log"
+        cmd = [sys.executable, "-m", "zipvoice_tpu_torch.bin.export_model",
+               "--model-dir", str(model_dir), "--out-dir", str(out), "--dtype", "bfloat16",
+               *extra]
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, cwd=REPO, env=env, stdout=f,
+                                            stderr=subprocess.STDOUT,
+                                            preexec_fn=_die_with_parent), log, out)
+    return procs
+
+
+def finish_exports(procs, card: str, timeout: float = 900.0):
+    """Waits for start_exports' processes; checks each wrote its three
+    programs and prints its trace and total seconds and each artifact's MB.
+    Returns {name: {"trace_s", "total_s", "mb": {program: MB}, "dir"}}."""
+    import re
+
+    out = {}
+    try:
+        for name, (proc, log, d) in procs.items():
+            rc = proc.wait(timeout=timeout)
+            text = log.read_text()
+            if rc != 0:
+                raise AssertionError(f"export {name} exited {rc}:\n{text[-3000:]}")
+            trace = re.search(r"traced .* in ([0-9.]+) s", text)
+            total = re.search(r"done: .* in ([0-9.]+) s", text)
+            mb = {p: (d / f"{p}.pt2").stat().st_size / 1e6
+                  for p in ("text_model", "fm_decoder_step", "sampler_fused")}
+            out[name] = dict(trace_s=float(trace.group(1)), total_s=float(total.group(1)),
+                             mb=mb, dir=str(d))
+            print(f"15b export {name}: traced in {out[name]['trace_s']:.1f} s, traced and "
+                  f"saved in {out[name]['total_s']:.1f} s; "
+                  + ", ".join(f"{p} {v:.1f} MB" for p, v in mb.items()) + f" on {card}",
+                  flush=True)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _exported_argv(root: Path, export_dir: str, mode: str):
+    return ["--export-dir", export_dir, "--model-dir", str(root), "--tokenizer", "simple",
+            "--vocoder-path", str(root / "vocos.bin"), "--mode", mode,
+            "--num-step", str(N_STEP), "--prompt-wav", str(root / "prompt.wav"),
+            "--prompt-text", PROMPT_TEXT, "--text", TEXTS["r8s"],
+            "--res-wav-path", str(root / f"exported_{mode}.wav"), "--device", "cuda"]
+
+
+def load_exported_runs(root: Path, exports, card: str):
+    """15b before its turn on the card: ``bin/infer_exported.load`` of both
+    modes over the bf16 export (the fused program with EXPORT_STEPS
+    steps), the int8-dynamic export's fused program with the int8-dynamic
+    pipeline it is held against, and the loader's refusal of the CPU
+    export.  Returns the loaded state and the seconds."""
+    from zipvoice_tpu_torch.bin import infer_exported
+
+    t0 = time.monotonic()
+    state = {}
+    for mode in ("fused", "host-loop"):
+        args = infer_exported.get_parser().parse_args(
+            _exported_argv(root, exports["bf16"]["dir"], mode))
+        state[mode] = (args, *infer_exported.load(args))
+    state["int8-dynamic"] = (
+        infer_exported.ExportedSampler(exports["int8-dynamic"]["dir"], "cuda"),
+        _quantized_pipeline(root, "bfloat16", "int8-dynamic"))
+    cpu_art = Path(exports["cpu"]["dir"]) / "fm_decoder_step.pt2"
+    try:
+        infer_exported.load_exported(cpu_art, "cuda")
+        raise AssertionError("a CPU-exported artifact loaded for the card")
+    except ValueError as e:
+        print(f"15b the loader refuses the CPU export on the card: {e}", flush=True)
+    return state, time.monotonic() - t0
+
+
+def run_exported(root: Path, state, card: str):
+    """15b on the card: bin/infer_exported's request in both modes on the
+    ~8 s text (the fused exported sampler, EXPORT_STEPS steps, captured then
+    replayed; the host loop at 16), launches a request pinned at B1 260 /
+    B2 520, a finite wav of the expected length; the fused sampler against
+    the pipeline's own ``sample`` on the same inputs (relative L2 <=
+    EXPORT_REL_L2); the warm RTF of each mode at 16 steps (medians of 4 in
+    turns); the int8-dynamic export's fused sampler (EXPORT_STEPS_INT8
+    steps) pinned and against the int8-dynamic pipeline's ``sample`` at as
+    many steps (relative L2 <= EXPORT_INT8_REL_L2), beside its error against
+    the float model's.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.bin import infer_exported
+    from zipvoice_tpu_torch.models import zipvoice as zv
+
+    counters = _counters()
+    res = {}
+    for mode in ("fused", "host-loop"):
+        args, sampler, pipe = state[mode]
+        _zero(counters)
+        t0 = time.monotonic()
+        r = infer_exported.run(args, sampler, pipe)
+        wall = time.monotonic() - t0
+        got = _launched(counters)
+        want = _pins(EXPORT_FUSED_PER_REQUEST if mode == "fused" else UNFUSED_PER_REQUEST,
+                     counters)
+        samples = expected_samples(TEXTS["r8s"], 3 * 24000)
+        if got != want or r["wav"].shape != (samples,) or not np.isfinite(r["wav"]).all():
+            raise AssertionError(f"exported {mode}: launches {got} (want {want}), wav "
+                                 f"{r['wav'].shape} (want {samples})")
+        res[mode] = dict(launches=got, first_s=wall)
+        print(f"15b infer_exported {mode}: first request {wall:.1f} s ("
+              + ("eager, then captured" if mode == "fused" else "eager")
+              + f"), launches {got}, {r['wav_seconds']:.2f} s audio on {card}", flush=True)
+
+    # the fused exported sampler against the pipeline's own sample
+    _, sampler, pipe = state["fused"]
+    prompt, sr = read_wav(root / "prompt.wav")
+    tok = pipe.tokenizer.texts_to_token_ids
+    pf, _ = pipe.prompt_features(prompt, sr)
+    args, _ = sampler.inputs(tok([TEXTS["r8s"]])[0], tok([PROMPT_TEXT])[0], pf, 1.0, 0, 5)
+    args = (*args[:5], args[5].to(sampler.dtype))
+    x1 = sampler.fused(*args)
+    with torch.no_grad():  # the pipeline's f32 weights in bf16, as the export casts them
+        ref_model = copy.deepcopy(pipe.model).to(torch.bfloat16)
+
+        def sample(model, steps):
+            return zv.sample(model, *args, num_step=steps, guidance_scale=1.0, t_shift=0.5)
+
+        ref = sample(ref_model, EXPORT_STEPS)
+    err, same = _diff(x1, ref)
+    rel = _rel_l2(x1, ref)
+    print(f"15b exported fused sampler vs the pipeline's sample (bf16, {EXPORT_STEPS} steps, "
+          f"T={sampler.t_max}): max |diff| {err:.3g}, relative L2 {rel:.3g} (limit "
+          f"{EXPORT_REL_L2}), bitwise {same} on {card}", flush=True)
+    if not rel <= EXPORT_REL_L2:
+        raise AssertionError(f"exported sampler vs sample: relative L2 {rel}")
+
+    # warm RTF, fused replayed and host loop, both at 16 steps, in turns
+    kw = dict(text=TEXTS["r8s"], prompt_text=PROMPT_TEXT, prompt_wav=prompt, prompt_sr=sr,
+              num_step=N_STEP)
+    runs = {"fused": [], "host-loop": []}
+    for mode in ("fused", "host-loop", "host-loop", "fused") * 2:
+        _, s_, p_ = state[mode]
+        runs[mode].append(infer_exported.synthesize(s_, p_, **kw)["rtf"])
+    for mode in runs:
+        res[mode]["rtf"] = float(np.median(runs[mode]))
+    print(f"15b exported warm rtf at {N_STEP} steps: fused replayed {res['fused']['rtf']:.5f} "
+          f"{[round(x, 5) for x in runs['fused']]}, host loop {res['host-loop']['rtf']:.5f} "
+          f"{[round(x, 5) for x in runs['host-loop']]} (medians of 4 in turns; the programs "
+          f"and the vocoder at {sampler.t_max} frames) on {card}", flush=True)
+
+    # the int8-dynamic export's fused sampler against the int8-dynamic
+    # pipeline's sample (and, for scale, the float model's)
+    q, q_pipe = state["int8-dynamic"]
+    _zero(counters)
+    x1q = q.fused(*args)
+    got = _launched(counters)
+    if (got != _pins(_export_pins(EXPORT_STEPS_INT8), counters)
+            or not torch.isfinite(x1q.float()).all()):
+        raise AssertionError(f"int8-dynamic export: launches {got}")
+    with torch.no_grad():
+        ref_q = sample(q_pipe.model, EXPORT_STEPS_INT8)
+        ref_f = sample(ref_model, EXPORT_STEPS_INT8)
+    err_q, same_q = _diff(x1q, ref_q)
+    rel_q, rel_f = _rel_l2(x1q, ref_q), _rel_l2(x1q, ref_f)
+    res["int8-dynamic"] = dict(launches=got, rel_l2=rel_q, rel_l2_float=rel_f)
+    print(f"15b int8-dynamic exported fused sampler ({EXPORT_STEPS_INT8} step): launches {got}; "
+          f"vs the int8-dynamic pipeline's sample max |diff| {err_q:.3g}, relative L2 "
+          f"{rel_q:.3g} (limit {EXPORT_INT8_REL_L2}), bitwise {same_q}; vs the float model's "
+          f"relative L2 {rel_f:.3g} on {card}", flush=True)
+    if not rel_q <= EXPORT_INT8_REL_L2:
+        raise AssertionError(f"int8-dynamic export vs the int8-dynamic pipeline: relative L2 "
+                             f"{rel_q}")
+    return res
+
+
+def _export_worker(root: str, card: str) -> int:
+    """15b in a process of its own (``--export-worker``): the exports, then
+    the loads; it writes ``export_ready.json`` and waits for a line on
+    stdin, which the script sends after 15a, when the card is free; then
+    the checks on the card into ``export_result.json``."""
+    sys.path.insert(0, str(REPO))
+    root = Path(root)
+    t0 = time.monotonic()
+    exports = finish_exports(start_exports(root), card)
+    export_s = time.monotonic() - t0
+    state, load_s = load_exported_runs(root, exports, card)
+    (root / "export_ready.json").write_text(json.dumps(
+        dict(exports=exports, export_s=export_s, load_s=load_s)))
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    t0 = time.monotonic()
+    res = run_exported(root, state, card)
+    res["run_s"] = time.monotonic() - t0
+    (root / "export_result.json").write_text(json.dumps(res))
+    return 0
+
+
+def start_export_worker(root: Path, card: str):
+    """Starts ``_export_worker`` at low priority beside the phases that
+    follow phase 4; returns (Popen, log path)."""
+    import os
+
+    def child():
+        _die_with_parent()
+        os.nice(10)
+
+    log = root / "export_worker.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--export-worker", str(root),
+             card], cwd=REPO, stdin=subprocess.PIPE, stdout=f,
+            stderr=subprocess.STDOUT, text=True, preexec_fn=child)
+    return proc, log
+
+
+def finish_export_worker(worker, root: Path, timeout: float = 900.0):
+    """Waits for the worker's loads, prints its output so far, gives it the
+    card, waits for its checks and prints the rest.  Returns its exports
+    and its results; a worker that exited or failed fails the phase."""
+    proc, log = worker
+    ready = root / "export_ready.json"
+    t0 = time.monotonic()
+    while not ready.exists():
+        if proc.poll() is not None or time.monotonic() - t0 > timeout:
+            raise AssertionError(f"export worker: exit {proc.poll()} before its loads "
+                                 f"finished:\n{log.read_text()[-4000:]}")
+        time.sleep(1.0)
+    waited = time.monotonic() - t0
+    head = log.read_text()
+    print(head, end="", flush=True)
+    info = json.loads(ready.read_text())
+    print(f"15b worker: exports {info['export_s']:.1f} s and loads {info['load_s']:.1f} s "
+          f"beside phases 5-15a; phase 15 waited {waited:.1f} s for them", flush=True)
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+    rc = proc.wait(timeout=timeout)
+    print(log.read_text()[len(head):], end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"export worker exited {rc}")
+    return info["exports"], json.loads((root / "export_result.json").read_text())
+
+
+def _train_batches(root: Path, manifest: Path, steps: int):
+    """(B, T, S) of the first `steps` batches of phase 8's train CLI run
+    (its sampler and collator, seeded as the CLI seeds them)."""
+    from zipvoice_tpu_torch.bin._train_common import build_data
+    from zipvoice_tpu_torch.bin.train_zipvoice import get_parser
+    from zipvoice_tpu_torch.config import FeatureConfig
+    from zipvoice_tpu_torch.text.tokenizer import SimpleTokenizer
+
+    args = get_parser().parse_args([
+        "--train-manifest", str(manifest), "--token-file", str(root / "tokens.txt"),
+        "--tokenizer", "simple", "--model-config", str(root / "model.json"),
+        "--exp-dir", str(root / "unused"), "--max-duration", "100", "--device", "cuda"])
+    tok = SimpleTokenizer(str(root / "tokens.txt"))
+    sampler, collate, _ = build_data(args, tok, FeatureConfig(), tok.pad_id, "cuda",
+                                     skip_dev=True)
+    sampler.set_epoch(1)
+    shapes = []
+    for utts in sampler:
+        batch = collate(utts)
+        shapes.append((*batch["features"].shape[:2], batch["tokens"].shape[1]))
+        if len(shapes) == steps:
+            break
+    return shapes
+
+
+def run_mfu(root: Path, manifest: Path, card: str, replay_rtf: float, s_pad: int,
+            t_pad: int, step_ms: float, steps: int):
+    """15c: model-FLOPs utilization (utils/flops.py, against the card's
+    dense bf16 peak) of phase 5e's replayed bf16 ~8 s request (the sampler's
+    16 CFG steps and the vocoder at its token and frame buckets) and of
+    phase 8's warm step (the mean FLOPs of the steps its median interval
+    covers, at their padded shapes)."""
+    import torch
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.utils import flops
+
+    cfg = load_model_dir(str(root), tokenizer_name="simple").model_cfg
+    name = torch.cuda.get_device_name(0)
+    req_flops = (flops.sampler_flops(cfg, t_pad, s_pad, N_STEP)
+                 + flops.vocos_fwd_flops(t_pad, feat_dim=cfg.feat_dim))
+    req_s = replay_rtf * expected_samples(TEXTS["r8s"], 3 * 24000) / 24000
+    shapes = _train_batches(root, manifest, steps)
+    warm = shapes[2:] if len(shapes) > 2 else shapes
+    step_flops = sum(flops.train_step_flops(cfg, b, t, s) for b, t, s in warm) / len(warm)
+    out = dict(request_tflop=req_flops / 1e12, request_s=req_s,
+               request_mfu=flops.mfu(req_flops, req_s, name),
+               step_tflop=step_flops / 1e12, step_s=step_ms / 1e3,
+               step_mfu=flops.mfu(step_flops, step_ms / 1e3, name),
+               peak_tflops=flops.peak_bf16_tflops(name), shapes=shapes)
+    print(f"15c MFU against {out['peak_tflops']:.0f} TFLOP/s (bf16 dense): replayed bf16 r8s "
+          f"request {out['request_tflop']:.2f} TFLOP in {req_s * 1e3:.1f} ms, MFU "
+          f"{out['request_mfu']:.4f} (s_pad {s_pad}, t_pad {t_pad}); warm train step "
+          f"{out['step_tflop']:.2f} TFLOP (batches (B, T, S) {warm}) in {step_ms:.1f} ms, MFU "
+          f"{out['step_mfu']:.4f} on {card}", flush=True)
+    return out
+
+
+def run_phase15(root: Path, manifest: Path, card: str, replay_rtf: float, step_ms: float,
+                steps: int, worker):
+    """Phase 15 (15a-15c) with its wall time; 15b's worker exported and
+    loaded beside the phases before it."""
+    t0 = time.monotonic()
+    int8, cli_launches, serve_launches, (s_pad, t_pad) = run_int8_serving(root, card)
+    exports, exported = finish_export_worker(worker, root)
+    mfu = run_mfu(root, manifest, card, replay_rtf, s_pad, t_pad, step_ms, steps)
+    print(f"phase 15: {time.monotonic() - t0:.1f} s on {card}", flush=True)
+    return dict(int8=int8, cli_launches=cli_launches, serve_launches=serve_launches,
+                exports=exports, exported=exported, mfu=mfu)
+
+
 def _variant_extras(results, variants, key):
     """B1's / B2's launches a request of each variant (replayed) and its
     times at the distill shape (B=1, H=4, T=1024, f32)."""
@@ -2934,6 +3605,20 @@ def _phase14_launches(ddp, two_ranks, policies, key):
             "launches_per_two_rank_step": two_ranks["ranks"][0]["regularizers"]["launches"][key],
             "launches_per_train_step_by_policy": {p: r["launches"][key]
                                                    for p, r in policies.items()}}
+
+
+def _phase15_launches(p15, key):
+    """A kernel's launches a request in phase 15: int8 serving unfused and
+    with the fused eval path (bf16 int8 and int8-dynamic), and the exported
+    programs (the fused sampler and the host loop at 16 steps, the
+    int8-dynamic fused sampler at 1)."""
+    int8 = {f"{mode} {dtype}": r for (dtype, mode), r in p15["int8"].items()}
+    ex = p15["exported"]
+    return {"launches_per_int8_request": {k: r["launches"][key] for k, r in int8.items()},
+            "launches_per_int8_fused_request": {k: r["fused_launches"][key]
+                                                for k, r in int8.items()},
+            "launches_per_exported_request": {m: ex[m]["launches"][key]
+                                              for m in ("fused", "host-loop", "int8-dynamic")}}
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -2994,11 +3679,13 @@ def main() -> int:
 
     build.BUILD.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="smoke-", dir=build.BUILD))
+    worker = None
     try:
         t0 = time.monotonic()
         n_params = make_assets(root)
         print(f"assets: {n_params / 1e6:.1f}M-parameter model in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
+        worker = start_export_worker(root, card)
         metrics, serve_launches = run_cli(root, list(TEXTS), "float32", card)
         run_cli(root, ["r8s"], "bfloat16", card)
         fused_metrics, fused_launches = run_cli(root, list(TEXTS), "float32", card,
@@ -3038,7 +3725,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        p15 = run_phase15(root, manifest, card, graph_res["bfloat16"]["rtf"]["replay"],
+                          reg_ms, 6, worker)
     finally:
+        if worker is not None and worker[0].poll() is None:
+            worker[0].kill()
+            worker[0].wait()
         shutil.rmtree(root, ignore_errors=True)
 
     n_req = len(TEXTS)
@@ -3053,6 +3747,7 @@ def main() -> int:
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B1"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B1"],
                       **_phase14_launches(ddp, two_ranks, policies, "B1"),
+                      **_phase15_launches(p15, "B1"),
                       **_variant_extras(results, variants, "B1")),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
@@ -3066,6 +3761,7 @@ def main() -> int:
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B2"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B2"],
                       **_phase14_launches(ddp, two_ranks, policies, "B2"),
+                      **_phase15_launches(p15, "B2"),
                       **_variant_extras(results, variants, "B2")),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
@@ -3092,12 +3788,14 @@ def main() -> int:
                       "zipvoice_tpu_torch/csrc/rel_probs_consume.cu",
                       "zipvoice_tpu/ops/attention.py:1224", fused_launches["B6"],
                       (1024, "float32"), "B=2 H=4 T=1024 vd=12 f32",
-                      launches_per_fused_request=fused_launches["B6"] // n_req),
+                      launches_per_fused_request=fused_launches["B6"] // n_req,
+                      **_phase15_launches(p15, "B6")),
         _kernel_entry(results, "B7", "rel_attention_head0_consume",
                       "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
                       "zipvoice_tpu/ops/attention.py:1297", fused_launches["B7"],
                       (1024, 384, "float32"), "B=2 T=1024 C=384 f32",
-                      launches_per_fused_request=fused_launches["B7"] // n_req),
+                      launches_per_fused_request=fused_launches["B7"] // n_req,
+                      **_phase15_launches(p15, "B7")),
         _kernel_entry(results, "B8", "fused_log_mel", "zipvoice_tpu_torch/csrc/log_mel.cu",
                       "zipvoice_tpu/ops/melspec.py:122", reg_launches["B8"],
                       next(k for k in results["B8"] if k[0] == "10 s"), "B=8 10 s (938 frames)",
@@ -3109,7 +3807,8 @@ def main() -> int:
         _kernel_entry(results, "B9", "conv_glu_swoosh_out", "zipvoice_tpu_torch/csrc/conv_glu.cu",
                       "zipvoice_tpu/ops/convglu.py:143", fused_launches["B9"],
                       (512, 31, 1024, "float32"), "B=2 T=1024 C=D=512 K=31 f32",
-                      launches_per_fused_request=fused_launches["B9"] // n_req),
+                      launches_per_fused_request=fused_launches["B9"] // n_req,
+                      **_phase15_launches(p15, "B9")),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     missing += [f"{k} (server)" for k in ("B1", "B2") if not server_launches[k]]
@@ -3170,6 +3869,17 @@ def main() -> int:
           + "; gradient card-vs-cpu worst relative L2 "
           + ", ".join(f"{k} {max(v.values()):.3g}" for k, v in variant_grads.items())
           + f" on {card}", flush=True)
+    ex, mfu = p15["exported"], p15["mfu"]
+    print("int8 serving: " + "; ".join(
+        f"{mode} {dtype} {r['mb_before']:.1f} -> {r['mb_after']:.1f} MB, rtf {r['rtf']:.5f} "
+        f"(float {r['rtf_float']:.5f}), mel MSE {r['mel_mse']:.3g}, PCM16 max diff "
+        f"{r['pcm_max_diff']:.0f}" for (dtype, mode), r in p15["int8"].items())
+        + "; export: " + "; ".join(
+            f"{name} {e['total_s']:.1f} s, sampler_fused {e['mb']['sampler_fused']:.1f} MB"
+            for name, e in p15["exports"].items())
+        + f"; exported rtf at {N_STEP} steps fused {ex['fused']['rtf']:.5f}, host loop "
+        f"{ex['host-loop']['rtf']:.5f}; MFU request {mfu['request_mfu']:.4f}, train step "
+        f"{mfu['step_mfu']:.4f} on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3180,4 +3890,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:  # 14a's rank, under torchrun
         sys.exit(_ddp_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--export-worker"]:  # 15b, started by main
+        sys.exit(_export_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "audio.bigvgan", "train.distill_step", "bin.train_zipvoice_distill",
                  "bin.train_zipvoice_dialog", "bin.train_zipvoice_dialog_stereo",
                  "bin.generate_averaged_model", "parallel.mesh", "utils.diagnostics",
-                 "utils.hooks", "train.dryrun"):
+                 "utils.hooks", "train.dryrun", "ops.quant", "bin.export_model",
+                 "bin.infer_exported", "utils.flops", "eval.metrics"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

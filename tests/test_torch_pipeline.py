@@ -154,10 +154,10 @@ def test_cli_refuses_what_is_not_ported(assets, tmp_path):
     base = ["--vocoder-path", str(d / "vocos.bin"), "--tokenizer", "simple",
             "--device", "cpu", "--prompt-wav", str(d / "prompt.wav"),
             "--prompt-text", "hi", "--text", "yo"]
-    for extra in (["--model-dir", str(d), "--quantize", "int8"],
-                  []):
+    for argv in (base,  # no --model-dir
+                 base[2:] + ["--model-dir", str(d)]):  # no --vocoder-path
         with pytest.raises(SystemExit, match="not yet ported"):
-            main(base + extra)
+            main(argv)
 
 
 def test_serve_cli_refuses_what_is_not_ported(assets):
@@ -166,15 +166,14 @@ def test_serve_cli_refuses_what_is_not_ported(assets):
     d, _ = assets
     base = ["--model-dir", str(d), "--vocoder-path", str(d / "vocos.bin"),
             "--device", "cpu"]
-    for extra in (["--tokenizer", "simple", "--quantize", "int8"],):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            main(base + extra)
+    with pytest.raises(SystemExit, match="not yet ported"):  # no --vocoder-path
+        main(base[:2] + ["--tokenizer", "simple", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not yet ported"):
         main(["--tokenizer", "simple", "--device", "cpu"])  # no --model-dir
     ta = load_model_dir(str(d), tokenizer_name="simple")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown quantize mode"):
         ZipVoicePipeline(model=ta.model, model_cfg=ta.model_cfg, feat_cfg=ta.feat_cfg,
-                         tokenizer=ta.tokenizer, device="cpu", quantize="int8")
+                         tokenizer=ta.tokenizer, device="cpu", quantize="int4")
 
 
 def test_cli_long_form_cpu(assets, tmp_path):

@@ -335,8 +335,13 @@ def test_pipeline_keys_tell_variants_apart(model_dirs):
     (kd,), (kb,) = dist.graphs.keys(), base.graphs.keys()
     assert dist.graphs is not base.graphs
     assert kd.static[:2] == ("zipvoice", True) and kb.static[:2] == ("zipvoice", False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ZipVoicePipeline(model=ta.model, quantize="int8", **common)
+    # an int8 pipeline quantizes a copy and keeps its own graph set: its
+    # key equals the float pipeline's, whose graphs it never sees
+    q = ZipVoicePipeline(model=ta.model, distill=True, quantize="int8", **common)
+    q.sample_features([5, 6, 7], [8, 9], pf, num_step=2, guidance_scale=3.0)
+    (kq,) = q.graphs.keys()
+    assert q.graphs is not dist.graphs and kq == kd
+    assert type(ta.model.fm_decoder.encoders[0].layers[0].feed_forward1.in_proj) is torch.nn.Linear
     with pytest.raises(ValueError, match="zipvoice variant only"):
         ZipVoicePipeline(model=ta.model, distill=True, variant="dialog", **common)
     st = load_model_dir(str(dirs["zipvoice_dialog_stereo"]),

@@ -15,8 +15,10 @@ generator checkpoint (``bigvgan_generator.pt``) as --vocoder-path.
 
 Batch mode reads a TSV (``name\\tprompt_text\\tprompt_wav\\ttext`` per line)
 with --test-list and writes ``<res-dir>/<name>.wav``.  ``--long-form``
-splits each text into sentence chunks (``synthesize_long``).  ``--device
-cpu`` runs on the CPU; CUDA is required otherwise.
+splits each text into sentence chunks (``synthesize_long``).  ``--quantize
+int8`` serves int8 linear layers (weight-only), ``--quantize int8-dynamic``
+quantizes the activations too (``ops/quant.py``).  ``--device cpu`` runs on
+the CPU; CUDA is required otherwise.
 """
 
 from __future__ import annotations
@@ -86,7 +88,8 @@ def get_parser() -> argparse.ArgumentParser:
                         choices=["float32", "bfloat16"], help="Compute dtype")
     parser.add_argument("--quantize", type=str, default=None,
                         choices=["int8", "int8-dynamic"],
-                        help="int8 linear layers (not yet ported)")
+                        help="int8 linear layers: weight-only, or dynamic "
+                             "(per-row activation scales, int8 x int8 -> int32)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"], help="Device to run on")
     return parser
@@ -140,6 +143,7 @@ def build_pipeline(args):
         distill=assets.defaults["distill"],
         variant=assets.defaults["variant"],
         vocoder=vocoder,
+        quantize=args.quantize,
     )
     d = assets.defaults
     num_step = args.num_step if args.num_step is not None else d["num_step"]
@@ -150,8 +154,6 @@ def build_pipeline(args):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    if args.quantize is not None:
-        raise SystemExit(f"--quantize {_NOT_PORTED}")
     if args.model_dir is None:
         raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
 

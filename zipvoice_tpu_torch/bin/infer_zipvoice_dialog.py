@@ -70,8 +70,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Device to run on")
     # what infer_zipvoice.build_pipeline reads and this CLI does not offer:
-    # the model's own tokenizer (dialog), no feature bias
-    p.set_defaults(tokenizer=None, lang="en-us", feat_bias=0.0)
+    # the model's own tokenizer (dialog), no feature bias, float weights
+    p.set_defaults(tokenizer=None, lang="en-us", feat_bias=0.0, quantize=None)
     return p
 
 

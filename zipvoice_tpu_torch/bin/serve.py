@@ -44,7 +44,8 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--quantize", type=str, default=None,
                    choices=["int8", "int8-dynamic"],
-                   help="int8 linear layers (not yet ported)")
+                   help="int8 linear layers: weight-only, or dynamic "
+                        "(per-row activation scales, int8 x int8 -> int32)")
     p.add_argument("--warmup", action="store_true",
                    help="capture the serving graphs before listening")
     p.add_argument("--allow-custom-sampling", action="store_true",
@@ -59,8 +60,16 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    if args.quantize is not None:
-        raise SystemExit(f"--quantize {_NOT_PORTED}")
+    server = build_server(args)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+
+
+def build_server(args):
+    """The TTSServer the parsed arguments describe, its pipeline warmed
+    when ``--warmup`` is given; not yet serving."""
     if args.model_dir is None:
         raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
 
@@ -80,16 +89,12 @@ def main(argv=None):
         logging.info("warmup done: %.1f s, %d graphs captured",
                      time.monotonic() - t0, pipeline.captures)
 
-    server = TTSServer(
+    return TTSServer(
         pipeline, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         num_step=num_step, guidance_scale=guidance_scale,
         allow_custom_sampling=args.allow_custom_sampling,
     )
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        server.shutdown()
 
 
 if __name__ == "__main__":

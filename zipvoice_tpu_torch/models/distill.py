@@ -66,21 +66,26 @@ def sample_intermediate(model: zv.ZipVoiceModel, tokens_padded, tokens_lens, fea
     return x
 
 
-def _cfg_velocity_traced_t(model: zv.ZipVoiceModel, t: float, x, text_condition,
+def _cfg_velocity_traced_t(model: zv.ZipVoiceModel, t, x, text_condition,
                            speech_condition, padding_mask,
                            guidance_scale: torch.Tensor) -> torch.Tensor:
-    """The CFG velocity with a per-row guidance scale (B, 1, 1): the
-    unconditioned and conditioned passes as one 2B batch; for t > 0.5 the
-    unconditioned half drops the speech condition too, for t <= 0.5 it keeps
-    it and the scale doubles.  The rule is ``sampling/euler.cfg_velocity``'s
-    with a tensor scale; t is a host value here, so the select is a branch."""
+    """The CFG velocity with a tensor guidance scale (per row, (B, 1, 1), or
+    one scalar): the unconditioned and conditioned passes as one 2B batch;
+    for t > 0.5 the unconditioned half drops the speech condition too, for
+    t <= 0.5 it keeps it and the scale doubles.  The rule is
+    ``sampling/euler.cfg_velocity``'s with a tensor scale.  A host t makes
+    the select a branch; a tensor t (a runtime input of an exported
+    program) makes it a select on the device."""
     tc2 = torch.cat([torch.zeros_like(text_condition), text_condition])
-    if t > 0.5:
-        sc2 = torch.cat([torch.zeros_like(speech_condition), speech_condition])
-        gs = guidance_scale
+    if isinstance(t, torch.Tensor):
+        hi = t > 0.5
+        sc_uncond = torch.where(hi, torch.zeros_like(speech_condition), speech_condition)
+        gs = torch.where(hi, guidance_scale, 2.0 * guidance_scale)
+    elif t > 0.5:
+        sc_uncond, gs = torch.zeros_like(speech_condition), guidance_scale
     else:
-        sc2 = torch.cat([speech_condition, speech_condition])
-        gs = 2.0 * guidance_scale
+        sc_uncond, gs = speech_condition, 2.0 * guidance_scale
+    sc2 = torch.cat([sc_uncond, speech_condition])
     gs = gs.to(x.dtype)
     v2 = zv.forward_fm_decoder(model, t, torch.cat([x, x]), tc2, sc2,
                                torch.cat([padding_mask, padding_mask]))

@@ -26,10 +26,15 @@ channels, and the vocoder decodes the two halves at batch 2, giving a
 
 The vocoder follows the model's features: ``vocos`` (the default) or
 ``bigvgan``; ``vocos_params`` holds the chosen vocoder's weights.
+
+``quantize`` (``int8`` or ``int8-dynamic``) serves a copy of the model
+with int8 linear layers (``ops/quant.py``).  The mode lives on the
+model's layers, so pipelines of different modes can live side by side.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import re
@@ -50,6 +55,8 @@ from zipvoice_tpu_torch.audio.wav import resample
 from zipvoice_tpu_torch.config import FeatureConfig, ZipVoiceConfig
 from zipvoice_tpu_torch.models import zipvoice as zv
 from zipvoice_tpu_torch.nn.zipformer import fused_flags
+from zipvoice_tpu_torch.ops.quant import MODES as QUANT_MODES
+from zipvoice_tpu_torch.ops.quant import cast_quantized, quantize_linear_int8
 from zipvoice_tpu_torch.utils.device import resolve_device
 from zipvoice_tpu_torch.utils.graphs import GraphSet, Program
 from zipvoice_tpu_torch.utils.memo import instance_cache
@@ -112,9 +119,8 @@ class ZipVoicePipeline:
         vocoder: str = "vocos",
     ):
         if quantize is not None:
-            raise NotImplementedError(
-                "int8 quantization is not yet ported to zipvoice_tpu_torch"
-            )
+            if quantize not in QUANT_MODES:
+                raise ValueError(f"unknown quantize mode {quantize!r}; one of {QUANT_MODES}")
         if vocoder not in VOCODERS:
             raise ValueError(f"unknown vocoder {vocoder!r}; one of {VOCODERS}")
         if variant not in VARIANTS:
@@ -122,7 +128,15 @@ class ZipVoicePipeline:
         if distill and variant != "zipvoice":
             raise ValueError("distill sampling is for the zipvoice variant only")
         self.device = resolve_device(device)
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        if quantize is None:
+            self.model = model.to(device=self.device, dtype=dtype).eval()
+        else:
+            # an f32 quantization of a copy (the caller's model stays float),
+            # then the cast policy that keeps the scales f32
+            self.model = cast_quantized(
+                quantize_linear_int8(copy.deepcopy(model), quantize), dtype,
+                self.device).eval()
+        self.quantize = quantize
         self.vocos_params = (
             None if vocos_params is None
             else {k: v.to(device=self.device, dtype=dtype)

@@ -52,6 +52,50 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
                     None if bias is None else bias.to(x.dtype))
 
 
+def quantize_rows(x: torch.Tensor):
+    """(int8 rows, (M, 1) f32 scales) of an (M, K) activation: symmetric per
+    row, s_x = max(max|x_row| / 127, 1e-12), round half to even, clip to
+    +-127, computed in f32.  The 127 is a tensor: CUDA divides by a Python
+    scalar as a product with its reciprocal, which can round s_x one ulp
+    away from the quotient the CPU (and the reference package) computes."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=1, keepdim=True)
+    s_x = torch.clamp(amax / amax.new_full((), 127.0), min=1e-12)
+    return torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8), s_x
+
+
+def linear_int8(x: torch.Tensor, weight_int8: torch.Tensor, weight_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, dynamic: bool = False) -> torch.Tensor:
+    """Dense layer over an int8 (out, in) weight with its f32 per-output-
+    channel scale (``ops/quant.py``); the result is in x.dtype.
+
+    Weight-only: x times the weight cast to x.dtype, accumulated in f32,
+    times the f32 scale, then rounded to x.dtype once.  Dynamic: x is
+    quantized per row (s_x = max(max|x_row| / 127, 1e-12), round half to
+    even, clip to +-127), the product runs int8 x int8 -> int32, and the
+    f32 result is (y * s_x) * scale.  On the card the int32 product is
+    ``torch._int_mm``, which takes more than 16 rows and an input and output
+    width that are multiples of 8; another shape raises."""
+    k, n = weight_int8.shape[1], weight_int8.shape[0]
+    x2 = x.reshape(-1, k)
+    scale = weight_scale.float()
+    if dynamic:
+        qx, s_x = quantize_rows(x2)
+        if qx.is_cuda and (qx.shape[0] <= 16 or k % 8 or n % 8):
+            raise ValueError(f"linear_int8: torch._int_mm takes M > 16 and K, N "
+                             f"multiples of 8, not M={qx.shape[0]} K={k} N={n}")
+        y = torch._int_mm(qx, weight_int8.t()).float() * s_x * scale
+    elif x.is_cuda and x.dtype != torch.float32:
+        # half-precision inputs with an f32 accumulator and f32 output
+        y = torch.mm(x2, weight_int8.to(x.dtype).t(), out_dtype=torch.float32) * scale
+    else:
+        # the CPU has no mm.dtype kernel: the upcast operands are exact, so
+        # the f32 product is the same arithmetic
+        y = (x2.float() @ weight_int8.to(x.dtype).float().t()) * scale
+    y = y.to(x.dtype).reshape(*x.shape[:-1], n)
+    return y if bias is None else y + bias.to(x.dtype)
+
+
 def masked_softmax(scores: torch.Tensor,
                    key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """f32 softmax over the last axis with the -1000 mask fill (not -inf,
@@ -109,7 +153,19 @@ def compact_rel_positional_encoding(
     atan-compressed Fourier features, (2T-1, pos_dim) f32; row n encodes
     relative offset n - (T-1).  Cached per (T, pos_dim, device) so the
     sampler uploads each table once, and held by a graph captured over it;
-    callers must not write to it."""
+    callers must not write to it.
+
+    While ``torch.export`` traces, a table that an eager call cached
+    becomes a constant of the program on its device.  A table the tracer
+    has to make itself works too, but it holds a host-to-device copy,
+    which a captured graph cannot run, and it must not stay in the cache
+    that eager calls read: the cache is cleared after such a miss."""
+    if torch.compiler.is_compiling():
+        hits = _rel_pe_table.cache_info().hits
+        table = _rel_pe_table(seq_len, pos_dim, length_factor, device)
+        if _rel_pe_table.cache_info().hits == hits:
+            _rel_pe_table.cache_clear()
+        return table
     return hold(_rel_pe_table(seq_len, pos_dim, length_factor, device))
 
 

@@ -67,6 +67,7 @@ from zipvoice_tpu_torch.nn.functional import (
     bias_norm,
     compact_rel_positional_encoding,
     linear,
+    linear_int8,
     swoosh_l,
     swoosh_r,
     timestep_embedding,
@@ -80,6 +81,7 @@ from zipvoice_tpu_torch.ops.attention import (
     rel_attention_probs_consume,
 )
 from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
+from zipvoice_tpu_torch.ops.quant import QuantizedLinear
 from zipvoice_tpu_torch.parallel.mesh import fold_rank
 
 _REMAT_POLICY = "full"
@@ -438,7 +440,10 @@ def _maybe_seq_dropout(ctx: Optional[TrainCtx], x, rate):
 # ---------------------------------------------------------------------------
 
 
-def _lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _lin(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An ``nn.Linear`` or an int8 ``QuantizedLinear`` (``ops/quant.py``)."""
+    if isinstance(m, QuantizedLinear):
+        return linear_int8(x, m.weight_int8, m.weight_scale, m.bias, m.dynamic)
     return linear(x, m.weight, m.bias)
 
 
@@ -561,10 +566,11 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
                  ctx: Optional[TrainCtx] = None) -> torch.Tensor:
     """GLU gate -> key mask -> depthwise conv over time (SAME) -> SwooshR
     -> out linear; with the fused conv path, everything after in_proj is
-    one kernel (B9)."""
+    one kernel (B9), unless the out-projection is int8 (B9 takes a float
+    weight)."""
     with _named("conv_mid"):
         proj = _lin(m.in_proj, x)
-    if _fused(_FUSED_CONV, ctx):
+    if _fused(_FUSED_CONV, ctx) and not isinstance(m.out_proj, QuantizedLinear):
         conv = m.depthwise_conv
         return conv_glu_swoosh_out(proj, conv.weight, conv.bias, key_padding_mask,
                                    m.out_proj.weight, m.out_proj.bias)

@@ -382,6 +382,16 @@ rel_attention_probs.launches = 0
 REL_PROBS_OP = torch.ops.zipvoice.rel_probs.default
 
 
+# The fake implementations give the output's shape and dtype without
+# computing it, so torch.export traces each op as one opaque node: an
+# exported program calls the op, which launches B1 / B2 on the card and
+# runs the plain version on the CPU.
+@_rel_probs_forward.register_fake
+def _(q, k, pq, pe, key_padding_mask, out_dtype):
+    b, t, h, _ = q.shape
+    return q.new_empty((b, h, t, t), dtype=out_dtype)
+
+
 @torch.library.custom_op("zipvoice::probs_apply", mutates_args=())
 def _probs_apply_forward(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if probs.device.type == "cpu":
@@ -427,6 +437,11 @@ def rel_attention_probs_apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Ten
 
 
 rel_attention_probs_apply.launches = 0
+
+
+@_probs_apply_forward.register_fake
+def _(probs, v):
+    return v.new_empty(v.shape)
 
 # value widths the B2 kernel takes; wider consumers contract with torch.matmul
 PROBS_APPLY_VD = (4, 8, 12, 16)

@@ -5,7 +5,10 @@ sampler's num_step, guidance scale, t_shift and timestep grid), run
 through the ``GraphSet`` of its owner.  The key of one graph is the
 program's name and static key, the shapes and dtypes of its inputs (batch,
 token bucket, frame bucket, dtype) and the process switches the function
-reads while it runs (the fused eval flags).
+reads while it runs (the fused eval flags).  The weights are not in the
+key: each owner (a pipeline) has a set of its own, so a graph captured
+over one model, float or int8 (``ops/quant.py``), never replays for
+another.
 
 * On the CPU the function runs eagerly on every call.
 * On the card the first call of a key runs the function eagerly and
