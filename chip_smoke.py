@@ -112,7 +112,10 @@ Phases (each raises on failure; nothing is caught):
      80, B3 60, B8 1), every trained tensor changed and distill's embedding
      and text encoder bit-equal, warm step ms and peak memory; the distill
      model served by the infer CLI and the stereo model by the dialog CLI
-     (launches pinned); 13c, one full-width compute_distill_loss gradient
+     (launches pinned); a stereo ``norm.log_scale`` (0-d) may end
+     bit-equal to its start only if every step's gradient was nonzero and a
+     step moved it (its rounded updates cancelled; ``_returned``); 13c, one
+     full-width compute_distill_loss gradient
      and one stereo compute_fm_loss_dialog gradient card vs CPU (relative
      L2 per parameter group).
   14. data parallelism and the training CLIs' tools at full width, bf16,
@@ -164,6 +167,29 @@ Phases (each raises on failure; nothing is caught):
      (relative L2 <= 1e-3), and the loader's refusal of the CPU export on
      the card; 15c, the MFU (utils/flops.py, against the card's dense bf16
      peak) of phase 5e's replayed bf16 request and of phase 8's warm step.
+  16. egs/zipvoice/run.sh's stages 0-2 through the port's CLIs at full
+     width (123M, bf16) on a raw corpus of phase 8's rows plus 16 and 48 kHz
+     files, a stereo file, a segment row, a segment past its file's end and
+     an unreadable row: bin/prepare_dataset with --resample-dir (kept and
+     dropped counts, the resampled rows), bin/prepare_tokens (emilia) and
+     bin/make_tokens over the prepared manifest; bin/compute_fbank on the
+     card against --device cpu (the same shards, index, keys and shapes,
+     each float16 feature within one float16 ulp plus 2e-5); the native
+     wav loader built and loaded (ops/native.py; a missing library fails),
+     on a B=8 batch of whole 24 kHz files equal to read_wav within 1e-6,
+     and the host ms of batch_load_wav against the per-file load_audio
+     loop (medians of 3); the train CLI, 3 steps with the regularizers on
+     stage 1's manifest and tokens (segment rows: every batch read file by
+     file, as the reference package's collator does) and on the same rows
+     as whole files (every batch through batch_load_wav), finite losses,
+     launches pinned at phase 8's (B1 40, B2 80, B3 60, B8 1 a step);
+     PrecomputedFeatureCollator over the card's shards.
+  17. the evaluation models and CLIs: a full-width UTMOS22Strong with
+     seeded random weights saved as a local checkpoint (forward on two
+     clips card vs CPU, relative L2 <= 1e-4 in f32, and its device ms; the
+     MOS CLI on phase 5's f32 wavs), the ECAPA-TDNN head at full width over
+     a stand-in SSL module (card vs CPU), the cpSIM CLI on a stereo wav with
+     the tests' fake encoder, wer.score_pairs on fixed pairs.
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -2155,24 +2181,74 @@ def _average(exp: Path, steps: int) -> str:
                                          "--avg", "1", "--out", str(exp / "model.pt")])
 
 
-def _check_changed(name: str, model, initial, frozen=()):
+class _ScalarSteps:
+    """Within the block: for each 0-d parameter of every ScaledAdam step,
+    whether its gradient was nonzero and whether the step moved it
+    (``steps[name]``, a (nonzero gradient, moved) pair a step)."""
+
+    def __enter__(self):
+        import torch
+
+        from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+
+        self.steps = {}
+        self._orig = orig = ScaledAdam.step
+
+        def step(opt, lr):
+            scalars = [(n, p) for n, p in zip(opt.names, opt.params) if p.ndim == 0]
+            before = [(p.detach().clone(), p.grad is not None and bool(p.grad != 0))
+                      for _, p in scalars]
+            out = orig(opt, lr)
+            for (n, p), (b, g) in zip(scalars, before):
+                self.steps.setdefault(n, []).append((g, not torch.equal(p.detach(), b)))
+            return out
+
+        ScaledAdam.step = step
+        return self
+
+    def __exit__(self, *exc):
+        from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+
+        ScaledAdam.step = self._orig
+        return False
+
+
+def _returned(key: str, steps) -> bool:
+    """A BiasNorm ``norm.log_scale`` (0-d) may end bit-equal to its start
+    only if every step's gradient was nonzero and a step moved it: ScaledAdam
+    moves a scalar by ~lr/100 a step (8 ulps at 1.0 for LR 1e-4), and when
+    the gradient's sign alternates (the stereo recipe alternates its two
+    objectives a batch) the rounded updates can sum to zero, as they do in
+    the reference package's optimizer (tests/test_torch_regularizers.py)."""
+    rec = steps.get(key) if steps else None
+    return (key.endswith("norm.log_scale") and bool(rec)
+            and all(g for g, _ in rec) and any(m for _, m in rec))
+
+
+def _check_changed(name: str, model, initial, frozen=(), scalar_steps=None):
     """Every parameter tensor moved from ``initial`` (a state_dict), except
-    the prefixes ``frozen``, which stay bit-equal."""
+    the prefixes ``frozen``, which stay bit-equal, and a ``norm.log_scale``
+    whose steps (``scalar_steps``, from _ScalarSteps) moved it back to its
+    start (``_returned``)."""
     import torch
 
-    moved, stuck = [], []
+    moved, stuck, returned = [], [], []
     for k, v in model.state_dict().items():
         same = torch.equal(v, initial[k].to(v.device))
         if frozen and k.startswith(frozen):
             if not same:
                 moved.append(k)
         elif same:
-            stuck.append(k)
+            (returned if _returned(k, scalar_steps) else stuck).append(k)
     if moved or stuck:
         raise AssertionError(f"{name}: frozen tensors moved {moved[:10]}; trained tensors "
                              f"unchanged {stuck[:10]}")
     print(f"recipe {name}: every trained tensor changed"
-          + (f", {', '.join(frozen)} bit-equal" if frozen else ""), flush=True)
+          + (f", {', '.join(frozen)} bit-equal" if frozen else "")
+          + "".join(f"; {k} moved and returned to its start bit for bit (a nonzero "
+                    f"gradient every step, moved at steps "
+                    f"{[i + 1 for i, (_, m) in enumerate(scalar_steps[k]) if m]})"
+                    for k in returned), flush=True)
 
 
 def run_recipes(root: Path, card: str):
@@ -2242,13 +2318,15 @@ def run_recipes(root: Path, card: str):
     _check_changed("dialog", res["trainer"].model, extend_vocab_params(fresh, base))
     del res
     d_avg = _average(rd / "dialog", 3)
-    res, out["stereo"] = _run_recipe_step(
-        "stereo", train_zipvoice_dialog_stereo.main,
-        _recipe_args(rd, "stereo.tsv", "tokens_dialog.txt", rd / "stereo", 4)
-        + ["--checkpoint", d_avg], DIALOG_PER_STEP, card)
+    with _ScalarSteps() as scalar_steps:
+        res, out["stereo"] = _run_recipe_step(
+            "stereo", train_zipvoice_dialog_stereo.main,
+            _recipe_args(rd, "stereo.tsv", "tokens_dialog.txt", rd / "stereo", 4)
+            + ["--checkpoint", d_avg], DIALOG_PER_STEP, card)
     fresh = init_zipvoice_dialog(dcfg, stereo=True, device="cuda", generator=gen()).state_dict()
     loaded = duplicate_projections_stereo(load_checkpoint(d_avg)["model"], dcfg.feat_dim)
-    _check_changed("stereo", res["trainer"].model, extend_vocab_params(fresh, loaded))
+    _check_changed("stereo", res["trainer"].model, extend_vocab_params(fresh, loaded),
+                   scalar_steps=scalar_steps.steps)
     del res, fresh, loaded
     _average(rd / "stereo", 4)
     gc.collect()
@@ -3585,6 +3663,409 @@ def run_phase15(root: Path, manifest: Path, card: str, replay_rtf: float, step_m
                 exports=exports, exported=exported, mfu=mfu)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: egs/zipvoice/run.sh's stages 0-2 through the port's CLIs, with
+# the native wav loader; phase 17: the evaluation models and CLIs
+# ---------------------------------------------------------------------------
+
+PREP_STEPS = 3
+
+
+def make_raw_corpus(root: Path, manifest: Path) -> Path:
+    """16a: a raw corpus of phase 8's rows plus two 16 kHz and two 48 kHz
+    files, a stereo file, a 5-column segment row, a segment past its file's
+    end and an unreadable row (the last two dropped by stage 0)."""
+    import numpy as np
+
+    from zipvoice_tpu_torch.audio.wav import write_wav
+
+    d = root / "prep"
+    d.mkdir()
+    rows = manifest.read_text().splitlines()
+    wav0, wav1 = (row.split("\t")[2] for row in rows[:2])
+    rng = np.random.default_rng(16)
+    for i, (sr, ch, sec) in enumerate([(16000, 1, 3.0), (16000, 1, 5.0), (48000, 1, 2.5),
+                                       (48000, 1, 4.0), (24000, 2, 4.0)]):
+        path = d / f"extra{i}.wav"
+        write_wav(path, (0.05 * rng.standard_normal((ch, int(sec * sr)))).astype(np.float32), sr)
+        rows.append(f"extra{i}\t{(BASE * 2)[9 * i: 9 * i + int(15 * sec)]}\t{path}")
+    rows.append(f"segment\t{BASE[:25]}\t{wav0}\t0.5\t2.0")
+    rows.append(f"past_end\t{BASE[:25]}\t{wav1}\t1.0\t60.0")
+    (d / "broken.wav").write_bytes(b"RIFF0000WAVEjunk")
+    rows.append(f"broken\t{BASE[:25]}\t{d / 'broken.wav'}")
+    (d / "raw.tsv").write_text("\n".join(rows) + "\n")
+    return d
+
+
+def check_fbank_card_vs_cpu(d: Path, manifest: Path, card: str):
+    """16d: bin/compute_fbank on the card and with --device cpu on the same
+    manifest: the same shard names, index, keys and shapes, each float16
+    feature within one float16 ulp plus 2e-5 of the CPU's (the ulp alone
+    is reported).  Returns (card dir, largest difference, elements beyond
+    one ulp, seconds on the card)."""
+    import numpy as np
+
+    from zipvoice_tpu_torch.bin import compute_fbank
+
+    t0 = time.monotonic()
+    argv = ["--manifest", str(manifest), "--shard-size", "8"]
+    compute_fbank.main(argv + ["--output-dir", str(d / "fbank_cuda"), "--device", "cuda"])
+    card_s = time.monotonic() - t0
+    compute_fbank.main(argv + ["--output-dir", str(d / "fbank_cpu"), "--device", "cpu"])
+    names = sorted(p.name for p in (d / "fbank_cuda").iterdir())
+    if names != sorted(p.name for p in (d / "fbank_cpu").iterdir()):
+        raise AssertionError(f"compute_fbank: card and CPU shards differ: {names}")
+    index = "custom_train_feats.tsv"
+    if (d / "fbank_cuda" / index).read_text() != (d / "fbank_cpu" / index).read_text():
+        raise AssertionError("compute_fbank: card and CPU indexes differ")
+    worst, beyond_ulp, n = 0.0, 0, 0
+    for name in names:
+        if not name.endswith(".npz"):
+            continue
+        a_all, b_all = np.load(d / "fbank_cuda" / name), np.load(d / "fbank_cpu" / name)
+        if a_all.files != b_all.files:
+            raise AssertionError(f"compute_fbank {name}: keys {a_all.files} vs {b_all.files}")
+        for uid in a_all.files:
+            a, b = a_all[uid], b_all[uid]
+            if a.shape != b.shape or a.dtype != np.float16:
+                raise AssertionError(f"compute_fbank {uid}: {a.shape} {a.dtype} vs {b.shape}")
+            ulp = np.maximum(np.spacing(np.abs(a)), np.spacing(np.abs(b))).astype(np.float32)
+            diff = np.abs(a.astype(np.float32) - b.astype(np.float32))
+            if not (diff <= ulp + 2e-5).all():
+                raise AssertionError(f"compute_fbank {uid}: card vs CPU {diff.max():.3g} beyond "
+                                     "one float16 ulp plus 2e-5")
+            worst = max(worst, float(diff.max()))
+            beyond_ulp += int((diff > ulp).sum())
+            n += diff.size
+    print(f"compute_fbank: {len(names) - 1} shards, card vs CPU largest difference {worst:.3g} "
+          f"({beyond_ulp} of {n} features beyond one float16 ulp), {card_s:.2f} s on the card "
+          f"(the wavs read and resampled on the host) on {card}", flush=True)
+    return d / "fbank_cuda", worst, beyond_ulp, card_s
+
+
+def check_native_loader(manifest: Path, card: str):
+    """16e: the port's native library loads (no numpy path on the card's
+    machine); on a B=8 batch of whole 24 kHz files batch_load_wav equals
+    the read_wav path within 1e-6; the host ms of batch_load_wav and of the
+    per-file load_audio loop, medians of 3 in turns."""
+    import os
+
+    import numpy as np
+
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.config import FeatureConfig
+    from zipvoice_tpu_torch.data.dataset import OnDeviceFbankCollator, read_tsv_manifest
+    from zipvoice_tpu_torch.ops import native
+
+    if not native.available():
+        raise AssertionError("native io library did not build or load")
+    utts = read_tsv_manifest(manifest)[:8]
+    paths = [u.wav_path for u in utts]
+    ref = [read_wav(p) for p in paths]
+    max_len = max(w.shape[-1] for w, _ in ref)
+    audio, lens = native.batch_load_wav(paths, 24000, max_len)
+    err = 0.0
+    for i, (w, sr) in enumerate(ref):
+        if sr != 24000 or lens[i] != w.shape[-1]:
+            raise AssertionError(f"native loader: {paths[i]} {lens[i]} samples, want "
+                                 f"{w.shape[-1]} at {sr} Hz")
+        err = max(err, float(np.abs(audio[i, : lens[i]] - w[0]).max()))
+    if err > 1e-6:
+        raise AssertionError(f"native loader vs read_wav: {err:.3g} > 1e-6")
+    col = OnDeviceFbankCollator(None, FeatureConfig(), device="cpu")
+    ms = {"native": [], "per-file": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.batch_load_wav(paths, 24000, max_len)
+        ms["native"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        [col.load_audio(u) for u in utts]
+        ms["per-file"].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    secs = sum(w.shape[-1] for w, _ in ref) / 24000
+    print(f"native loader: {native.library_path().name} loaded; B=8 whole 24 kHz files "
+          f"({secs:.1f} s of audio) equal to read_wav within {err:.3g}; host ms "
+          f"batch_load_wav {med['native']:.2f}, per-file load_audio {med['per-file']:.2f} "
+          f"(medians of 3, {os.cpu_count()} host cores) beside {card}", flush=True)
+    return med, err
+
+
+class _CountLoads:
+    """Within the block: the calls of native.batch_load_wav and of
+    OnDeviceFbankCollator.load_audio (``native``, ``per_file``)."""
+
+    def __enter__(self):
+        from zipvoice_tpu_torch.data.dataset import OnDeviceFbankCollator
+        from zipvoice_tpu_torch.ops import native
+
+        self.native = self.per_file = 0
+        self._saved = (native.batch_load_wav, OnDeviceFbankCollator.load_audio)
+        load, per_file = self._saved
+
+        def counted_native(*a, **k):
+            self.native += 1
+            return load(*a, **k)
+
+        def counted_per_file(col, utt):
+            self.per_file += 1
+            return per_file(col, utt)
+
+        native.batch_load_wav = counted_native
+        OnDeviceFbankCollator.load_audio = counted_per_file
+        return self
+
+    def __exit__(self, *exc):
+        from zipvoice_tpu_torch.data.dataset import OnDeviceFbankCollator
+        from zipvoice_tpu_torch.ops import native
+
+        native.batch_load_wav, OnDeviceFbankCollator.load_audio = self._saved
+        return False
+
+
+def run_prep_training(root: Path, d: Path, manifest: Path, tokens: Path, tag: str, card: str):
+    """16f: the train CLI as stage 2 runs it (emilia tokenizer, offline
+    tokens), PREP_STEPS steps with the regularizers in bf16 at full width:
+    finite losses, phase 8's launches a step; returns (launches a step,
+    loads, warm step ms)."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.bin.train_zipvoice import main as train_main
+
+    counters = _counters()
+    _zero(counters)
+    exp = d / f"exp_{tag}"
+    with _CountLoads() as loads:
+        res = train_main([
+            "--device", "cuda", "--train-manifest", str(manifest), "--token-file", str(tokens),
+            "--tokenizer", "emilia", "--model-config", str(root / "model.json"),
+            "--exp-dir", str(exp), "--num-epochs", "1", "--num-steps-per-epoch",
+            str(PREP_STEPS), "--max-duration", "100", "--log-interval", "1",
+            "--dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    launches = _launched(counters)
+    n = len(res["steps"])
+    want = {k: PER_STEP.get(k, 0) * n for k in counters}
+    want["B4"] = 0
+    losses = [x for _, x in res["steps"]]
+    if n != PREP_STEPS or launches != want:
+        raise AssertionError(f"stage 2 ({tag}): launches {launches} over {n} steps, want {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"stage 2 ({tag}): non-finite loss {losses}")
+    ends = [t for t, _ in res["steps"]]
+    step_ms = float(np.median(np.diff(ends))) * 1e3
+    vocab = res["trainer"].model.embed.weight.shape[0]
+    del res
+    shutil.rmtree(exp, ignore_errors=True)
+    print(f"stage 2 ({tag}): {n} steps, losses {[round(x, 4) for x in losses]}, vocabulary "
+          f"{vocab}, launches a step {({k: v // n for k, v in launches.items() if v})}, "
+          f"batch_load_wav calls {loads.native}, per-file load_audio calls {loads.per_file}, "
+          f"step {step_ms:.1f} ms (median interval) on {card}", flush=True)
+    return {k: v // n for k, v in launches.items()}, (loads.native, loads.per_file), step_ms
+
+
+def run_phase16(root: Path, manifest: Path, card: str):
+    """Phase 16: stages 0-2 of egs/zipvoice/run.sh through the port's CLIs
+    on a raw corpus (16a-16b prepare_dataset with --resample-dir, 16c
+    prepare_tokens with the emilia tokenizer and make_tokens over the
+    prepared manifest, 16d compute_fbank card vs CPU, 16e the native
+    loader, 16f the train CLI, 16g PrecomputedFeatureCollator over 16d's
+    shards).  Stage 2's manifest has segment rows (start and end, as stage
+    0 writes every row), which the collator crops file by file, as the
+    reference package's does; the same rows as whole files with their
+    offline tokens (4 columns) take the native loader in every batch."""
+    import numpy as np
+
+    from zipvoice_tpu_torch.bin import make_tokens, prepare_dataset, prepare_tokens
+    from zipvoice_tpu_torch.data.dataset import PrecomputedFeatureCollator, read_tsv_manifest
+    from zipvoice_tpu_torch.text.tokenizer import get_tokenizer
+
+    t0 = time.monotonic()
+    d = make_raw_corpus(root, manifest)
+    n_raw = len((d / "raw.tsv").read_text().splitlines())
+    prep = prepare_dataset.main(["--tsv-path", str(d / "raw.tsv"), "--output-dir", str(d),
+                                 "--resample-dir", str(d / "resampled")])
+    if (prep["kept"], prep["dropped"]) != (n_raw - 2, 2):
+        raise AssertionError(f"prepare_dataset: kept {prep['kept']} dropped {prep['dropped']} "
+                             f"of {n_raw}, want {n_raw - 2} and 2")
+    utts = read_tsv_manifest(prep["manifest"])
+    resampled = [u.uid for u in utts if "/resampled/" in u.wav_path]
+    if resampled != ["extra0", "extra1", "extra2", "extra3"]:
+        raise AssertionError(f"prepare_dataset: resampled {resampled}")
+    tok_tsv = prepare_tokens.main(["--manifest", prep["manifest"], "--output",
+                                   str(d / "custom_train_tokens.tsv"), "--tokenizer", "emilia"])
+    tokens = Path(make_tokens.main(["--manifest", prep["manifest"], "--tokenizer", "emilia",
+                                    "--output", str(d / "tokens_emilia.txt")]))
+    tok_utts = read_tsv_manifest(tok_tsv)
+    n_tokens = len(tokens.read_text().splitlines())
+    if len(tok_utts) != len(utts) or not all(u.token_strs for u in tok_utts):
+        raise AssertionError("prepare_tokens: rows without tokens")
+    print(f"stages 0-1: prepare_dataset kept {prep['kept']} and dropped {prep['dropped']} of "
+          f"{n_raw} rows ({len(resampled)} resampled to 24 kHz), prepare_tokens (emilia) "
+          f"{len(tok_utts)} rows, make_tokens {n_tokens} tokens in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    feats_dir, fbank_err, beyond_ulp, fbank_s = check_fbank_card_vs_cpu(
+        d, Path(prep["manifest"]), card)
+    loader_ms, loader_err = check_native_loader(manifest, card)
+
+    seg_launches, seg_loads, seg_ms = run_prep_training(root, d, Path(tok_tsv), tokens,
+                                                        "custom_train_tokens.tsv", card)
+    if seg_loads[0] != 0 or seg_loads[1] < PREP_STEPS:
+        raise AssertionError(f"stage 2: segment rows loaded {seg_loads} (native, per file)")
+    whole = d / "custom_train_tokens_whole.tsv"
+    whole.write_text("".join(f"{u.uid}\t{u.text}\t{u.wav_path}\t{' '.join(u.token_strs)}\n"
+                             for u in tok_utts if u.uid != "segment"))
+    launches, loads, step_ms = run_prep_training(root, d, whole, tokens, "whole files", card)
+    if loads[0] < PREP_STEPS or loads[1] != 0:
+        raise AssertionError(f"stage 2 on whole files: loads {loads} (native, per file): the "
+                             "native path was not taken in every batch")
+
+    tokenizer = get_tokenizer("emilia", str(tokens))
+    col = PrecomputedFeatureCollator(tokenizer, str(feats_dir / "custom_train_feats.tsv"),
+                                     str(feats_dir))
+    batch = col(tok_utts[:8])
+    first = np.load(feats_dir / "custom_train_feats_00000.npz")[tok_utts[0].uid]
+    if (batch["features_lens"][0] != first.shape[0]
+            or not np.array_equal(batch["features"][0, : first.shape[0]],
+                                  first.astype(np.float32) * 0.1)):
+        raise AssertionError("PrecomputedFeatureCollator: row 0 is not its shard's features")
+    secs = time.monotonic() - t0
+    print(f"phase 16: {secs:.1f} s on {card}", flush=True)
+    return dict(launches=launches, segment_launches=seg_launches, loads=loads,
+                segment_loads=seg_loads, step_ms=step_ms, segment_step_ms=seg_ms,
+                loader_ms=loader_ms, loader_err=loader_err, fbank_err=fbank_err,
+                fbank_beyond_ulp=beyond_ulp, fbank_s=fbank_s, seconds=secs)
+
+
+class _StandInSSL:
+    """Phase 17's stand-in for WavLM-large (the card's machine has no
+    transformers): ``config.num_hidden_layers`` and, for a (B, T) wave, 25
+    seeded (B, T // 320, 1024) hidden states, the same on every device."""
+
+    def __new__(cls):
+        import types
+
+        import torch
+
+        class SSL(torch.nn.Module):
+            config = types.SimpleNamespace(num_hidden_layers=24)
+
+            def forward(self, wave, output_hidden_states=True):
+                g = torch.Generator().manual_seed(170)
+                shape = (25, wave.shape[0], wave.shape[1] // 320, 1024)
+                states = torch.randn(shape, generator=g).to(wave.device)
+                return types.SimpleNamespace(hidden_states=tuple(states))
+
+        return SSL()
+
+
+def run_phase17(root: Path, card: str):
+    """Phase 17: the evaluation models and CLIs.  A full-width UTMOS22Strong
+    with seeded random weights saved as a local checkpoint: its forward on
+    two 3 s clips card vs CPU (relative L2 <= 1e-4, f32) and its ms on the
+    card, the MOS CLI on phase 5's f32 wavs (a finite score a wav); the
+    ECAPA-TDNN head at full width (feat_dim 1024, channels 512, emb_dim
+    256) over a stand-in SSL module, card vs CPU; the cpSIM CLI on a stereo
+    conversation with the tests' fake encoder; wer.score_pairs on fixed
+    transcript pairs."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.audio.wav import read_wav, resample, write_wav
+    from zipvoice_tpu_torch.eval import cpsim, mos, sim, wer
+    from zipvoice_tpu_torch.eval.models.ecapa_tdnn_wavlm import ECAPA_TDNN_WavLM
+    from zipvoice_tpu_torch.eval.models.utmos import UTMOS22Strong
+
+    t0 = time.monotonic()
+    d = root / "eval"
+    d.mkdir()
+    torch.manual_seed(17)
+    utmos = UTMOS22Strong().eval()
+    torch.save(utmos.state_dict(), d / "utmos22_strong.pt")
+    wav_dir = root / "out_float32"
+    clips = [resample(read_wav(p)[0][:, : 3 * 24000], 24000, 16000)[0]
+             for p in sorted(wav_dir.glob("*.wav"))[:2]]
+    wave = torch.from_numpy(np.stack(clips))
+    with torch.no_grad():
+        ref = utmos(wave)
+        utmos.cuda()
+        out = utmos(wave.cuda())
+        utmos_ms = time_ms(lambda: utmos(wave.cuda()), iters=5)
+    utmos_err = _rel_l2(out.cpu(), ref)
+    if not torch.isfinite(out).all() or utmos_err > 1e-4:
+        raise AssertionError(f"UTMOS card vs CPU relative L2 {utmos_err:.3g} > 1e-4 ({out})")
+    del utmos
+    res = mos.main(["--wav-dir", str(wav_dir), "--checkpoint", str(d / "utmos22_strong.pt"),
+                    "--out", str(d / "utmos.tsv"), "--device", "cuda"])
+    n_wavs = len(list(wav_dir.glob("*.wav")))
+    lines = (d / "utmos.tsv").read_text().strip().split("\n")
+    if len(lines) != n_wavs + 1 or not all(np.isfinite([s for _, s in res["rows"]])):
+        raise AssertionError(f"MOS CLI: {lines}")
+
+    torch.manual_seed(18)
+    head = ECAPA_TDNN_WavLM(feat_dim=1024, channels=512, emb_dim=256, ssl=_StandInSSL()).eval()
+    wave = torch.from_numpy(np.random.default_rng(17).standard_normal((2, 48000))
+                            .astype(np.float32) * 0.1)
+    with torch.no_grad():
+        ref = head(wave)
+        cpu_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            head(wave)
+            cpu_ms.append((time.perf_counter() - t1) * 1e3)
+        ecapa_cpu_ms = float(np.median(cpu_ms))
+        head.cuda()
+        out = head(wave.cuda())
+        ecapa_ms = time_ms(lambda: head(wave.cuda()), iters=5)
+    ecapa_err = _rel_l2(out.cpu(), ref)
+    if out.shape != (2, 256) or not torch.isfinite(out).all() or ecapa_err > 1e-4:
+        raise AssertionError(f"ECAPA card vs CPU relative L2 {ecapa_err:.3g} > 1e-4")
+    del head
+
+    sr = 24000
+    t = np.arange(sr) / sr
+    spk = [np.sin(2 * np.pi * f * t).astype(np.float32) for f in (220, 1760)]
+    (d / "gen").mkdir()
+    write_wav(d / "gen" / "c0.wav", np.stack([spk[1], spk[0]]), sr)
+    write_wav(d / "p1.wav", spk[0][None, :], sr)
+    write_wav(d / "p2.wav", spk[1][None, :], sr)
+    (d / "list.tsv").write_text(f"c0\tt1\tt2\t{d / 'p1.wav'}\t{d / 'p2.wav'}\ttext\n")
+
+    class FakeEncoder:
+        """tests/test_eval.py's spectral-centroid embedding."""
+
+        def __init__(self, *a, **k):
+            pass
+
+        def embed(self, w, rate):
+            spec = np.abs(np.fft.rfft(np.asarray(w, np.float64).ravel()[:4096]))
+            c = (spec * np.arange(spec.size)).sum() / (spec.sum() + 1e-9)
+            return np.array([1.0, c / 1000.0])
+
+    saved = sim.SpeakerEncoder
+    sim.SpeakerEncoder = FakeEncoder
+    try:
+        cp = cpsim.main(["--wav-dir", str(d / "gen"), "--test-list", str(d / "list.tsv"),
+                         "--prompt-mode", "split", "--device", "cuda"])
+    finally:
+        sim.SpeakerEncoder = saved
+    if not cp["cpSIM"] > 0.99:
+        raise AssertionError(f"cpSIM CLI: {cp}")
+    scores = wer.score_pairs([("u0", "hello world", "hello world"),
+                              ("u1", "a b c d", "a x c d")], "en")
+    if abs(scores["wer_avg"] - 0.125) > 1e-12 or abs(scores["wer"] - 1 / 6) > 1e-12:
+        raise AssertionError(f"score_pairs: {scores}")
+    secs = time.monotonic() - t0
+    print(f"phase 17: UTMOS22-strong (full width) card vs CPU relative L2 {utmos_err:.3g}, "
+          f"forward {utmos_ms:.2f} ms on the card (B=2, 3 s at 16 kHz); MOS CLI "
+          f"{res['UTMOS']:.3f} over {n_wavs} wavs; ECAPA head (1024/512/256) card vs CPU "
+          f"{ecapa_err:.3g}, forward {ecapa_ms:.2f} ms on the card, {ecapa_cpu_ms:.1f} ms on the "
+          f"host's CPU (median of 3; B=2, 3 s, stand-in SSL); cpSIM {cp['cpSIM']:.4f}; "
+          f"WER {scores['wer']:.4f}; {secs:.1f} s on {card}", flush=True)
+    return dict(utmos_err=utmos_err, utmos_ms=utmos_ms, ecapa_err=ecapa_err, ecapa_ms=ecapa_ms,
+                ecapa_cpu_ms=ecapa_cpu_ms, mos=res["UTMOS"], cpsim=cp["cpSIM"], seconds=secs)
+
+
 def _variant_extras(results, variants, key):
     """B1's / B2's launches a request of each variant (replayed) and its
     times at the distill shape (B=1, H=4, T=1024, f32)."""
@@ -3729,6 +4210,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         p15 = run_phase15(root, manifest, card, graph_res["bfloat16"]["rtf"]["replay"],
                           reg_ms, 6, worker)
+        gc.collect()
+        torch.cuda.empty_cache()
+        p16 = run_phase16(root, manifest, card)
+        p17 = run_phase17(root, card)
     finally:
         if worker is not None and worker[0].poll() is None:
             worker[0].kill()
@@ -3746,6 +4231,7 @@ def main() -> int:
                       launches_per_bigvgan_request=bigvgan["launches"]["B1"] // 2,
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B1"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B1"],
+                      launches_per_prep_train_step=p16["launches"]["B1"],
                       **_phase14_launches(ddp, two_ranks, policies, "B1"),
                       **_phase15_launches(p15, "B1"),
                       **_variant_extras(results, variants, "B1")),
@@ -3760,6 +4246,7 @@ def main() -> int:
                       launches_per_bigvgan_request=bigvgan["launches"]["B2"] // 2,
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B2"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B2"],
+                      launches_per_prep_train_step=p16["launches"]["B2"],
                       **_phase14_launches(ddp, two_ranks, policies, "B2"),
                       **_phase15_launches(p15, "B2"),
                       **_variant_extras(results, variants, "B2")),
@@ -3770,6 +4257,7 @@ def main() -> int:
                       launches_per_train_step=reg_step["B3"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B3"],
                       launches_per_stereo_step=recipes["stereo"]["launches"]["B3"],
+                      launches_per_prep_train_step=p16["launches"]["B3"],
                       **_phase14_launches(ddp, two_ranks, policies, "B3")),
         _kernel_entry(results, "B4", "rel_attention_ds", "zipvoice_tpu_torch/csrc/rel_ds.cu",
                       "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
@@ -3801,6 +4289,7 @@ def main() -> int:
                       next(k for k in results["B8"] if k[0] == "10 s"), "B=8 10 s (938 frames)",
                       launches_per_train_step=reg_step["B8"],
                       launches_per_stereo_step=recipes["stereo"]["launches"]["B8"],
+                      launches_per_prep_train_step=p16["launches"]["B8"],
                       launches_per_distributed_step=ddp["launches"]["B8"] / DDP_STEPS,
                       cufft_ms=next(r["cufft_ms"] for k, r in results["B8"].items()
                                     if k[0] == "10 s")),
@@ -3815,6 +4304,7 @@ def main() -> int:
     missing += [f"{k} ({name})" for name, v in variants.items() for k in ("B1", "B2")
                 if not v["launches"][k]]
     missing += [f"{k} (bigvgan)" for k in ("B1", "B2") if not bigvgan["launches"][k]]
+    missing += [f"{k} (stage 2)" for k in ("B1", "B2", "B3", "B8") if not p16["launches"][k]]
     missing += [f"{k} ({name})" for name, v in recipes.items()
                 for k in (("B1", "B2", "B4", "B8") if name.startswith("distill")
                           else ("B1", "B2", "B3", "B8") if not name.startswith("served")
@@ -3880,6 +4370,14 @@ def main() -> int:
         + f"; exported rtf at {N_STEP} steps fused {ex['fused']['rtf']:.5f}, host loop "
         f"{ex['host-loop']['rtf']:.5f}; MFU request {mfu['request_mfu']:.4f}, train step "
         f"{mfu['step_mfu']:.4f} on {card}", flush=True)
+    print(f"data preparation: stage 2 step {p16['segment_step_ms']:.1f} ms on the segment rows "
+          f"(per-file loads), {p16['step_ms']:.1f} ms on whole files (native loads); the "
+          f"native loader {p16['loader_ms']['native']:.2f} ms against "
+          f"{p16['loader_ms']['per-file']:.2f} ms per file for B=8; compute_fbank card vs CPU "
+          f"{p16['fbank_err']:.3g}; evaluation: UTMOS {p17['utmos_ms']:.2f} ms, ECAPA head "
+          f"{p17['ecapa_ms']:.2f} ms on the card ({p17['ecapa_cpu_ms']:.1f} ms on the CPU); "
+          f"phases 16-17 {p16['seconds'] + p17['seconds']:.1f} s; total "
+          f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

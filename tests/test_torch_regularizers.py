@@ -159,6 +159,39 @@ def test_scaled_adam_matches_jax(clipping):
         _close(tp[k].detach().numpy(), np.asarray(params[k]))
 
 
+def test_scalar_updates_can_cancel_to_the_bit_like_jax():
+    """A 0-d parameter (BiasNorm's log_scale) can end bit-equal to its start
+    after steps that each moved it: ScaledAdam's scalar path at LR 1e-4
+    moves it by ~1e-6 a step (8 ulps at 1.0), and alternating gradient signs
+    (the stereo fine-tune alternates its two objectives a batch) make the
+    rounded updates sum to zero.  The gradients are those of the first
+    fm_decoder layer of stack 1 in the stereo recipe's 4 steps (a CPU run
+    at full depth, narrow width).  JAX's optimizer and the port's take the
+    same rounded updates, +8, -1, +2 and -9 ulps."""
+    p0 = np.uint32(1065353227).view(np.float32)
+    grads = [np.uint32(b).view(np.float32)
+             for b in (3144066501, 998287104, 3130216181, 1000061048)]
+    jopt = scaled_adam()
+    params = {"log_scale": jnp.asarray(p0)}
+    state = jopt.init(params)
+    jtrace = []
+    for g in grads:
+        upd, state = jopt.update({"log_scale": jnp.asarray(g)}, state, params, 1e-4)
+        params = apply_updates(params, upd)
+        jtrace.append(np.float32(params["log_scale"]))
+    p = torch.nn.Parameter(torch.tensor(p0))
+    opt = ScaledAdam([("log_scale", p)])
+    trace = []
+    for g in grads:
+        p.grad = torch.tensor(g)
+        opt.step(1e-4)
+        trace.append(np.float32(p.detach().numpy()))
+    assert [t.view(np.uint32) for t in trace] == [t.view(np.uint32) for t in jtrace]
+    ulps = np.diff(np.array([p0] + trace).view(np.uint32).astype(np.int64))
+    assert list(ulps) == [8, -1, 2, -9]
+    assert trace[-1] == p0
+
+
 def _signs_of_hold_form(g_out, ct, x, grad_scale):
     """Asserts g_out - ct == s_c * grad_scale * |ct| * x / rms_c(x) in each
     channel c, with s_c in {-1, 0, +1}; returns the s_c."""

@@ -452,6 +452,38 @@ def test_generate_averaged_model_matches_jax(tmp_path, monkeypatch):
             assert v.dtype == ref[k].dtype and torch.equal(v.reshape(-1), ref[k].reshape(-1)), k
 
 
+def test_average_without_model_avg_matches_jax(tmp_path, monkeypatch, caplog):
+    """Checkpoints written without a running average (by other tools):
+    the averaging CLI logs JAX's warning and writes the f64 mean of the two
+    checkpoints' weights, equal to the JAX CLI's output."""
+    from zipvoice_tpu.bin import generate_averaged_model as javg
+    from zipvoice_tpu_torch.bin import generate_averaged_model as tavg
+
+    _, model = _model("base", 8)
+    g = torch.Generator().manual_seed(1)
+    for i in (2, 4):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(torch.randn(p.shape, generator=g) * 0.01)
+        torch.save({"model": dict(model.state_dict()), "batch_idx_train": i},
+                   tmp_path / f"checkpoint-{i}.pt")
+    args = ["--exp-dir", str(tmp_path), "--iter", "4", "--avg", "1"]
+    with caplog.at_level("WARNING"):
+        out = tavg.main(args + ["--out", str(tmp_path / "port.pt")])
+    assert any("model_avg missing" in r.getMessage() for r in caplog.records)
+    monkeypatch.setattr(sys, "argv", ["avg", *args, "--out", str(tmp_path / "jax.pt")])
+    javg.main()
+    ours = tckpt.load_checkpoint(out)["model"]
+    ref = torch.load(tmp_path / "jax.pt", weights_only=False)["model"]
+    a = torch.load(tmp_path / "checkpoint-2.pt", weights_only=False)["model"]
+    b = torch.load(tmp_path / "checkpoint-4.pt", weights_only=False)["model"]
+    assert sorted(ours) == sorted(ref) == sorted(a)
+    for k, v in ours.items():
+        assert v.dtype == ref[k].dtype == torch.float32
+        assert torch.equal(v.reshape(-1), ref[k].reshape(-1)), k
+        assert torch.equal(v, ((a[k].double() + b[k].double()) / 2).float()), k
+
+
 @pytest.mark.parametrize("feature,three_channel", [("bigvgan", False), ("vocos", True)])
 def test_fbank_collator_matches_jax(tmp_path, feature, three_channel):
     """The training collator's features against JAX's: the bigvgan fbank

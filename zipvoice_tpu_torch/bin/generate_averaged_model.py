@@ -5,7 +5,9 @@ running averages: ``--epoch N --avg K`` averages epochs (N - K, N] from
 epoch-{N-K}.pt and epoch-N.pt; ``--iter N --avg K`` takes the newest
 checkpoint-*.pt at or below N and the K-th older one.  The output is
 {"model": state_dict} (f32), which loads as a model dir's model.pt, a
---checkpoint or a --teacher-checkpoint.
+--checkpoint or a --teacher-checkpoint.  Checkpoints written without a
+running average give the plain mean of their two weight sets, with a
+warning.
 
 Example (``egs/zipvoice/run_distill.sh``):
   python -m zipvoice_tpu_torch.bin.generate_averaged_model \\

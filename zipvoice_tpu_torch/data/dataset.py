@@ -3,20 +3,22 @@ computed on the device.
 
 Manifest format: ``id\\ttext\\twav_path`` or ``id\\ttext\\twav_path\\tstart\\tend``
 (start/end in seconds within the wav); a trailing tokens column may follow.
-Audio is read and resampled on the host (numpy), padded to a frame
-bucket, and its log-mel runs on the device: the Vocos features through the
-B8 kernel (``ops/melspec.fused_log_mel``) at any frame count, the BigVGAN
-features through ``audio/mel.bigvgan_log_mel`` (plain PyTorch, as the
-reference package computes them outside any kernel).  The stereo recipe's
-collator (``three_channel``) gives [ch0 mel, ch1 mel, mel of the mix].
-``PrecomputedFeatureCollator`` reads offline fbank shards instead (npz
-shards and an index TSV, as ``zipvoice_tpu/bin/compute_fbank.py`` writes
-them) and returns host arrays.
+Audio is read and resampled on the host (a batch of whole mono files on
+the native loader's threads, ``ops/native.py``; anything else in numpy),
+padded to a frame bucket, and its log-mel runs on the device: the Vocos
+features through the B8 kernel (``ops/melspec.fused_log_mel``) at any
+frame count, the BigVGAN features through ``audio/mel.bigvgan_log_mel``
+(plain PyTorch, as the reference package computes them outside any
+kernel).  The stereo recipe's collator (``three_channel``) gives [ch0 mel,
+ch1 mel, mel of the mix].  ``PrecomputedFeatureCollator`` reads offline
+fbank shards instead (npz shards and an index TSV, as
+``bin/compute_fbank.py`` writes them) and returns host arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
@@ -261,6 +263,34 @@ class OnDeviceFbankCollator:
             wav = resample(wav, sr, self.feat_cfg.sampling_rate)
         return wav if self.three_channel else wav[0]
 
+    def _load_batch_audio(self, utts: List[Utterance]) -> List[np.ndarray]:
+        """The batch's audio: decoded and resampled on the native loader's
+        threads (``ops/native.py``) when every row is a whole mono file and
+        the library is available, else ``load_audio`` file by file."""
+        sr_t = self.feat_cfg.sampling_rate
+
+        def full_file(u: Utterance) -> bool:
+            # the native loader reads whole files: a manifest segment row
+            # (a duration without a probed num_samples) takes load_audio's crop
+            return u.start == 0.0 and (u.duration is None or u.num_samples is not None)
+
+        if not self.three_channel and all(full_file(u) for u in utts):
+            try:
+                from zipvoice_tpu_torch.ops import native
+
+                if native.available():
+                    for u in utts:
+                        if u.sample_rate is None:
+                            probe_duration(u)
+                    exp = [-(-u.num_samples * sr_t // u.sample_rate) for u in utts]
+                    audio, lens = native.batch_load_wav([u.wav_path for u in utts], sr_t,
+                                                        int(max(exp)))
+                    return [audio[i, : lens[i]] for i in range(len(utts))]
+            except Exception as ex:  # noqa: BLE001 - the numpy path, with a warning
+                logging.warning("native IO batch load failed (%s: %s); numpy fallback",
+                                type(ex).__name__, ex)
+        return [self.load_audio(u) for u in utts]
+
     def fbank(self, audio: torch.Tensor) -> torch.Tensor:
         """(R, L) f32 on the device, L a multiple of hop -> (R, >= L/hop,
         n_mels) model-space features: the center-padded Vocos log-mel (L/hop
@@ -283,7 +313,7 @@ class OnDeviceFbankCollator:
 
         hop = self.feat_cfg.hop_length
         _ensure_tokens(self.tokenizer, utts)
-        wavs = [self.load_audio(u) for u in utts]
+        wavs = self._load_batch_audio(utts)
         num_frames = [compute_num_frames(w.shape[-1], hop) for w in wavs]
         t_pad = round_up(max(num_frames), self.frame_bucket)
         b_pad = round_up(len(utts), self.batch_bucket)

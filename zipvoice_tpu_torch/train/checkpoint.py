@@ -13,6 +13,7 @@ at the top level.
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import re
 from typing import Any, Dict, List, Optional
@@ -85,9 +86,19 @@ def average_checkpoints_with_averaged_model(filename_start: str,
                                             filename_end: str) -> Dict[str, torch.Tensor]:
     """The average over batches (start, end] from the two running averages:
     (avg_end * end - avg_start * start) / (end - start), computed without
-    overflow.  Returns a float32 state_dict."""
+    overflow.  Returns a float32 state_dict.  Checkpoints written without a
+    running average (by other tools) give the plain mean of the two
+    checkpoints' ``model`` weights, with a warning."""
     cs = torch.load(filename_start, map_location="cpu", weights_only=False)
     ce = torch.load(filename_end, map_location="cpu", weights_only=False)
+    if "model_avg" not in cs or "model_avg" not in ce:
+        logging.warning(
+            "model_avg missing in %s / %s; falling back to the plain mean of "
+            "the two checkpoints' raw weights (NOT the running-average "
+            "differencing recipe)", filename_start, filename_end,
+        )
+        return {k: ((v.double() + cs["model"][k].double()) / 2.0).float()
+                for k, v in ce["model"].items()}
     period = cs["average_period"]
     b_start = (cs["batch_idx_train"] // period) * period
     b_end = (ce["batch_idx_train"] // period) * period
