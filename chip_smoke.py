@@ -134,8 +134,8 @@ Phases (each raises on failure; nothing is caught):
      regularizers and 3 without with the parameters bit-identical after
      each, the launches a rank's step pinned, files in rank 0's exp dir
      only; 14c, one regularized step under each --remat-policy (full, all,
-     dots, xprobs, xprobs_ff) at B=8, T=1024: step ms (medians of 3 in
-     turns), peak memory, B1/B2/B3 launches pinned, and the f32 gradients
+     dots, xprobs, xprobs_ff) at B=8, T=1024: step ms (one timed round in
+     turns after a warm one), peak memory, B1/B2/B3 launches pinned, and the f32 gradients
      at T=512 against full's (and full's against itself); 14d,
      --print-diagnostics (every statistic finite) and --scan-oom (the
      state after it bit-equal to a fresh one).
@@ -190,6 +190,24 @@ Phases (each raises on failure; nothing is caught):
      MOS CLI on phase 5's f32 wavs), the ECAPA-TDNN head at full width over
      a stand-in SSL module (card vs CPU), the cpSIM CLI on a stereo wav with
      the tests' fake encoder, wer.score_pairs on fixed pairs.
+  18. tensor and sequence parallelism: 18a, B1 and B2 on rectangular score
+     tiles (Tq query rows against Tk keys, the rows' window of pe) against
+     their plain versions, f32 and bf16, at B=2, H=4: Tq 1536 of Tk 3072 at
+     r0 0 and 1536, Tq 256 of 1024 and Tq 20 of 40, one row's keys padded,
+     with times and bounds beside phase 3's square T=1024 times; then two
+     gloo ranks sharing the card (NCCL refuses two ranks on one card,
+     14b): 18b, models/zipvoice.sp_sample at full width (phase 4's
+     weights, f32, TF32 off) on one request of 3072 frames (32.8 s), 16
+     steps with CFG, against one process's sample on the card with the
+     same noise (relative L2 <= 1e-4), each rank's launches (B1 260, B2
+     520) and collectives pinned (gloo runs each on the CUDA tensors
+     itself), the wall of both; 18c, tp = 2:
+     one f32 step's summed gradient (B=8, T=1024, no regularizers) against
+     one process's on the same rows and draws (relative L2 a group <=
+     1e-5), then 2 bf16 steps with the regularizers through
+     make_train_step(mesh=...): finite losses, every shard updated, B1 40
+     / B2 80 / B3 60 a step, the all-reduces a step pinned, the
+     feedforward shards at local shape (1536 -> 768).
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -2874,10 +2892,10 @@ def _policy_batch(cfg, b: int = 8, t: int = 1024, s: int = 160):
             "features_lens": torch.randint(t - 160, t + 1, (b,), generator=g)}
 
 
-def compare_remat_policies(root: Path, card: str, rounds: int = 3):
+def compare_remat_policies(root: Path, card: str, rounds: int = 1):
     """14c: the five --remat-policy choices on one regularized bf16 step at
     B=8, T=1024 (full width): step ms (median of ``rounds``, the policies in
-    turns after a warm round), peak memory and the B1/B2/B3 launches a step
+    turns after a warm round; one round since phase 18 took its time), peak memory and the B1/B2/B3 launches a step
     (pinned); then one f32 gradient under each at B=8, T=512 against
     full's (bit-equal tensors counted, the largest relative L2; "full"
     against a second run of itself).  Returns {policy: results}."""
@@ -2953,8 +2971,8 @@ def compare_remat_policies(root: Path, card: str, rounds: int = 3):
         zf.set_remat_policy("full")
     for pol, r in res.items():
         r["step_ms"] = float(np.median(r["ms"]))
-    print("14c remat policies (one regularized bf16 step, B=8 T=1024, full width; medians "
-          f"of {rounds} in turns): "
+    print("14c remat policies (one regularized bf16 step, B=8 T=1024, full width; "
+          f"{rounds} timed round(s) in turns after a warm one): "
           + "; ".join(f"{p} {r['step_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB, launches "
                       f"{r['launches']}, f32 gradient vs full's: {r['bit_equal']} tensors "
                       f"bit-equal, max relative L2 {r['max_rel_l2']:.2e}"
@@ -4088,6 +4106,21 @@ def _phase14_launches(ddp, two_ranks, policies, key):
                                                    for p, r in policies.items()}}
 
 
+def _phase18_extras(p18, key):
+    """B1's or B2's phase-18 numbers: each rectangular case of 18a (its
+    error, kernel, plain, library and bound ms), the launches of a rank's
+    sequence-parallel request (18b) and of a rank's tensor-parallel step
+    (18c)."""
+    rect = {f"Tq={tq} Tk={tk} r0={r0} {dn}": {
+        "max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+        for (tq, tk, r0, dn), r in p18["rect"][key].items()}
+    return {"rectangular": rect,
+            "rectangular_max_abs_err": max(r["abs_err"] for r in p18["rect"][key].values()),
+            "launches_per_sp_request_rank": p18["ranks"][0]["sp"]["launches"][key],
+            "launches_per_tp_step": p18["ranks"][0]["tp_steps"][-1]["launches"][key]}
+
+
 def _phase15_launches(p15, key):
     """A kernel's launches a request in phase 15: int8 serving unfused and
     with the fused eval path (bf16 int8 and int8-dynamic), and the exported
@@ -4100,6 +4133,368 @@ def _phase15_launches(p15, key):
                                                 for k, r in int8.items()},
             "launches_per_exported_request": {m: ex[m]["launches"][key]
                                               for m in ("fused", "host-loop", "int8-dynamic")}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: B1 and B2 on rectangular score tiles (18a), the
+# sequence-parallel sampler (18b) and a tensor-parallel training step (18c)
+# ---------------------------------------------------------------------------
+
+# (Tq, Tk, r0, kind): query rows [r0, r0 + Tq) of a T = Tk problem against
+# every key; the 18b request's two halves at stack 0 (B=2 is its CFG
+# batch), a quarter of a 1024-frame one with a padded key tail, and a
+# text-encoder-sized one
+RECT_CASES = [(1536, 3072, 0, "first half"), (1536, 3072, 1536, "second half"),
+              (256, 1024, 384, "quarter"), (20, 40, 20, "text")]
+SP_FRAMES = 3072  # 32.8 s at 93.75 frames a second, beyond the 30 s cap
+SP_RANKS = 2
+SP_TOL = 1e-4  # relative L2 of the SP output against one process's, f32 without TF32
+TP_STEPS = 2
+
+
+def check_rect_kernels(square, card: str):
+    """18a: B1 and B2 on rectangular tiles against their plain versions on
+    the same inputs, f32 and bf16, at (B=2, H=4) (RECT_CASES; one batch
+    row's keys padded), with their times and bounds beside the square
+    T=1024 times of phase 3 (``square``)."""
+    import torch
+
+    from zipvoice_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    b, h, qd, pd, vd = 2, 4, 32, 4, 12
+    results = {"B1": {}, "B2": {}}
+    for tq, tk, r0, kind in RECT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            s = torch.finfo(dtype).bits // 8
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+            q, k, pq, pe, v = rnd(b, tk, h, qd), rnd(b, tk, h, qd), rnd(b, tk, h, pd), \
+                rnd(2 * tk - 1, h, pd), rnd(b, tk, h, vd)
+            mask = torch.arange(tk, device="cuda")[None, :] >= torch.tensor(
+                [tk, tk - tk // 3 - 1], device="cuda")[:, None]
+            rows = slice(r0, r0 + tq)
+            qr, pqr = q[:, rows].contiguous(), pq[:, rows].contiguous()
+            pw = pe[tk - r0 - tq: 2 * tk - 1 - r0].contiguous()
+            out = att.rel_attention_probs(qr, k, pqr, pw, mask, out_dtype=dtype)
+            ref = att.rel_attention_probs_plain(qr, k, pqr, pw, mask, out_dtype=dtype)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = 2e-5 if dtype == torch.float32 else 8e-3  # phase 3's
+            k_ms = time_ms(lambda: att.rel_attention_probs(qr, k, pqr, pw, mask,
+                                                           out_dtype=dtype))
+            p_ms = time_ms(lambda: att.rel_attention_probs_plain(qr, k, pqr, pw, mask,
+                                                                 out_dtype=dtype))
+            nbytes = s * (b * tq * h * qd + b * tk * h * qd + b * tq * h * pd
+                          + (tq + tk - 1) * h * pd) + b * tk + s * b * h * tq * tk
+            bnd, by = bound_ms(nbytes, 2 * b * h * tq * tk * (qd + pd), dn)
+            results["B1"][(tq, tk, r0, dn)] = dict(abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms,
+                                                   library_ms=None, bound_ms=bnd, bound_by=by)
+            sq = square["B1"][(2, 1024, dn)]["ms"]
+            print(f"18a B1 rel_probs rectangular Tq={tq} of Tk={tk} (r0={r0}, {kind}) {dn}: "
+                  f"max_abs_err {err:.3g} (tol {tol:g}) kernel_ms {k_ms:.4f} plain_ms "
+                  f"{p_ms:.4f} bound_ms {bnd:.4f} ({by}); square T=1024 kernel_ms {sq:.4f} "
+                  f"(phase 3) on {card}", flush=True)
+            if not err <= tol:
+                raise AssertionError(f"B1 rectangular disagrees at Tq={tq} Tk={tk} r0={r0} "
+                                     f"{dn}: {err} > {tol}")
+
+            o = att.rel_attention_probs_apply(out, v)
+            oref = att.rel_attention_probs_apply_plain(out, v)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(oref.float().abs().max()))
+            err2 = float((o.float() - oref.float()).abs().max())
+            tol2 = (2e-5 if dtype == torch.float32 else 8e-3) * scale
+            v_hm = v.permute(0, 2, 1, 3).contiguous()
+            k2 = time_ms(lambda: att.rel_attention_probs_apply(out, v))
+            p2 = time_ms(lambda: att.rel_attention_probs_apply_plain(out, v))
+            l2 = time_ms(lambda: torch.matmul(out, v_hm))
+            nbytes2 = s * (b * h * tq * tk + b * tk * h * vd + b * tq * h * vd)
+            bnd2, by2 = bound_ms(nbytes2, 2 * b * h * tq * tk * vd, dn)
+            results["B2"][(tq, tk, r0, dn)] = dict(abs_err=err2, tol=tol2, ms=k2, plain_ms=p2,
+                                                   library_ms=l2, bound_ms=bnd2, bound_by=by2)
+            sq2 = square["B2"][(2, 1024, dn)]["ms"]
+            print(f"18a B2 probs_apply rectangular Tq={tq} of Tk={tk} (r0={r0}, {kind}) {dn}: "
+                  f"max_abs_err {err2:.3g} (tol {tol2:.3g}) kernel_ms {k2:.4f} plain_ms "
+                  f"{p2:.4f} library_ms {l2:.4f} bound_ms {bnd2:.4f} ({by2}); square T=1024 "
+                  f"kernel_ms {sq2:.4f} (phase 3) on {card}", flush=True)
+            if not err2 <= tol2:
+                raise AssertionError(f"B2 rectangular disagrees at Tq={tq} Tk={tk} r0={r0} "
+                                     f"{dn}: {err2} > {tol2}")
+            del q, k, pq, pe, v, out, ref, o, oref, v_hm
+    return results
+
+
+def _sp_request(cfg, frames: int = SP_FRAMES):
+    """18b's request: one utterance of ``frames`` frames, a 3 s prompt,
+    ~400 tokens, from a fixed seed (host tensors)."""
+    import torch
+
+    g = torch.Generator().manual_seed(18)
+    s, t, f = 400, frames, cfg.feat_dim
+    tokens = torch.randint(1, cfg.vocab_size, (1, s + 1), generator=g)
+    tokens[:, s] = cfg.pad_id  # the extra pad of pad_labels
+    return {"tokens": tokens,
+            "tokens_lens": torch.tensor([s]),
+            "prompt_features": 0.1 * torch.randn((1, t, f), generator=g),
+            "prompt_features_lens": torch.tensor([281]),
+            "features_lens": torch.tensor([t]),
+            "noise": torch.randn((1, t, f), generator=g)}
+
+
+SP_ORDER = ("tokens", "tokens_lens", "prompt_features", "prompt_features_lens", "features_lens",
+            "noise")
+
+
+def _tp_inputs(cfg):
+    """18c's rows (phase 14c's B=8, T=1024 batch) and the f32 step's
+    draws."""
+    import torch
+
+    batch = _policy_batch(cfg)
+    g = torch.Generator().manual_seed(19)
+    return batch, torch.randn(batch["features"].shape, generator=g), \
+        torch.rand((batch["features"].shape[0], 1, 1), generator=g)
+
+
+def _phase18_worker(root: str, out: str):
+    """One of two gloo ranks sharing the card: 18b, sp_sample over both
+    ranks (f32, TF32 off; a warm call, then a timed one with the launches
+    and collectives counted); 18c, tp = 2 over both ranks: one f32 step's
+    summed gradient without the regularizers (the rows, noise and t given),
+    gathered, then TP_STEPS bf16 steps with the regularizers through
+    make_train_step(mesh=...), launches and collectives counted a step."""
+    import hashlib
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.parallel import mesh
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+    from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    dev = mesh.init_from_env("cuda", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = mesh.rank()
+    out = Path(out)
+    counters = _counters()
+    res = {}
+
+    model = load_model_dir(root, tokenizer_name="simple").model.eval().to(dev)
+    cfg = model.cfg
+    x = {k: v.to(dev) for k, v in _sp_request(cfg).items()}
+    seq = mesh.make_seq_mesh()
+    args = [x[k] for k in SP_ORDER]
+    zv.sp_sample(model, seq, *args, num_step=N_STEP)  # warm
+    _zero(counters)
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    y = zv.sp_sample(model, seq, *args, num_step=N_STEP)
+    torch.cuda.synchronize()
+    res["sp"] = {"wall_s": time.monotonic() - t0, "launches": _launched(counters),
+                 "collectives": dict(mesh.COUNTS), "backend": dist.get_backend(),
+                 "device": str(y.device)}
+    if r == 0:
+        torch.save(y.cpu(), out / "sp_out.pt")
+    del model, x, args, y
+    torch.cuda.empty_cache()
+
+    model = load_model_dir(root, tokenizer_name="simple").model.to(dev)
+    tp = mesh.make_mesh(n_data=1, n_model=2)
+    mesh.shard_module(model, mesh.tp_param_shardings(model), tp)
+    opt = ScaledAdam(model.named_parameters())
+    batch, noise, t = _tp_inputs(cfg)
+    inputs = {k: v.to(dev) for k, v in batch.items()}
+    with mesh.use_mesh(tp):
+        loss = zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"],
+                                  inputs["features"], inputs["features_lens"], noise.to(dev),
+                                  t.to(dev), 9)
+        loss.backward()
+        (loss,) = mesh.all_reduce_gradients(opt.params, [loss.detach()])
+    grads = {}
+    for name, p in model.named_parameters():
+        shard = getattr(p, "tp_shard", None)
+        grads[name] = (p.grad if shard is None else torch.cat(
+            mesh._all_gather(p.grad, shard.size, shard.group), dim=p.tp_dim)).cpu()
+    if r == 0:
+        torch.save({"grads": grads, "loss": float(loss)}, out / "tp_grads.pt")
+    del grads
+    opt.zero_grad()
+    res["ff_shapes"] = {n: list(p.shape) for n, p in model.named_parameters()
+                        if n.startswith("fm_decoder.encoders.0.layers.0.feed_forward2.")}
+    res["n_ff"] = sum(1 for m in model.modules() if hasattr(m, "tp_shard"))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    step = make_train_step(model, opt, TrainConfig(compute_dtype="bfloat16"), mesh=tp)
+    scheds = zipvoice_schedules(1000.0, cfg)
+    steps = []
+    for i in range(TP_STEPS):
+        _zero(counters)
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = float(step(batch, 30 + i, i + 1, 0.0, scheds)["loss"])
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "ms": (time.monotonic() - t0) * 1e3,
+                      "launches": _launched(counters), "collectives": dict(mesh.COUNTS)})
+    res["tp_steps"] = steps
+    res["unchanged"] = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    res["split"] = [n for n, p in model.named_parameters() if hasattr(p, "tp_shard")]
+    digest = hashlib.blake2b()
+    for n, p in model.named_parameters():
+        if not hasattr(p, "tp_shard"):
+            digest.update(p.detach().cpu().numpy().tobytes())
+    res["replicated_digest"] = digest.hexdigest()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    (out / f"phase18-{r}.json").write_text(json.dumps(res))
+    mesh.shutdown()
+
+
+def run_phase18(root: Path, card: str, square):
+    """Phase 18 (module docstring): 18a on this process; 18b and 18c in two
+    gloo ranks sharing the card (``_phase18_worker``), each against one
+    process on the card here."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.train.dryrun import spawn
+
+    t_phase = time.monotonic()
+    rect = check_rect_kernels(square, card)
+    out = root / "phase18"
+    out.mkdir()
+    here = str(Path(__file__).resolve().parent)  # the workers import this file
+    t0 = time.monotonic()
+    spawn("chip_smoke:_phase18_worker", SP_RANKS, {"root": str(root), "out": str(out)},
+          timeout=600, path=[here])
+    workers_s = time.monotonic() - t0
+    ranks = [json.loads((out / f"phase18-{r}.json").read_text()) for r in range(SP_RANKS)]
+
+    # 18b: one process's sample on the card, same request and noise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = load_model_dir(str(root), tokenizer_name="simple").model.eval().cuda()
+    cfg = model.cfg
+    x = {k: v.cuda() for k, v in _sp_request(cfg).items()}
+    with torch.no_grad():
+        zv.sample(model, *(x[k] for k in SP_ORDER), num_step=N_STEP)  # warm
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ref = zv.sample(model, *(x[k] for k in SP_ORDER), num_step=N_STEP)
+        torch.cuda.synchronize()
+    one_s = time.monotonic() - t0
+    y = torch.load(out / "sp_out.pt")
+    sp_err = _rel_l2(y, ref.cpu())
+    want = {"B1": UNFUSED_PER_REQUEST["B1"], "B2": UNFUSED_PER_REQUEST["B2"]}
+    fm_layers, stacks = sum(cfg.fm_decoder_num_layers), len(cfg.fm_decoder_num_layers)
+    # a step: an all-gather of k, of both SelfAttention values and of the
+    # NonlinAttention values a layer and of the key mask a stack, two halos
+    # a layer; one all-gather of the output
+    want_coll = {"all_reduce": 0, "all_gather": (4 * fm_layers + stacks) * N_STEP + 1,
+                 "halo": 2 * fm_layers * N_STEP}
+    for r, res in enumerate(ranks):
+        got = {k: res["sp"]["launches"].get(k, 0) for k in want}
+        if got != want or res["sp"]["collectives"] != want_coll:
+            raise AssertionError(f"18b rank {r}: launches {got} (want {want}), collectives "
+                                 f"{res['sp']['collectives']} (want {want_coll})")
+    if not (torch.isfinite(y).all() and tuple(y.shape) == tuple(ref.shape)
+            and sp_err <= SP_TOL):
+        raise AssertionError(f"18b sp_sample vs one process: relative L2 {sp_err} > {SP_TOL} "
+                             f"or shape {tuple(y.shape)} / not finite")
+    print(f"18b sequence-parallel sampler (full width, f32, TF32 off): one request of "
+          f"{SP_FRAMES} frames ({SP_FRAMES / 93.75:.1f} s), {N_STEP} steps with CFG, over "
+          f"{SP_RANKS} gloo ranks sharing the card: relative L2 against one process's sample "
+          f"{sp_err:.3g} (tol {SP_TOL:g}); launches a rank {ranks[0]['sp']['launches']}; "
+          f"collectives a rank {ranks[0]['sp']['collectives']}, each run by "
+          f"{ranks[0]['sp']['backend']} on {ranks[0]['sp']['device']} tensors, none through "
+          f"host copies (18c's all-reduces too; 14b's broadcast); wall "
+          f"{ranks[0]['sp']['wall_s']:.2f} s "
+          f"(rank 1 {ranks[1]['sp']['wall_s']:.2f} s) against one process's "
+          f"{one_s:.2f} s on {card}", flush=True)
+    del model, x, ref, y
+
+    # 18c: one process's f32 gradient on the same rows and draws
+    model = load_model_dir(str(root), tokenizer_name="simple").model.cuda()
+    batch, noise, t = _tp_inputs(cfg)
+    inputs = {k: v.cuda() for k, v in batch.items()}
+    loss = zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"],
+                              inputs["features"], inputs["features_lens"], noise.cuda(),
+                              t.cuda(), 9)
+    loss.backward()
+    tpg = torch.load(out / "tp_grads.pt")
+    groups = {}
+    for name, p in model.named_parameters():
+        g = p.grad.cpu()
+        d2, r2 = groups.get(_param_group(name), (0.0, 0.0))
+        groups[_param_group(name)] = (d2 + float(((tpg["grads"][name] - g) ** 2).sum()),
+                                      r2 + float((g ** 2).sum()))
+    errs = {k: (d / max(r, 1e-30)) ** 0.5 for k, (d, r) in groups.items()}
+    worst = max(errs.values())
+    loss_err = abs(tpg["loss"] - float(loss.detach())) / abs(float(loss.detach()))
+    del model, inputs
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    if not (worst <= 1e-5 and loss_err <= 1e-5):
+        raise AssertionError(f"18c tp=2 gradient vs one process: {errs}, loss {loss_err}")
+    want = {k: float(PER_STEP.get(k, 0)) for k in ("B1", "B2", "B3", "B4")}
+    want["B4"] = 0.0
+    for r, res in enumerate(ranks):
+        n_ff = res["n_ff"]
+        # every fm_decoder and text-encoder stack holds >= 2 layers, so each
+        # layer is rematerialized: a feedforward's forward all-reduce runs
+        # twice and its backward one once; the replicated gradients'
+        # average over the model group; ScaledAdam's two whole-tensor sums
+        want_coll = {"all_reduce": 3 * n_ff + 3, "all_gather": 0, "halo": 0}
+        for st in res["tp_steps"]:
+            got = {k: float(st["launches"].get(k, 0)) for k in want}
+            if got != want or st["collectives"] != want_coll or not np.isfinite(st["loss"]):
+                raise AssertionError(f"18c rank {r}: step {st}, want launches {want} and "
+                                     f"collectives {want_coll}")
+        # every shard moves; a replicated tensor may keep its value only if
+        # it is a linear_pos weight, whose gradient is zero in a step whose
+        # pos_emb_skip gate (a host draw, the same in one process) zeroes pq
+        stuck = [n for n in res["unchanged"]
+                 if n in res["split"] or not n.endswith("linear_pos.weight")]
+        if stuck:
+            raise AssertionError(f"18c rank {r}: tensors not updated {stuck[:5]}")
+        if res["ff_shapes"] != {
+                "fm_decoder.encoders.0.layers.0.feed_forward2.in_proj.weight": [768, 512],
+                "fm_decoder.encoders.0.layers.0.feed_forward2.in_proj.bias": [768],
+                "fm_decoder.encoders.0.layers.0.feed_forward2.out_proj.weight": [512, 768],
+                "fm_decoder.encoders.0.layers.0.feed_forward2.out_proj.bias": [512]}:
+            raise AssertionError(f"18c rank {r}: feedforward shards {res['ff_shapes']}")
+    if ([s["loss"] for s in ranks[0]["tp_steps"]] != [s["loss"] for s in ranks[1]["tp_steps"]]
+            or ranks[0]["replicated_digest"] != ranks[1]["replicated_digest"]):
+        raise AssertionError("18c: the ranks' losses or replicated parameters differ")
+    seconds = time.monotonic() - t_phase
+    print(f"18c tensor-parallel training (full width, tp=2 over {SP_RANKS} gloo ranks sharing "
+          f"the card): the f32 step's summed gradient (B=8, T=1024, no regularizers) against "
+          f"one process's on the same rows and draws: worst relative L2 a group {worst:.2e} "
+          f"(tol 1e-5), loss {loss_err:.2e}; {TP_STEPS} bf16 steps with the regularizers: "
+          f"losses {[round(s['loss'], 4) for s in ranks[0]['tp_steps']]}, step ms "
+          f"{[round(s['ms'], 1) for s in ranks[0]['tp_steps']]}, launches a step "
+          f"{ranks[0]['tp_steps'][-1]['launches']}, collectives a step "
+          f"{ranks[0]['tp_steps'][-1]['collectives']} ({ranks[0]['n_ff']} split feedforwards), "
+          f"the replicated parameters bit-identical on both ranks, every one of the "
+          f"{len(ranks[0]['split'])} shards updated (replicated tensors "
+          f"unchanged, their pq zeroed by the pos_emb_skip gate in both steps: "
+          f"{ranks[0]['unchanged']}), feed_forward2 shards {ranks[0]['ff_shapes']}, peak "
+          f"{ranks[0]['peak_gib']:.2f} GiB a rank; workers {workers_s:.1f} s; phase 18: "
+          f"{seconds:.1f} s on {card}", flush=True)
+    return {"rect": rect, "ranks": ranks, "sp_err": sp_err, "sp_one_s": one_s,
+            "tp_grad_err": worst, "seconds": seconds}
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -4214,6 +4609,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         p16 = run_phase16(root, manifest, card)
         p17 = run_phase17(root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        p18 = run_phase18(root, card, results)
     finally:
         if worker is not None and worker[0].poll() is None:
             worker[0].kill()
@@ -4232,6 +4630,7 @@ def main() -> int:
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B1"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B1"],
                       launches_per_prep_train_step=p16["launches"]["B1"],
+                      **_phase18_extras(p18, "B1"),
                       **_phase14_launches(ddp, two_ranks, policies, "B1"),
                       **_phase15_launches(p15, "B1"),
                       **_variant_extras(results, variants, "B1")),
@@ -4247,6 +4646,7 @@ def main() -> int:
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B2"],
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B2"],
                       launches_per_prep_train_step=p16["launches"]["B2"],
+                      **_phase18_extras(p18, "B2"),
                       **_phase14_launches(ddp, two_ranks, policies, "B2"),
                       **_phase15_launches(p15, "B2"),
                       **_variant_extras(results, variants, "B2")),
@@ -4258,6 +4658,7 @@ def main() -> int:
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B3"],
                       launches_per_stereo_step=recipes["stereo"]["launches"]["B3"],
                       launches_per_prep_train_step=p16["launches"]["B3"],
+                      launches_per_tp_step=p18["ranks"][0]["tp_steps"][-1]["launches"]["B3"],
                       **_phase14_launches(ddp, two_ranks, policies, "B3")),
         _kernel_entry(results, "B4", "rel_attention_ds", "zipvoice_tpu_torch/csrc/rel_ds.cu",
                       "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
@@ -4377,6 +4778,11 @@ def main() -> int:
           f"{p16['fbank_err']:.3g}; evaluation: UTMOS {p17['utmos_ms']:.2f} ms, ECAPA head "
           f"{p17['ecapa_ms']:.2f} ms on the card ({p17['ecapa_cpu_ms']:.1f} ms on the CPU); "
           f"phases 16-17 {p16['seconds'] + p17['seconds']:.1f} s; total "
+          f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
+    print(f"parallelism: 18b sp_sample over {SP_RANKS} ranks relative L2 {p18['sp_err']:.3g} "
+          f"against one process, wall {p18['ranks'][0]['sp']['wall_s']:.2f} s against "
+          f"{p18['sp_one_s']:.2f} s; 18c tp=2 gradient worst relative L2 a group "
+          f"{p18['tp_grad_err']:.2e}; phase 18 {p18['seconds']:.1f} s; total "
           f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -114,3 +114,30 @@ def test_cpu_tensors_never_reach_a_kernel():
     ta.rel_attention_probs_apply(probs, v)
     assert (ta.rel_attention_probs.launches, ta.rel_attention_probs_apply.launches) \
         == (n1, n2)
+
+
+@pytest.mark.parametrize("tq", [1, 7, 64])
+@pytest.mark.parametrize("where", ["start", "middle", "end"])
+def test_rectangular_plain_equals_the_square_rows(tq, where):
+    """Query rows [r0, r0 + Tq) against every key, with the window
+    pe[T - r0 - Tq : 2T - 1 - r0] of the square pe (the sequence-parallel
+    sampler's tile): plain B1 gives the square plain B1's rows (B, H, Tq,
+    T), and plain B2 on them the square B2's rows, with one batch row's
+    keys padded; the square calls keep their (B, H, T, T) and (B, T, H,
+    vd) outputs."""
+    t = 128
+    q, k, pq, pe, mask = _torch(*_inputs(t, True, seed=tq))
+    v = torch.from_numpy(np.random.default_rng(tq).standard_normal((2, t, H, VD))
+                         .astype(np.float32))
+    r0 = {"start": 0, "middle": (t - tq) // 2, "end": t - tq}[where]
+    rows = slice(r0, r0 + tq)
+    full = ta.rel_attention_probs(q, k, pq, pe, mask)
+    full_out = ta.rel_attention_probs_apply(full, v)
+    assert full.shape == (2, H, t, t) and full_out.shape == (2, t, H, VD)
+    part = ta.rel_attention_probs(q[:, rows], k, pq[:, rows], pe[t - r0 - tq: 2 * t - 1 - r0],
+                                  mask)
+    assert part.shape == (2, H, tq, t)
+    assert float((part - full[:, :, rows]).abs().max()) < TOL
+    out = ta.rel_attention_probs_apply(part, v)
+    assert out.shape == (2, tq, H, VD)
+    assert float((out - full_out[:, rows]).abs().max()) < TOL

@@ -12,7 +12,8 @@ the JAX package on the CPU, at tiny sizes:
 * two ranks given the same rows draw different t, noise and per-row masks,
   and the same per-layer gates and batch-shared draws;
 * the CPU dry run (``train/dryrun.run_dryrun(2)``): the train, distill and
-  dialog CLIs with --distributed over gloo in two processes;
+  dialog CLIs with --distributed over gloo in two processes, then the
+  sequence-parallel sampler over them;
 * param_diagnostics, activation_diagnostics and find_nonfinite equal
   JAX's.
 
@@ -264,7 +265,9 @@ def test_ranks_draw_their_own_rows(monkeypatch):
 def test_dryrun_two_processes():
     """train/dryrun.run_dryrun(2): the train, distill and dialog CLIs with
     --distributed over gloo, bf16, in two processes: finite losses equal on
-    both ranks, bit-identical parameters, only rank 0's files."""
+    both ranks, bit-identical parameters, only rank 0's files; then the
+    sequence-parallel sampler over both ranks, the same output on each and
+    within 2e-5 of one process's."""
     losses = dryrun.run_dryrun(2, timeout=240)
     assert sorted(losses) == ["dialog", "distill", "zipvoice"]
 

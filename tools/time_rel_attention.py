@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Device times of the port's rel-position attention kernels (B1, B4, B5,
-B6, B7) and of the log-mel kernel (B8) on one NVIDIA card, at the shapes
+"""Device times of the port's rel-position attention kernels (B1, B2, B4,
+B5, B6, B7) and of the log-mel kernel (B8) on one NVIDIA card, at the shapes
 and with the timing of chip_smoke.py, for comparing two checkouts of this
 repository on one card in one run.
 
-    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B5,B6,B7,B8]
+    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B2,B5,B6,B7,B8]
                                         [--tag NAME] [--ptxas FILE] [--sass FILE]
     python3 tools/time_rel_attention.py [--tree DIR] --full-build
 
@@ -12,6 +12,7 @@ repository on one card in one run.
 (default: this one).  Only the kernel libraries that the chosen kernels
 need are built, with nvcc, into that checkout's build directory.  Shapes:
 B1 at chip_smoke.py's phase-3 cases (B=2, H=4, T 1024/512/256/288/577/40),
+B2 at the same cases (vd 12) on B1's probabilities,
 B6 and B7 at its phase-3c cases (T also 1152 and 1408; B7 at C=384, 144 at
 T=40), B5 at its APPLY_CASES without the const gate, B4 without the penalty
 at phase 3b's H=4 training cases (B=8, T 1024/512/256/288/577/120) and B1
@@ -45,7 +46,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 # the C entry point of each attention kernel, whose library the run builds
-SYMBOLS = {"B1": "zv_rel_probs", "B4": "zv_rel_ds", "B5": "zv_rel_apply",
+SYMBOLS = {"B1": "zv_rel_probs", "B2": "zv_probs_apply", "B4": "zv_rel_ds",
+           "B5": "zv_rel_apply",
            "B6": "zv_rel_probs_consume", "B7": "zv_rel_head0_consume"}
 # the library of each other kernel
 LIBRARIES = {"B8": "log_mel"}
@@ -122,12 +124,18 @@ def main() -> int:
                 record(f"B1 B={b} T={t} {str(dtype)[6:]}",
                        lambda: att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=dtype))
                 del gp
-    if "B1" in kernels:
+    if {"B1", "B2"} & set(kernels):
         for t, _ in [(1024, 0), (512, 0), (256, 0), (288, 0), (577, 0), (40, 0)]:
             for dtype in dtypes:
-                q, k, pq, pe, mask, _, _ = cs._rel_inputs(gen, 2, 4, t, 12, dtype)
-                record(f"B1 T={t} {str(dtype)[6:]}",
-                       lambda: att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=dtype))
+                q, k, pq, pe, mask, v, _ = cs._rel_inputs(gen, 2, 4, t, 12, dtype)
+                if "B1" in kernels:
+                    record(f"B1 T={t} {str(dtype)[6:]}",
+                           lambda: att.rel_attention_probs(q, k, pq, pe, mask,
+                                                          out_dtype=dtype))
+                if "B2" in kernels:
+                    probs = att.rel_attention_probs_plain(q, k, pq, pe, mask, out_dtype=dtype)
+                    record(f"B2 T={t} {str(dtype)[6:]}",
+                           lambda: att.rel_attention_probs_apply(probs, v))
     for t, kind in cs.FUSED_ATTN_CASES:
         for dtype in dtypes:
             if not {"B6", "B7"} & set(kernels):

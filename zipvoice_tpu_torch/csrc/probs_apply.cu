@@ -5,8 +5,10 @@
 //
 //   out[b,t,h,:] = sum_s probs[b,h,t,s] * v[b,s,h,:]      (f32 accumulation)
 //
-// probs: (B,H,T,T); v: (B,T,H,VD) of the same dtype (f32 or bf16), VD in
-// {4, 8, 12, 16}; out: (B,T,H,VD) in that dtype.
+// probs: (B,H,Tq,Tk); v: (B,Tk,H,VD) of the same dtype (f32 or bf16), VD in
+// {4, 8, 12, 16}; out: (B,Tq,H,VD) in that dtype.  The model's probabilities
+// are square (Tq = Tk = T); the sequence-parallel sampler contracts a block
+// of query rows against every key (Tq < Tk).
 //
 // What bounds it on an H100: reading probs (B*H*T*T elements) is the whole
 // cost (12 FMAs a probability at VD = 12, far below the card's ridge point),
@@ -31,9 +33,9 @@
 //     fill its 4 A slots of two consecutive mmas, and the B fragments (v,
 //     columns padded to 8 or 16) are read with the same key permutation as
 //     one 16-byte vector of the transposed v.
-// Any T: rows past T are masked, keys past T are zero in both operands; the
-// 16-byte path needs rows aligned to 16 bytes (T % 4 == 0 in f32, T % 8 == 0
-// in bf16), other T load element by element.
+// Any Tq, Tk: rows past Tq are masked, keys past Tk are zero in both
+// operands; the 16-byte path needs rows aligned to 16 bytes (Tk % 4 == 0 in
+// f32, Tk % 8 == 0 in bf16), other Tk load element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,13 +78,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Stage v of keys c0 .. c0+nkeys-1 of (b, h), transposed: vt[d * stride + s].
-// Keys n .. nkeys-1 (past T) are zero.  Four values of a key are one load
+// Stage v of keys c0 .. c0+nkeys-1 of (b, h), of Tk keys, transposed:
+// vt[d * stride + s].  Keys n .. nkeys-1 (past Tk) are zero.  Four values of a key are one load
 // (16 bytes in f32, 8 in bf16; VD is a multiple of 4), kBatch loads in
 // flight a thread.
 template <int VD, typename T>
 __device__ __forceinline__ void stage_vt(const T* __restrict__ v, T* vt, int stride, int b,
-                                         int h, int Tn, int H, int c0, int n, int nkeys) {
+                                         int h, int Tk, int H, int c0, int n, int nkeys) {
   constexpr int kQuads = VD / 4, kBatch = 8;
   using Quad = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
   const int units = nkeys * kQuads;
@@ -94,7 +96,7 @@ __device__ __forceinline__ void stage_vt(const T* __restrict__ v, T* vt, int str
       const int s = idx / kQuads, q = idx % kQuads;
       tmp[u] = Quad{};
       if (idx < units && s < n)
-        tmp[u] = *reinterpret_cast<const Quad*>(v + ((size_t)(b * Tn + c0 + s) * H + h) * VD +
+        tmp[u] = *reinterpret_cast<const Quad*>(v + ((size_t)(b * Tk + c0 + s) * H + h) * VD +
                                                 4 * q);
     }
 #pragma unroll
@@ -110,11 +112,11 @@ __device__ __forceinline__ void stage_vt(const T* __restrict__ v, T* vt, int str
   }
 }
 
-// The block's rows from the warps' partial sums: red[warp][row][col], warp =
-// split * RT + row tile; the key splits are added in a fixed order.
+// The block's rows (of Tq) from the warps' partial sums: red[warp][row][col],
+// warp = split * RT + row tile; the key splits are added in a fixed order.
 template <int VD, typename T>
 __device__ __forceinline__ void write_rows(const float* red, T* __restrict__ out, int b, int h,
-                                           int Tn, int H, int RT) {
+                                           int Tq, int H, int RT) {
   const int KS = kWarps / RT;
   const int t0 = blockIdx.x * 16 * RT;
   for (int idx = threadIdx.x; idx < RT * 16 * VD; idx += kThreads) {
@@ -123,7 +125,7 @@ __device__ __forceinline__ void write_rows(const float* red, T* __restrict__ out
     float x = 0.f;
     for (int s = 0; s < KS; ++s) x += red[(s * RT + rt) * 256 + rr * 16 + d];
     const int t = t0 + row;
-    if (t < Tn) out[((size_t)(b * Tn + t) * H + h) * VD + d] = from_f32<T>(x);
+    if (t < Tq) out[((size_t)(b * Tq + t) * H + h) * VD + d] = from_f32<T>(x);
   }
 }
 
@@ -152,7 +154,7 @@ __device__ __forceinline__ void load_f32(float4 (&p)[kUnrollF][4], const float* 
 template <int VD, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 probs_apply_f32(const float* __restrict__ probs, const float* __restrict__ v,
-                float* __restrict__ out, int Tn, int H, int RT) {
+                float* __restrict__ out, int Tq, int Tk, int H, int RT) {
   extern __shared__ float4 smem4[];
   float* vt = reinterpret_cast<float*>(smem4);  // [VD][kStrideF]
   float* red = vt + VD * kStrideF;              // [kWarps][16][16]
@@ -165,8 +167,8 @@ probs_apply_f32(const float* __restrict__ probs, const float* __restrict__ v,
   bool rok[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    rok[r] = trow + r < Tn;
-    prow[r] = probs + ((size_t)bh * Tn + (rok[r] ? trow + r : 0)) * Tn;
+    rok[r] = trow + r < Tq;
+    prow[r] = probs + ((size_t)bh * Tq + (rok[r] ? trow + r : 0)) * Tk;
   }
   float acc[4][VD];
 #pragma unroll
@@ -175,13 +177,13 @@ probs_apply_f32(const float* __restrict__ probs, const float* __restrict__ v,
     for (int d = 0; d < VD; ++d) acc[r][d] = 0.f;
 
   float4 p[kUnrollF][4];
-  for (int c0 = 0; c0 < Tn; c0 += kChunkF) {
-    const int n = min(kChunkF, Tn - c0);
+  for (int c0 = 0; c0 < Tk; c0 += kChunkF) {
+    const int n = min(kChunkF, Tk - c0);
     const int nseg = (n + kSeg - 1) / kSeg;
     int s0 = split * kUnrollF;
     load_f32<kVec>(p, prow, rok, c0, n, s0, kc);  // in flight while v is staged
     __syncthreads();  // the previous chunk's v is consumed
-    stage_vt<VD>(v, vt, kStrideF, b, h, Tn, H, c0, n, nseg * kSeg);
+    stage_vt<VD>(v, vt, kStrideF, b, h, Tk, H, c0, n, nseg * kSeg);
     __syncthreads();
     while (s0 < nseg) {
 #pragma unroll
@@ -220,7 +222,7 @@ probs_apply_f32(const float* __restrict__ probs, const float* __restrict__ v,
       if (d % 8 == kc) mine[(rq * 4 + r) * 16 + d] = x;
     }
   __syncthreads();
-  write_rows<VD>(red, out, b, h, Tn, H, RT);
+  write_rows<VD>(red, out, b, h, Tq, H, RT);
 }
 
 // bf16: lane = (group g, thread-in-group c) of the mma fragments; a warp's
@@ -257,7 +259,7 @@ __device__ __forceinline__ void load_bf16(uint4 (&p)[kUnrollH][2],
 template <int VD, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
 probs_apply_bf16(const __nv_bfloat16* __restrict__ probs, const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int Tn, int H, int RT) {
+                 __nv_bfloat16* __restrict__ out, int Tq, int Tk, int H, int RT) {
   constexpr int NT = VD > 8 ? 2 : 1;  // n tiles of 8 output columns
   extern __shared__ float4 smem4[];
   // [16][kStrideH]: rows d >= VD are never written; they only feed output
@@ -273,8 +275,8 @@ probs_apply_bf16(const __nv_bfloat16* __restrict__ probs, const __nv_bfloat16* _
   bool rok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    rok[r] = trow + 8 * r < Tn;
-    prow[r] = probs + ((size_t)bh * Tn + (rok[r] ? trow + 8 * r : 0)) * Tn;
+    rok[r] = trow + 8 * r < Tq;
+    prow[r] = probs + ((size_t)bh * Tq + (rok[r] ? trow + 8 * r : 0)) * Tk;
   }
   float acc[NT][4];
 #pragma unroll
@@ -283,13 +285,13 @@ probs_apply_bf16(const __nv_bfloat16* __restrict__ probs, const __nv_bfloat16* _
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
 
   uint4 p[kUnrollH][2];
-  for (int c0 = 0; c0 < Tn; c0 += kChunkH) {
-    const int n = min(kChunkH, Tn - c0);
+  for (int c0 = 0; c0 < Tk; c0 += kChunkH) {
+    const int n = min(kChunkH, Tk - c0);
     const int nseg = (n + kSeg - 1) / kSeg;
     int s0 = split * kUnrollH;
     load_bf16<kVec>(p, prow, rok, c0, n, s0, c);  // in flight while v is staged
     __syncthreads();
-    stage_vt<VD>(v, vt, kStrideH, b, h, Tn, H, c0, n, nseg * kSeg);
+    stage_vt<VD>(v, vt, kStrideH, b, h, Tk, H, c0, n, nseg * kSeg);
     __syncthreads();
     while (s0 < nseg) {
 #pragma unroll
@@ -327,7 +329,7 @@ probs_apply_bf16(const __nv_bfloat16* __restrict__ probs, const __nv_bfloat16* _
     mine[(g + 8) * 16 + col + 1] = acc[nt][3];
   }
   __syncthreads();
-  write_rows<VD>(red, out, b, h, Tn, H, RT);
+  write_rows<VD>(red, out, b, h, Tq, H, RT);
 }
 
 int num_sms() {
@@ -338,52 +340,54 @@ int num_sms() {
 }
 
 template <typename T>
-int launch(void (*kern)(const T*, const T*, T*, int, int, int), size_t smem, const void* probs,
-           const void* v, void* out, int B, int Tn, int H, cudaStream_t stream) {
+int launch(void (*kern)(const T*, const T*, T*, int, int, int, int), size_t smem,
+           const void* probs, const void* v, void* out, int B, int Tq, int Tk, int H,
+           cudaStream_t stream) {
   // 64 rows a block (4 row tiles) unless the grid would leave a quarter of
   // the card idle; the rows a block gives up go to more key splits
   const int sms = num_sms();
   int RT = 4;
-  while (RT > 1 && (long long)B * H * ((Tn + 16 * RT - 1) / (16 * RT)) < (3 * sms) / 4) RT >>= 1;
+  while (RT > 1 && (long long)B * H * ((Tq + 16 * RT - 1) / (16 * RT)) < (3 * sms) / 4) RT >>= 1;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((Tn + 16 * RT - 1) / (16 * RT), B * H);
+  dim3 grid((Tq + 16 * RT - 1) / (16 * RT), B * H);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(probs), static_cast<const T*>(v),
-                                         static_cast<T*>(out), Tn, H, RT);
+                                         static_cast<T*>(out), Tq, Tk, H, RT);
   return (int)cudaGetLastError();
 }
 
 template <int VD>
-int launch_vd(const void* probs, const void* v, void* out, int B, int Tn, int H, int bf16,
-              cudaStream_t s) {
+int launch_vd(const void* probs, const void* v, void* out, int B, int Tq, int Tk, int H,
+              int bf16, cudaStream_t s) {
   const size_t red = kRedFloats * sizeof(float);
   if (bf16) {
     const size_t smem = 16 * kStrideH * sizeof(__nv_bfloat16) + red;
-    auto kern = Tn % 8 == 0 ? probs_apply_bf16<VD, true> : probs_apply_bf16<VD, false>;
-    return launch(kern, smem, probs, v, out, B, Tn, H, s);
+    auto kern = Tk % 8 == 0 ? probs_apply_bf16<VD, true> : probs_apply_bf16<VD, false>;
+    return launch(kern, smem, probs, v, out, B, Tq, Tk, H, s);
   }
   const size_t smem = VD * kStrideF * sizeof(float) + red;
-  auto kern = Tn % 4 == 0 ? probs_apply_f32<VD, true> : probs_apply_f32<VD, false>;
-  return launch(kern, smem, probs, v, out, B, Tn, H, s);
+  auto kern = Tk % 4 == 0 ? probs_apply_f32<VD, true> : probs_apply_f32<VD, false>;
+  return launch(kern, smem, probs, v, out, B, Tq, Tk, H, s);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded through ctypes).  Returns a cudaError_t code:
 // 0 on a clean launch, cudaErrorInvalidValue for a VD not instantiated.
-// probs, v and out must be 16-byte aligned.
-extern "C" int zv_probs_apply(const void* probs, const void* v, void* out, int B, int Tn,
-                              int H, int VD, int bf16, void* stream) {
-  if (B <= 0 || Tn <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+// probs (B,H,Tq,Tk), v (B,Tk,H,VD) and out (B,Tq,H,VD) must be 16-byte
+// aligned.
+extern "C" int zv_probs_apply(const void* probs, const void* v, void* out, int B, int Tq,
+                              int Tk, int H, int VD, int bf16, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (VD) {
-    case 4: return launch_vd<4>(probs, v, out, B, Tn, H, bf16, s);
-    case 8: return launch_vd<8>(probs, v, out, B, Tn, H, bf16, s);
-    case 12: return launch_vd<12>(probs, v, out, B, Tn, H, bf16, s);
-    case 16: return launch_vd<16>(probs, v, out, B, Tn, H, bf16, s);
+    case 4: return launch_vd<4>(probs, v, out, B, Tq, Tk, H, bf16, s);
+    case 8: return launch_vd<8>(probs, v, out, B, Tq, Tk, H, bf16, s);
+    case 12: return launch_vd<12>(probs, v, out, B, Tq, Tk, H, bf16, s);
+    case 16: return launch_vd<16>(probs, v, out, B, Tq, Tk, H, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,8 +22,8 @@ extern "C" int zv_rel_ds(const void* q, const void* kt, const void* pq, const vo
                          const void* mask, const void* g, void* ds, int B, int T, int H,
                          int QD, int PD, int bf16, float pen, float limit, void* stream) {
   const DsArgs d{g, pen, limit, 1};
-  return bf16 ? launch_in<Epi::kDs, __nv_bfloat16>(q, kt, pq, pe, mask, ds, B, T, H, QD, PD, 1,
-                                                   ConsumeArgs{}, d, stream)
-              : launch_in<Epi::kDs, float>(q, kt, pq, pe, mask, ds, B, T, H, QD, PD, 0,
+  return bf16 ? launch_in<Epi::kDs, __nv_bfloat16>(q, kt, pq, pe, mask, ds, B, T, T, H, QD, PD,
+                                                   1, ConsumeArgs{}, d, stream)
+              : launch_in<Epi::kDs, float>(q, kt, pq, pe, mask, ds, B, T, T, H, QD, PD, 0,
                                            ConsumeArgs{}, d, stream);
 }

@@ -8,12 +8,16 @@
 // B1 replaces the TPU kernel zipvoice_tpu/ops/attention.py `_pallas_rel_probs`
 // (body `_kernel` with `_tile_scores` / `_tile_softmax`):
 //
-//   probs[b,h,i,j] = softmax_j( q_i . k_j + pq_i . pe[j - i + T - 1] + bias_j )
+//   probs[b,h,i,j] = softmax_j( q_i . k_j + pq_i . pe[j - i + Tq - 1] + bias_j )
 //
 // with bias_j = -1000 where key j is padded (else 0), scores and softmax in
-// f32, probs written in f32 or bf16.  q: (B,T,H,QD); kt: k transposed to
-// (B,H,QD,T) by the caller; pq: (B,T,H,PD); pe: (2T-1,H,PD); mask: (B,T)
-// uint8 or null; out: (B,H,T,T).
+// f32, probs written in f32 or bf16.  q: (B,Tq,H,QD); kt: k transposed to
+// (B,H,QD,T) by the caller; pq: (B,Tq,H,PD); pe: (Tq+T-1,H,PD); mask: (B,T)
+// uint8 or null; out: (B,H,Tq,T).  T counts the keys and Tq the query rows:
+// the square case Tq = T is the model's; a rectangular tile (Tq < T) is a
+// block of query rows against every key, its pe the window of the square
+// pe that those rows touch (the sequence-parallel sampler's), so the kernel
+// needs no row offset.  B4 and B6 run at Tq = T.
 //
 // B6 replaces `rel_attention_probs_consume` (body `_probs_consume_kernel`):
 // it writes the same probabilities and contracts them, as rounded to the
@@ -150,7 +154,8 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // Score row stride: 16-byte aligned rows, except the 1-row tile (one row).
 __host__ __device__ inline int score_stride(int T, int R) { return R == 1 ? T : round4(T); }
 
-// Band rows of RB block rows: pe rows j - i + T - 1 for the block's rows.
+// Band rows of RB block rows against T keys: pe rows j - i + Tq - 1 for the
+// block's rows.
 __host__ __device__ inline int band_rows(int T, int RB) { return T + RB - 1; }
 template <int R>
 __host__ __device__ inline int band_slots(int NB) {
@@ -235,35 +240,35 @@ __device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* p) {
   *reinterpret_cast<uint4*>(dst) = w;
 }
 
-// Stage q and pq of the block's RB rows from i0b (zero past T) and the pe
-// band: pe row n = j - i + T - 1 of block row rg = i - i0b lives at band
+// Stage q and pq of the block's RB rows from i0b (zero past Tq) and the pe
+// band: pe row n = j - i + Tq - 1 of block row rg = i - i0b lives at band
 // index j - rg + RB - 1 (stored at index + index >> BandPad<R>::shift).
 template <int QD, int R, typename Tin>
 __device__ __forceinline__ void stage_rows(const Tin* __restrict__ q, const Tin* __restrict__ pq,
                                            const Tin* __restrict__ pe, float* qs, float* pqs,
-                                           float* band, int b, int h, int T, int H, int i0b,
-                                           int RB) {
-  const int nrb = min(T - i0b, RB);
+                                           float* band, int b, int h, int Tq, int T, int H,
+                                           int i0b, int RB) {
+  const int nrb = min(Tq - i0b, RB);
   staged_copy4<2>(
       RB * (QD / 4),
       [&](int idx, bool ok) {
         const int r = idx / (QD / 4), d4 = idx % (QD / 4);
-        return load4_or_zero(q + ((size_t)(b * T + i0b + r) * H + h) * QD + 4 * d4,
+        return load4_or_zero(q + ((size_t)(b * Tq + i0b + r) * H + h) * QD + 4 * d4,
                              ok && r < nrb);
       },
       [&](int idx, float4 x) { reinterpret_cast<float4*>(qs)[idx] = x; });
   staged_copy4<1>(
       RB,
       [&](int r, bool ok) {
-        return load4_or_zero(pq + ((size_t)(b * T + i0b + r) * H + h) * kPD, ok && r < nrb);
+        return load4_or_zero(pq + ((size_t)(b * Tq + i0b + r) * H + h) * kPD, ok && r < nrb);
       },
       [&](int r, float4 x) { reinterpret_cast<float4*>(pqs)[r] = x; });
-  const int n0 = T - 1 - i0b - (RB - 1);
+  const int n0 = Tq - 1 - i0b - (RB - 1);
   staged_copy4<4>(
       band_rows(T, RB),
       [&](int idx, bool ok) {
         const int n = n0 + idx;
-        return load4_or_zero(pe + ((size_t)n * H + h) * kPD, ok && n >= 0 && n < 2 * T - 1);
+        return load4_or_zero(pe + ((size_t)n * H + h) * kPD, ok && n >= 0 && n < Tq + T - 1);
       },
       [&](int idx, float4 x) {
         reinterpret_cast<float4*>(band)[idx + (idx >> BandPad<R>::shift)] = x;
@@ -580,12 +585,12 @@ __device__ __forceinline__ void contract_keys(const float* P, int stride, const 
 }
 
 // The warps' sums of columns c0 .. c0+15 meet in red, added in warp order;
-// rows < nrows go out (row i0 + r of (b,h)) in Tin.  Ends with every warp
-// past its reads of P and v.
+// rows < nrows go out (row i0 + r of (b,h), of Tq rows) in Tin.  Ends with
+// every warp past its reads of P and v.
 template <typename Tin>
 __device__ __forceinline__ void reduce_out(float* red, const float (&acc)[2][4],
                                            const float (&acc2)[2][4], Tin* __restrict__ out,
-                                           int b, int h, int T, int H, int VD, int i0,
+                                           int b, int h, int Tq, int H, int VD, int i0,
                                            int nrows, int c0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -604,7 +609,7 @@ __device__ __forceinline__ void reduce_out(float* red, const float (&acc)[2][4],
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w * 256 + threadIdx.x];
-    out[((size_t)(b * T + i0 + r) * H + h) * VD + col] = from_f32<Tin>(s);
+    out[((size_t)(b * Tq + i0 + r) * H + h) * VD + col] = from_f32<Tin>(s);
   }
 }
 
@@ -770,7 +775,7 @@ __device__ __forceinline__ void ds_row(float* srow, const Tin* grow, Bias bias, 
 // contraction, B4's score cotangent
 enum class Epi { kProbs, kConsume, kDs };
 
-// grid (row blocks, B*H); block x owns rows [x*rpb, min(T, x*rpb + rpb)) in
+// grid (row blocks, B*H); block x owns rows [x*rpb, min(Tq, x*rpb + rpb)) in
 // tiles of R rows (the last one may be short): the scores of a tile, a
 // barrier, its softmax, a barrier; with kConsume (B6), then the tile's
 // round(p) @ v; with kDs (B4), the softmax passes write ds instead of p.
@@ -779,8 +784,8 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
                                            const Tin* __restrict__ pq,
                                            const Tin* __restrict__ pe,
                                            const uint8_t* __restrict__ mask,
-                                           Tout* __restrict__ out, int T, int H, int rpb,
-                                           const ConsumeArgs& c, const DsArgs& d) {
+                                           Tout* __restrict__ out, int Tq, int T, int H,
+                                           int rpb, const ConsumeArgs& c, const DsArgs& d) {
   constexpr bool kConsume = kE == Epi::kConsume;
   constexpr bool kDs = kE == Epi::kDs;
   constexpr int KPT = KeysPerThread<QD>::value;
@@ -790,7 +795,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int i0b = blockIdx.x * rpb;                 // first row of the block
-  const int i_end = min(T, i0b + rpb);
+  const int i_end = min(Tq, i0b + rpb);
   const int ntb = (i_end - i0b + R - 1) / R;          // tiles of the block
   const int RB = (rpb + R - 1) / R * R;               // rows the layout holds
   const int stride = kConsume ? stride16(keys16(T)) : score_stride(T, R);
@@ -828,12 +833,12 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
   const Tin* gb = static_cast<const Tin*>(d.g);
   if constexpr (kDs) {
     if (d.staged) {
-      copy_g(gb, gbuf, gs, (size_t)bh * T + i0b, min(R, i_end - i0b), T);
+      copy_g(gb, gbuf, gs, (size_t)bh * Tq + i0b, min(R, i_end - i0b), T);
       for (int j = tid; j < T; j += kThreads) brow[j] = mask_bias(mask, b, T, j);
     }
   }
 
-  stage_rows<QD, R>(q, pq, pe, qs, pqs, band, b, h, T, H, i0b, RB);
+  stage_rows<QD, R>(q, pq, pe, qs, pqs, band, b, h, Tq, T, H, i0b, RB);
 
   // this thread's key groups and rows: the groups spread over the nts
   // threads of a slice, each tile's R rows over S slices of rps rows; S > 1
@@ -918,7 +923,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
       }
       const float rmax = warp_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
       if constexpr (kDs) {
-        const size_t off = ((size_t)bh * T + i0 + r) * T;
+        const size_t off = ((size_t)bh * Tq + i0 + r) * T;
         constexpr int V = 16 / sizeof(Tin);
         if (d.staged) {
           const Tin* grow = gbuf + (size_t)r * gs + (int)(off % V);
@@ -936,7 +941,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
         }
       } else {
         const float inv = row_sum(srow, rmax, T);
-        write_row<Tout, kConsume>(srow, inv, out + ((size_t)bh * T + i0 + r) * T, T);
+        write_row<Tout, kConsume>(srow, inv, out + ((size_t)bh * Tq + i0 + r) * T, T);
       }
       if constexpr (kConsume) {
         for (int j = T + lane; j < Tk; j += 32) srow[j] = 0.f;  // keys past T
@@ -947,7 +952,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
 
     if constexpr (kDs) {  // the next tile's g rows, landing while its scores are made
       if (d.staged && t + 1 < ntb)
-        copy_g(gb, gbuf, gs, (size_t)bh * T + i0 + R, min(R, i_end - i0 - R), T);
+        copy_g(gb, gbuf, gs, (size_t)bh * Tq + i0 + R, min(R, i_end - i0 - R), T);
     }
 
     if constexpr (kConsume) {
@@ -971,7 +976,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
             contract_keys<R, kBf16Mma>(scores, stride, vbuf, vs, k0, nk, 0, ncol, acc, acc2);
           }
         }
-        reduce_out(red, acc, acc2, static_cast<Tin*>(c.out), b, h, T, H, c.VD, i0, nrows, c0);
+        reduce_out(red, acc, acc2, static_cast<Tin*>(c.out), b, h, Tq, H, c.VD, i0, nrows, c0);
         if (c0 + 16 < c.VD) __syncthreads();  // red is read before the next columns
       }
     }
@@ -983,10 +988,10 @@ template <int QD, int R, typename Tin, typename Tout>
 __global__ void __launch_bounds__(kThreads, 1)
 rel_probs_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                  const Tin* __restrict__ pq, const Tin* __restrict__ pe,
-                 const uint8_t* __restrict__ mask, Tout* __restrict__ out, int T, int H,
-                 int rpb) {
-  probs_body<QD, R, Tin, Tout, Epi::kProbs>(q, kt, pq, pe, mask, out, T, H, rpb, ConsumeArgs{},
-                                            DsArgs{});
+                 const uint8_t* __restrict__ mask, Tout* __restrict__ out, int Tq, int T,
+                 int H, int rpb) {
+  probs_body<QD, R, Tin, Tout, Epi::kProbs>(q, kt, pq, pe, mask, out, Tq, T, H, rpb,
+                                            ConsumeArgs{}, DsArgs{});
 }
 
 // B6: B1's probabilities in `out`, round(p) @ v in c.out
@@ -994,9 +999,10 @@ template <int QD, int R, typename Tin, typename Tout>
 __global__ void __launch_bounds__(kThreads, 1)
 rel_probs_consume_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                          const Tin* __restrict__ pq, const Tin* __restrict__ pe,
-                         const uint8_t* __restrict__ mask, Tout* __restrict__ out, int T, int H,
-                         int rpb, ConsumeArgs c) {
-  probs_body<QD, R, Tin, Tout, Epi::kConsume>(q, kt, pq, pe, mask, out, T, H, rpb, c, DsArgs{});
+                         const uint8_t* __restrict__ mask, Tout* __restrict__ out, int Tq,
+                         int T, int H, int rpb, ConsumeArgs c) {
+  probs_body<QD, R, Tin, Tout, Epi::kConsume>(q, kt, pq, pe, mask, out, Tq, T, H, rpb, c,
+                                              DsArgs{});
 }
 
 // B4: the score cotangent of B1's probabilities in `ds`, from d.g
@@ -1004,8 +1010,8 @@ template <int QD, int R, typename Tin>
 __global__ void __launch_bounds__(kThreads, 1)
 rel_ds_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt, const Tin* __restrict__ pq,
               const Tin* __restrict__ pe, const uint8_t* __restrict__ mask,
-              Tin* __restrict__ ds, int T, int H, int rpb, DsArgs d) {
-  probs_body<QD, R, Tin, Tin, Epi::kDs>(q, kt, pq, pe, mask, ds, T, H, rpb, ConsumeArgs{}, d);
+              Tin* __restrict__ ds, int Tq, int T, int H, int rpb, DsArgs d) {
+  probs_body<QD, R, Tin, Tin, Epi::kDs>(q, kt, pq, pe, mask, ds, Tq, T, H, rpb, ConsumeArgs{}, d);
 }
 
 // Launch with R-row tiles and rpb rows a block (fewer if the shared memory
@@ -1016,8 +1022,8 @@ rel_ds_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt, const Tin* 
 // kernel reads g from device memory instead.
 template <int QD, int R, typename Tin, typename Tout, Epi kE>
 int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
-               const void* mask, void* out, int B, int T, int H, int rpb0, ConsumeArgs c,
-               DsArgs d, cudaStream_t stream, int* code) {
+               const void* mask, void* out, int B, int Tq, int T, int H, int rpb0,
+               ConsumeArgs c, DsArgs d, cudaStream_t stream, int* code) {
   constexpr bool kConsume = kE == Epi::kConsume, kDs = kE == Epi::kDs;
   const int max_smem = max_optin_smem();
   const int Tk = keys16(T);
@@ -1045,7 +1051,7 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
   c.kc = all ? Tk : std::min(Tk, kChunkKeys);
   c.all = all;
   d.staged = all;
-  dim3 grid((T + rpb - 1) / rpb, B * H);
+  dim3 grid((Tq + rpb - 1) / rpb, B * H);
   const Tin* qi = static_cast<const Tin*>(q);
   const Tin* kti = static_cast<const Tin*>(kt);
   const Tin* pqi = static_cast<const Tin*>(pq);
@@ -1056,20 +1062,20 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
     auto kern = rel_probs_consume_kernel<QD, R, Tin, Tout>;
     e = allow_smem(kern, smem);
     if (e == cudaSuccess)
-      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), T, H,
-                                             rpb, c);
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), Tq, T,
+                                             H, rpb, c);
   } else if constexpr (kDs) {
     auto kern = rel_ds_kernel<QD, R, Tin>;
     e = allow_smem(kern, smem);
     if (e == cudaSuccess)
-      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tin*>(out), T, H,
-                                             rpb, d);
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tin*>(out), Tq, T,
+                                             H, rpb, d);
   } else {
     auto kern = rel_probs_kernel<QD, R, Tin, Tout>;
     e = allow_smem(kern, smem);
     if (e == cudaSuccess)
-      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), T, H,
-                                             rpb);
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), Tq, T,
+                                             H, rpb);
   }
   *code = (int)(e == cudaSuccess ? cudaGetLastError() : e);
   return 1;
@@ -1077,44 +1083,45 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
 
 template <int QD, Epi kE, typename Tin, typename Tout>
 int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
-                 const void* mask, void* out, int B, int T, int H, const ConsumeArgs& c,
+                 const void* mask, void* out, int B, int Tq, int T, int H, const ConsumeArgs& c,
                  const DsArgs& d, cudaStream_t stream) {
   // one block an SM: the rows of each (b, h) split evenly over SMs / (B*H)
   // blocks; tiles of 16 rows, or of 8 / 4 where a block has no more rows
   // (short T), or where long rows fill shared memory (then 1)
   const int blocks = std::max(1, sm_count() / (B * H));
-  const int rpb = (T + blocks - 1) / blocks;
+  const int rpb = (Tq + blocks - 1) / blocks;
   int code = 0;
-  if ((rpb > 8 && try_launch<QD, 16, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c,
-                                                     d, stream, &code)) ||
-      (rpb > 4 && try_launch<QD, 8, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, d,
-                                                    stream, &code)) ||
-      try_launch<QD, 4, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, d, stream,
+  if ((rpb > 8 && try_launch<QD, 16, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb,
+                                                     c, d, stream, &code)) ||
+      (rpb > 4 && try_launch<QD, 8, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c,
+                                                    d, stream, &code)) ||
+      try_launch<QD, 4, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c, d, stream,
                                        &code) ||
-      try_launch<QD, 1, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, T, H, rpb, c, d, stream,
+      try_launch<QD, 1, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c, d, stream,
                                        &code))
     return code;
   return (int)cudaErrorInvalidValue;
 }
 
 // QD, PD and the output type dispatched, for Tin inputs (B4's output type
-// is its input type)
+// is its input type); Tq query rows against T keys
 template <Epi kE, typename Tin>
 int launch_in(const void* q, const void* kt, const void* pq, const void* pe, const void* mask,
-              void* out, int B, int T, int H, int QD, int PD, int out_bf16, const ConsumeArgs& c,
-              const DsArgs& d, void* stream) {
-  if (PD != kPD || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+              void* out, int B, int Tq, int T, int H, int QD, int PD, int out_bf16,
+              const ConsumeArgs& c, const DsArgs& d, void* stream) {
+  if (PD != kPD || B <= 0 || Tq <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (QD) {
 #define ZV_QD(QDV)                                                                           \
   case QDV:                                                                                  \
     if constexpr (kE == Epi::kDs)                                                            \
-      return launch_typed<QDV, kE, Tin, Tin>(q, kt, pq, pe, mask, out, B, T, H, c, d, s);    \
+      return launch_typed<QDV, kE, Tin, Tin>(q, kt, pq, pe, mask, out, B, Tq, T, H, c, d,   \
+                                             s);                                             \
     else                                                                                     \
       return out_bf16 ? launch_typed<QDV, kE, Tin, __nv_bfloat16>(q, kt, pq, pe, mask, out, \
-                                                                  B, T, H, c, d, s)          \
-                      : launch_typed<QDV, kE, Tin, float>(q, kt, pq, pe, mask, out, B, T, H, \
-                                                          c, d, s);
+                                                                  B, Tq, T, H, c, d, s)      \
+                      : launch_typed<QDV, kE, Tin, float>(q, kt, pq, pe, mask, out, B, Tq, T, \
+                                                          H, c, d, s);
     ZV_QD(8)
     ZV_QD(16)
     ZV_QD(24)

@@ -22,7 +22,7 @@ extern "C" int zv_rel_probs_consume(const void* q, const void* kt, const void* p
   if (bf16)
     return rel_probs_consume_bf16(q, kt, pq, pe, mask, v, probs, out, B, T, H, QD, PD, VD,
                                   probs_bf16, stream);
-  return launch_in<Epi::kConsume, float>(q, kt, pq, pe, mask, probs, B, T, H, QD, PD,
+  return launch_in<Epi::kConsume, float>(q, kt, pq, pe, mask, probs, B, T, T, H, QD, PD,
                                          probs_bf16, ConsumeArgs{v, out, VD, 0, 0}, DsArgs{},
                                          stream);
 }

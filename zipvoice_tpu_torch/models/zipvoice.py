@@ -17,12 +17,14 @@ from torch import nn
 
 from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.nn.functional import make_pad_mask
-from zipvoice_tpu_torch.parallel.mesh import fold_rank, global_sum
+from zipvoice_tpu_torch.parallel.mesh import Mesh, fold_rank, gather_frames, global_sum
 from zipvoice_tpu_torch.nn.zipformer import (
     BiasNorm,
     TrainCtx,
     TTSZipformer,
     _Scale,
+    check_sp_frames,
+    sequence_parallel,
     tts_zipformer_forward,
 )
 
@@ -300,15 +302,70 @@ def sample_from_embed(model: ZipVoiceModel, embed: torch.Tensor, tokens_lens,
     """``sample`` from the text encoder's output (B, S, F) onwards."""
     from zipvoice_tpu_torch.sampling.euler import euler_sample
 
-    num_frames = prompt_features.shape[1]
-    text_condition, padding_mask = forward_text_condition(
-        embed, tokens_lens, features_lens, num_frames
-    )
-    # the prompt region is the speech condition; zero elsewhere
-    prompt_mask = make_pad_mask(prompt_features_lens, num_frames)
-    speech_condition = prompt_features.masked_fill(prompt_mask[:, :, None], 0.0)
+    text_condition, speech_condition, padding_mask = _sample_conditions(
+        embed, tokens_lens, prompt_features, prompt_features_lens, features_lens)
     return euler_sample(
         model, noise, text_condition, speech_condition, padding_mask,
         num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
         distill=distill, timesteps=timesteps,
     )
+
+
+def _sample_conditions(embed, tokens_lens, prompt_features, prompt_features_lens,
+                       features_lens):
+    """The sampler's frame-rate conditions: (text condition, speech
+    condition: the prompt region of prompt_features, zero elsewhere, padding
+    mask), each over prompt_features' T frames."""
+    num_frames = prompt_features.shape[1]
+    text_condition, padding_mask = forward_text_condition(
+        embed, tokens_lens, features_lens, num_frames
+    )
+    prompt_mask = make_pad_mask(prompt_features_lens, num_frames)
+    speech_condition = prompt_features.masked_fill(prompt_mask[:, :, None], 0.0)
+    return text_condition, speech_condition, padding_mask
+
+
+@torch.no_grad()
+def sp_sample(
+    model: ZipVoiceModel,
+    mesh: Mesh,
+    tokens_padded: torch.Tensor,
+    tokens_lens: torch.Tensor,
+    prompt_features: torch.Tensor,
+    prompt_features_lens: torch.Tensor,
+    features_lens: torch.Tensor,
+    noise: torch.Tensor,
+    num_step: int = 16,
+    guidance_scale: float = 1.0,
+    t_shift: float = 1.0,
+    distill: bool = False,
+    timesteps=None,
+) -> torch.Tensor:
+    """``sample`` with the frame axis sharded over the ``seq`` axis of
+    ``mesh`` (``parallel/mesh.make_seq_mesh``): the JAX package's
+    ``sp_sample_jit``, its route to single utterances longer than the 30 s
+    cap.  Every rank passes the full inputs and gets the full (B, T, F)
+    output.  The text encoder and the frame-rate conditions run replicated;
+    the fm_decoder and the Euler steps run on the rank's T / n frames
+    (``nn/zipformer.sequence_parallel``), gathered once at the end.  T must
+    be a multiple of n times the fm_decoder's largest downsampling factor,
+    and every rank's frames must cover each stack's convolution halo
+    (``check_sp_frames``).  Eval only, unfused."""
+    from zipvoice_tpu_torch.sampling.euler import euler_sample
+
+    n, i = mesh.size("seq"), mesh.index["seq"]
+    num_frames = prompt_features.shape[1]
+    check_sp_frames(model.fm_decoder.cfg, num_frames, n)
+    embed = forward_text_embed(model, tokens_padded, tokens_lens,
+                               dtype=prompt_features.dtype)
+    conditions = _sample_conditions(embed, tokens_lens, prompt_features,
+                                    prompt_features_lens, features_lens)
+    rows = slice(i * num_frames // n, (i + 1) * num_frames // n)
+    text_condition, speech_condition, padding_mask = (c[:, rows] for c in conditions)
+    with sequence_parallel(mesh):
+        x = euler_sample(
+            model, noise[:, rows], text_condition, speech_condition, padding_mask,
+            num_step=num_step, guidance_scale=guidance_scale, t_shift=t_shift,
+            distill=distill, timesteps=timesteps,
+        )
+    return gather_frames(x, mesh)

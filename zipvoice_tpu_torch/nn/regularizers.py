@@ -18,7 +18,7 @@ values are Python floats (schedule outputs).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -228,13 +228,22 @@ def limit_param_value(x: torch.Tensor, gate: bool, lo: float, hi: float) -> torc
 
 
 def dropout_shared(x: torch.Tensor, generator: torch.Generator, rate: float,
-                   shared_dim: Optional[int] = None) -> torch.Tensor:
+                   shared_dim: Optional[int] = None,
+                   columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Dropout whose mask is shared along ``shared_dim``; the mask is drawn
-    from ``generator`` (on x's device)."""
+    from ``generator`` (on x's device).  ``columns`` (offset, full width):
+    x holds the last-dim columns [offset, offset + width) of a wider tensor
+    (a tensor-parallel shard); the mask is drawn at the full width and
+    sliced, so it is the full tensor's mask and the generator advances as
+    for the full tensor."""
     shape = list(x.shape)
     if shared_dim is not None:
         shape[shared_dim] = 1
+    if columns is not None:
+        shape[-1] = columns[1]
     keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if columns is not None:
+        keep = keep[..., columns[0]:columns[0] + x.shape[-1]]
     scale = 1.0 / max(1.0 - rate, 1e-6)
     return x * keep.to(x.dtype) * torch.tensor(scale, dtype=x.dtype, device=x.device)
 

@@ -42,6 +42,21 @@ which is shared by the whole batch as in the JAX package.
 ``set_diagnostics_tap`` reports every submodule output of a forward by
 name (``utils/diagnostics.activation_diagnostics``).
 
+Tensor parallelism (``parallel/mesh.shard_module``): a feedforward whose
+hidden dimension is split over a model group runs its local in_proj
+columns and out_proj rows between Megatron's pair of collectives, the
+out_proj bias added once after the sum, its shared dropout mask drawn at
+the full hidden width and sliced.  Everything else stays replicated.
+
+Sequence parallelism (``sequence_parallel``, eval only): every rank runs
+the backbone on its block of frames.  The attention gathers the keys, the
+values and the key mask over the seq group and takes B1 and B2 on its
+query rows against every key, with the window of the global positional
+encoding that its rows touch; each convolution takes its neighbours' edge
+frames (``parallel/mesh.halo``); downsampling stays inside a rank, since
+every rank's first frame is a multiple of every stack's factor
+(``check_sp_frames``).
+
 Attention probabilities and normalization statistics are f32 inside;
 everything else follows the input dtype.
 """
@@ -82,7 +97,14 @@ from zipvoice_tpu_torch.ops.attention import (
 )
 from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
 from zipvoice_tpu_torch.ops.quant import QuantizedLinear
-from zipvoice_tpu_torch.parallel.mesh import fold_rank
+from zipvoice_tpu_torch.parallel.mesh import (
+    Mesh,
+    copy_to_model,
+    fold_rank,
+    gather_frames,
+    halo,
+    reduce_from_model,
+)
 
 _REMAT_POLICY = "full"
 REMAT_POLICIES = ("full", "all", "dots", "xprobs", "xprobs_ff", "names")
@@ -217,6 +239,45 @@ def fused_flags() -> Tuple[bool, bool]:
 
 def _fused(flag: bool, ctx) -> bool:
     return flag and ctx is None and not torch.is_grad_enabled()
+
+
+# The seq mesh the backbone's eval forward runs under (module docstring);
+# None: every rank holds whole sequences.
+_SEQ: Optional[Mesh] = None
+
+
+def check_sp_frames(cfg: ZipformerConfig, num_frames: int, n_seq: int) -> None:
+    """Raise unless ``num_frames`` frames split over ``n_seq`` ranks keep
+    every stack's downsampling inside a rank (num_frames a multiple of n_seq
+    times the largest factor) and every rank's frames in each stack cover
+    its convolution's halo."""
+    unit = n_seq * max(cfg.downsampling_factor)
+    if num_frames % unit:
+        raise ValueError(f"sequence parallelism over {n_seq} ranks needs a frame count "
+                         f"divisible by {unit} ({n_seq} x the largest downsampling factor "
+                         f"{max(cfg.downsampling_factor)}), got {num_frames}")
+    for ds, kernel in zip(cfg.downsampling_factor, cfg.cnn_module_kernel):
+        local = num_frames // (n_seq * ds)
+        if cfg.use_conv and local < kernel // 2:
+            raise ValueError(f"sequence parallelism over {n_seq} ranks: a stack at factor "
+                             f"{ds} holds {local} frames a rank, shorter than its "
+                             f"convolution's halo of {kernel // 2}")
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh: Mesh):
+    """Run the backbone's eval forwards inside the body on this rank's
+    frames of the ``seq`` axis of ``mesh``.  The fused eval kernels (B6,
+    B7, B9) take square tiles only, so their flags must be off."""
+    global _SEQ
+    if _FUSED_EVAL or _FUSED_CONV:
+        raise ValueError("sequence parallelism runs the unfused eval path: switch "
+                         "set_fused_eval / set_fused_conv off")
+    before, _SEQ = _SEQ, mesh
+    try:
+        yield
+    finally:
+        _SEQ = before
 
 # ---------------------------------------------------------------------------
 # Modules (parameter containers under the published names)
@@ -464,7 +525,11 @@ def _attention_projections(m: AttentionWeights, cfg: ZipformerConfig, x: torch.T
     k = _maybe_whiten(ctx, k, "whiten_3", 0.025, num_groups=h)
     q = q.reshape(b, t, h, qd)
     k = k.reshape(b, t, h, qd)
-    pe = _lin(m.linear_pos, pos_emb.to(x.dtype)).reshape(2 * t - 1, h, pd)
+    if _SEQ is not None:
+        k = gather_frames(k, _SEQ)
+    # pos_emb: 2T-1 rows, or under sequence parallelism the window of the
+    # global ones that this rank's rows touch
+    pe = _lin(m.linear_pos, pos_emb.to(x.dtype)).reshape(pos_emb.shape[0], h, pd)
     pen = None
     if ctx is not None:
         if ctx.gate(ctx.s["pos_emb_skip_rate"]):
@@ -477,7 +542,9 @@ def _attention_weights(m: AttentionWeights, cfg: ZipformerConfig,
                        x: torch.Tensor, pos_emb: torch.Tensor,
                        key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Shared q/k/pos projections, then the probabilities (B, H, T, T) in
-    x.dtype through the B1 kernel (plain version on the CPU)."""
+    x.dtype through the B1 kernel (plain version on the CPU); under
+    sequence parallelism (B, H, t, T), this rank's t rows against every
+    key, key_padding_mask the keys' (B, T)."""
     q, k, pq, pe, _ = _attention_projections(m, cfg, x, pos_emb)
     return rel_attention_probs(q, k, pq, pe, key_padding_mask, out_dtype=x.dtype)
 
@@ -514,6 +581,8 @@ def _self_attention(m: _InOut, cfg: ZipformerConfig, x: torch.Tensor, attn,
     b, t, _ = x.shape
     h = cfg.num_heads
     v = _lin(m.in_proj, x).reshape(b, t, h, cfg.value_head_dim)
+    if _SEQ is not None:
+        v = gather_frames(v, _SEQ)
     if isinstance(attn, _EvalAttn):
         probs, o = rel_attention_probs_consume(attn.q, attn.k, attn.pq, attn.pe, attn.mask,
                                                v, out_dtype=x.dtype)
@@ -555,6 +624,8 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
                                   a.pe[:, :1], a.mask, probs0, v[:, :, None, :],
                                   const_gate=const_gate)[:, :, 0]
     else:
+        if _SEQ is not None:
+            v = gather_frames(v, _SEQ)
         v = torch.matmul(head0.to(x.dtype), v)
     with _named("nonlin_mid"):
         vy = v * y
@@ -584,9 +655,13 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[:, :, None], 0.0)
         conv = m.depthwise_conv
+        padding = conv.padding
+        if _SEQ is not None:  # the neighbours' frames in place of the zero padding
+            v = halo(v, padding[0], padding[0], _SEQ)
+            padding = 0
         out = torch.nn.functional.conv1d(
             v.transpose(1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-            padding=conv.padding, groups=conv.groups,
+            padding=padding, groups=conv.groups,
         ).transpose(1, 2)
     if ctx is not None:
         out = _maybe_balancer(ctx, out, ctx.s["balancer_prob"],
@@ -600,7 +675,12 @@ def _conv_module(m: ConvModule, x: torch.Tensor,
 
 def _feedforward(m: _InOut, x: torch.Tensor, ctx: Optional[TrainCtx] = None) -> torch.Tensor:
     """Linear -> [balancer] -> SwooshL -> [dropout shared over time] ->
-    Linear -> [whiten]."""
+    Linear -> [whiten].  With its hidden dimension split over a model group
+    (``m.tp_shard``), the local columns and rows between the collectives
+    (module docstring); the balancer is per channel, so local is right."""
+    shard = getattr(m, "tp_shard", None)
+    if shard is not None:
+        x = copy_to_model(x, shard)
     with _named("ff_hidden"):
         h = _lin(m.in_proj, x)
     if ctx is not None:
@@ -609,8 +689,14 @@ def _feedforward(m: _InOut, x: torch.Tensor, ctx: Optional[TrainCtx] = None) -> 
     with _named("ff_hidden"):
         h = swoosh_l(h)
         if ctx is not None:
-            h = reg.dropout_shared(h, ctx.gen, ctx.s["dropout"], shared_dim=1)
-    return _maybe_whiten(ctx, _lin(m.out_proj, h), "whiten_7_5", 0.01)
+            width = h.shape[-1]
+            h = reg.dropout_shared(h, ctx.gen, ctx.s["dropout"], shared_dim=1,
+                                   columns=None if shard is None
+                                   else (shard.index * width, shard.size * width))
+    if shard is None:
+        return _maybe_whiten(ctx, _lin(m.out_proj, h), "whiten_7_5", 0.01)
+    out = reduce_from_model(linear(h, m.out_proj.weight, None), shard)
+    return _maybe_whiten(ctx, out + m.out_proj.bias.to(out.dtype), "whiten_7_5", 0.01)
 
 
 def _bypass(scale: torch.Tensor, src_orig: torch.Tensor, src: torch.Tensor,
@@ -630,9 +716,14 @@ def _bypass(scale: torch.Tensor, src_orig: torch.Tensor, src: torch.Tensor,
 def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
                    pos_emb: torch.Tensor, time_emb: Optional[torch.Tensor],
                    key_padding_mask: Optional[torch.Tensor],
-                   ctx: Optional[TrainCtx] = None) -> torch.Tensor:
-    """Zipformer2EncoderLayer forward; time_emb: (B, D) or None."""
+                   ctx: Optional[TrainCtx] = None,
+                   keys_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Zipformer2EncoderLayer forward; time_emb: (B, D) or None;
+    keys_mask: the attention keys' padding mask where the keys are not the
+    layer's own frames (sequence parallelism), else key_padding_mask."""
     src_orig = src
+    if keys_mask is None:
+        keys_mask = key_padding_mask
     if ctx is not None:
         q, k, pq, pe, pen = _attention_projections(m.self_attn_weights, cfg, src, pos_emb,
                                                    ctx)
@@ -643,7 +734,7 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         q, k, pq, pe, _ = _attention_projections(m.self_attn_weights, cfg, src, pos_emb)
         attn = _EvalAttn(q, k, pq, pe, key_padding_mask)
     else:
-        attn = _attention_weights(m.self_attn_weights, cfg, src, pos_emb, key_padding_mask)
+        attn = _attention_weights(m.self_attn_weights, cfg, src, pos_emb, keys_mask)
     if isinstance(attn, torch.Tensor):
         _tap("self_attn_weights", attn)
     elif isinstance(attn, _SharedAttn):
@@ -729,8 +820,19 @@ def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
                    time_emb: Optional[torch.Tensor],
                    key_padding_mask: Optional[torch.Tensor],
                    ctx: Optional[TrainCtx] = None, stack: int = 0) -> torch.Tensor:
-    pos_emb = compact_rel_positional_encoding(src.shape[1], cfg.pos_dim,
-                                              device=src.device)
+    keys_mask = None
+    if _SEQ is None:
+        pos_emb = compact_rel_positional_encoding(src.shape[1], cfg.pos_dim,
+                                                  device=src.device)
+    else:
+        # the stack's global frame count, and the window of its 2T-1
+        # positions that this rank's rows [r0, r0 + t) touch
+        t = src.shape[1]
+        t_all, r0 = t * _SEQ.size("seq"), t * _SEQ.index["seq"]
+        pos_emb = compact_rel_positional_encoding(t_all, cfg.pos_dim, device=src.device)[
+            t_all - r0 - t: 2 * t_all - 1 - r0]
+        if key_padding_mask is not None:
+            keys_mask = gather_frames(key_padding_mask, _SEQ)
     if ctx is not None:
         pos_emb = reg.dropout_shared(pos_emb, ctx.shared_gen, 0.15)
     stack_time_emb = None
@@ -748,7 +850,7 @@ def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
 
         def run(x, pe, te, mask, layer=layer, layer_ctx=layer_ctx):
             lctx = None if layer_ctx is None else ctx.child(*layer_ctx)
-            return _encoder_layer(layer, cfg, x, pe, te, mask, lctx)
+            return _encoder_layer(layer, cfg, x, pe, te, mask, lctx, keys_mask)
 
         if remat:
             src = checkpoint(run, src, pos_emb, stack_time_emb, key_padding_mask,

@@ -5,14 +5,19 @@ Seven kernels carry the Zipformer attention:
 * ``rel_attention_probs`` (B1, ``csrc/rel_probs.cu``, its kernel in
   ``csrc/rel_probs.cuh``): softmax over keys of q.k + pq.pe[j - i + T - 1]
   + key-padding bias, (B, H, T, T).  It is differentiable: its backward is
-  B4 plus four matmul adjoints.
+  B4 plus four matmul adjoints.  It also takes a rectangular tile, Tq query
+  rows against Tk keys with pe (Tq + Tk - 1, H, pd): a block of rows
+  [r0, r0 + Tq) of a square problem is that tile with the window
+  pe[Tk - r0 - Tq : 2 Tk - 1 - r0] of the square pe (the sequence-parallel
+  sampler's; eval only).
 * ``rel_attention_ds`` (B4, ``csrc/rel_ds.cu``): the score cotangent
   ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit), with the
   probabilities recomputed from q, k, pq, pe: B1's kernel with an epilogue
   that reads g behind the scores, its probabilities B1's bit for bit.
 * ``rel_attention_probs_apply`` (B2, ``csrc/probs_apply.cu``): the
   SelfAttention contraction einsum('bhts,bshd->bthd', probs, v), with its
-  einsum adjoints as the backward.
+  einsum adjoints as the backward; probs (B, H, Tq, Tk) may be
+  rectangular.
 * ``rel_attention_consume_bwd`` (B3, ``csrc/rel_apply_bwd.cu``): the flash
   backward of ``rel_attention_consume``, which contracts a layer's shared
   stop-gradient probabilities with one consumer's values in the forward
@@ -60,16 +65,20 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # ---------------------------------------------------------------------------
 
 
-def rel_shift(pos_scores: torch.Tensor, seq_len: int) -> torch.Tensor:
-    """(B, H, T, 2T-1) relative-axis scores -> (B, H, T, T) absolute:
-    out[..., i, j] = pos_scores[..., i, (T-1) + j - i]."""
-    t = seq_len
-    if t == 1:
+def rel_shift(pos_scores: torch.Tensor, seq_len: int,
+              keys: Optional[int] = None) -> torch.Tensor:
+    """(B, H, Tq, Tq+Tk-1) relative-axis scores -> (B, H, Tq, Tk) absolute:
+    out[..., i, j] = pos_scores[..., i, (Tq-1) + j - i], with Tq = seq_len
+    and Tk = keys (seq_len when None: the square (B, H, T, 2T-1) case)."""
+    tq = seq_len
+    tk = tq if keys is None else keys
+    if tq == 1:
         return pos_scores
     b, h = pos_scores.shape[0], pos_scores.shape[1]
-    flat = pos_scores.reshape(b, h, t * (2 * t - 1))
-    flat = flat[:, :, t - 1 : t - 1 + t * (2 * t - 2)]
-    return flat.reshape(b, h, t, 2 * t - 2)[..., :t]
+    w = tq + tk - 1
+    flat = pos_scores.reshape(b, h, tq * w)
+    flat = flat[:, :, tq - 1 : tq - 1 + tq * (w - 1)]
+    return flat.reshape(b, h, tq, w - 1)[..., :tk]
 
 
 def unshear(ds: torch.Tensor) -> torch.Tensor:
@@ -84,10 +93,11 @@ def unshear(ds: torch.Tensor) -> torch.Tensor:
 
 
 def rel_scores_plain(q, k, pq, pe) -> torch.Tensor:
-    """Pre-mask scores q.k + pq.pe[j - i + T - 1], (B, H, T, T) f32."""
+    """Pre-mask scores q.k + pq.pe[j - i + Tq - 1], (B, H, Tq, Tk) f32
+    (square: Tq = Tk = T)."""
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
     pos = torch.einsum("bthd,nhd->bhtn", pq.float(), pe.float())
-    return scores + rel_shift(pos, q.shape[1])
+    return scores + rel_shift(pos, q.shape[1], k.shape[1])
 
 
 def _softmax_masked(scores: torch.Tensor, key_padding_mask) -> torch.Tensor:
@@ -218,24 +228,27 @@ def _check_cuda(name: str, *tensors):
         raise ValueError(f"{name}: inputs must share a dtype")
 
 
-def _check_rel_shapes(name, q, k, pq, pe):
-    b, t, h, _ = q.shape
-    pd = pq.shape[-1]
-    if (k.shape != q.shape or pq.shape[:3] != (b, t, h)
-            or pe.shape != (2 * t - 1, h, pd)):
+def _check_rel_shapes(name, q, k, pq, pe, square: bool = True):
+    """q, pq (B, Tq, H, .), k (B, Tk, H, qd), pe (Tq + Tk - 1, H, pd);
+    Tq = Tk unless the kernel takes rectangular tiles (B1)."""
+    b, tq, h, qd = q.shape
+    tk, pd = k.shape[1], pq.shape[-1]
+    if (k.shape != (b, tk, h, qd) or (square and tk != tq) or pq.shape[:3] != (b, tq, h)
+            or pe.shape != (tq + tk - 1, h, pd)):
         raise ValueError(f"{name}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"pq{tuple(pq.shape)} pe{tuple(pe.shape)}")
 
 
-def _mask_ptr(name, key_padding_mask, q):
-    """(pointer, keep-alive tensor) of a (B, T) bool mask as uint8."""
+def _mask_ptr(name, key_padding_mask, k):
+    """(pointer, keep-alive tensor) of a (B, Tk) bool key mask as uint8;
+    k: the keys (B, Tk, ...)."""
     if key_padding_mask is None:
         return None, None
-    b, t = q.shape[:2]
-    if (key_padding_mask.shape != (b, t) or key_padding_mask.device != q.device
+    b, t = k.shape[:2]
+    if (key_padding_mask.shape != (b, t) or key_padding_mask.device != k.device
             or key_padding_mask.dtype != torch.bool):
         raise ValueError(f"{name}: key_padding_mask must be a (B, T) bool "
-                         f"tensor on {q.device}")
+                         f"tensor on {k.device}")
     m = key_padding_mask.contiguous().view(torch.uint8)
     return m.data_ptr(), m
 
@@ -247,10 +260,10 @@ def _stream_ptr(device: torch.device) -> ctypes.c_void_p:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (kernel library, argtypes)
 _SIGNATURES = {
-    # zv_rel_probs(q, kt, pq, pe, mask, out, B, T, H, QD, PD, in_bf16, out_bf16, stream)
-    "zv_rel_probs": ("rel_probs", [_P] * 6 + [_I] * 7 + [_P]),
-    # zv_probs_apply(probs, v, out, B, T, H, VD, bf16, stream)
-    "zv_probs_apply": ("probs_apply", [_P] * 3 + [_I] * 5 + [_P]),
+    # zv_rel_probs(q, kt, pq, pe, mask, out, B, Tq, Tk, H, QD, PD, in_bf16, out_bf16, stream)
+    "zv_rel_probs": ("rel_probs", [_P] * 6 + [_I] * 8 + [_P]),
+    # zv_probs_apply(probs, v, out, B, Tq, Tk, H, VD, bf16, stream)
+    "zv_probs_apply": ("probs_apply", [_P] * 3 + [_I] * 6 + [_P]),
     # zv_rel_ds(q, kt, pq, pe, mask, g, ds, B, T, H, QD, PD, bf16, pen, limit, stream)
     "zv_rel_ds": ("rel_ds", [_P] * 7 + [_I] * 6 + [_F, _F, _P]),
     # zv_rel_apply_bwd(q, kt, pq, pe, mask, v, g, stats, dq, dk, dpq, dpe, dv,
@@ -289,20 +302,20 @@ def _rel_probs_forward(q: torch.Tensor, k: torch.Tensor, pq: torch.Tensor, pe: t
     if q.device.type == "cpu":
         return rel_attention_probs_plain(q, k, pq, pe, key_padding_mask, out_dtype)
     _check_cuda("rel_attention_probs", q, k, pq, pe)
-    _check_rel_shapes("rel_attention_probs", q, k, pq, pe)
+    _check_rel_shapes("rel_attention_probs", q, k, pq, pe, square=False)
     if out_dtype not in _DTYPES:
         raise ValueError(f"rel_attention_probs: out_dtype {out_dtype}")
-    b, t, h, qd = q.shape
-    pd = pq.shape[-1]
+    b, tq, h, qd = q.shape
+    tk, pd = k.shape[1], pq.shape[-1]
     q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
-    kt = k.permute(0, 2, 3, 1).contiguous()  # (B, H, qd, T): coalesced key reads
-    mask_ptr, _keep = _mask_ptr("rel_attention_probs", key_padding_mask, q)
-    out = torch.empty((b, h, t, t), dtype=out_dtype, device=q.device)
+    kt = k.permute(0, 2, 3, 1).contiguous()  # (B, H, qd, Tk): coalesced key reads
+    mask_ptr, _keep = _mask_ptr("rel_attention_probs", key_padding_mask, k)
+    out = torch.empty((b, h, tq, tk), dtype=out_dtype, device=q.device)
     code = _entry("zv_rel_probs")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
-        out.data_ptr(), b, t, h, qd, pd, int(q.dtype == torch.bfloat16),
+        out.data_ptr(), b, tq, tk, h, qd, pd, int(q.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), _stream_ptr(q.device))
-    _raise_on(code, "rel_probs", f"B={b} T={t} H={h} qd={qd} pd={pd}")
+    _raise_on(code, "rel_probs", f"B={b} Tq={tq} Tk={tk} H={h} qd={qd} pd={pd}")
     rel_attention_probs.launches += 1
     return out
 
@@ -324,7 +337,7 @@ def rel_attention_ds(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
     q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
     g = build.aligned(g.contiguous())  # its rows are staged in 16-byte copies
     kt = k.permute(0, 2, 3, 1).contiguous()
-    mask_ptr, _keep = _mask_ptr("rel_attention_ds", key_padding_mask, q)
+    mask_ptr, _keep = _mask_ptr("rel_attention_ds", key_padding_mask, k)
     ds = torch.empty((b, h, t, t), dtype=q.dtype, device=q.device)
     code = _entry("zv_rel_ds")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
@@ -359,19 +372,21 @@ class _RelProbs(torch.autograd.Function):
 
 
 def rel_attention_probs(
-    q: torch.Tensor,  # (B, T, H, qd)
-    k: torch.Tensor,  # (B, T, H, qd)
-    pq: torch.Tensor,  # (B, T, H, pd)
-    pe: torch.Tensor,  # (2T-1, H, pd) projected positional encodings
-    key_padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = pad
+    q: torch.Tensor,  # (B, Tq, H, qd)
+    k: torch.Tensor,  # (B, Tk, H, qd)
+    pq: torch.Tensor,  # (B, Tq, H, pd)
+    pe: torch.Tensor,  # (Tq+Tk-1, H, pd) projected positional encodings
+    key_padding_mask: Optional[torch.Tensor] = None,  # (B, Tk) bool, True = pad
     out_dtype: Optional[torch.dtype] = None,
     score_penalty: float = 0.0,
     penalty_limit: float = 25.0,
 ) -> torch.Tensor:
-    """Attention probabilities (B, H, T, T) in ``out_dtype`` (default
-    q.dtype); scores and softmax in f32.  Any T.  Differentiable: the
-    backward adds score_penalty * sign(s) * (|s| > penalty_limit) to the
-    pre-mask score cotangent (the attention-score failsafe)."""
+    """Attention probabilities (B, H, Tq, Tk) in ``out_dtype`` (default
+    q.dtype); scores and softmax in f32.  Any T; square (Tq = Tk = T) on
+    the model's paths, rectangular for a block of query rows (module
+    docstring).  Differentiable at Tq = Tk: the backward adds score_penalty
+    * sign(s) * (|s| > penalty_limit) to the pre-mask score cotangent (the
+    attention-score failsafe)."""
     out_dtype = q.dtype if out_dtype is None else out_dtype
     return _RelProbs.apply(q, k, pq, pe, key_padding_mask, out_dtype,
                            float(score_penalty), float(penalty_limit))
@@ -388,8 +403,8 @@ REL_PROBS_OP = torch.ops.zipvoice.rel_probs.default
 # runs the plain version on the CPU.
 @_rel_probs_forward.register_fake
 def _(q, k, pq, pe, key_padding_mask, out_dtype):
-    b, t, h, _ = q.shape
-    return q.new_empty((b, h, t, t), dtype=out_dtype)
+    b, tq, h, _ = q.shape
+    return q.new_empty((b, h, tq, k.shape[1]), dtype=out_dtype)
 
 
 @torch.library.custom_op("zipvoice::probs_apply", mutates_args=())
@@ -397,17 +412,17 @@ def _probs_apply_forward(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if probs.device.type == "cpu":
         return rel_attention_probs_apply_plain(probs, v)
     _check_cuda("rel_attention_probs_apply", probs, v)
-    b, h, t, _ = probs.shape
+    b, h, tq, tk = probs.shape
     vd = v.shape[-1]
-    if probs.shape != (b, h, t, t) or v.shape != (b, t, h, vd):
+    if v.shape != (b, tk, h, vd):
         raise ValueError(f"rel_attention_probs_apply: shapes probs"
                          f"{tuple(probs.shape)} v{tuple(v.shape)}")
     probs, v = build.aligned(probs.contiguous()), build.aligned(v.contiguous())
-    out = torch.empty((b, t, h, vd), dtype=v.dtype, device=v.device)
+    out = torch.empty((b, tq, h, vd), dtype=v.dtype, device=v.device)
     code = _entry("zv_probs_apply")(probs.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    b, t, h, vd, int(v.dtype == torch.bfloat16),
+                                    b, tq, tk, h, vd, int(v.dtype == torch.bfloat16),
                                     _stream_ptr(v.device))
-    _raise_on(code, "probs_apply", f"B={b} T={t} H={h} vd={vd}")
+    _raise_on(code, "probs_apply", f"B={b} Tq={tq} Tk={tk} H={h} vd={vd}")
     rel_attention_probs_apply.launches += 1
     return out
 
@@ -431,8 +446,8 @@ class _ProbsApply(torch.autograd.Function):
 
 def rel_attention_probs_apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """einsum('bhts,bshd->bthd', probs, v) accumulated in f32, returned in
-    v.dtype; probs (B, H, T, T), v (B, T, H, vd) of the same dtype.  Any T;
-    vd in {4, 8, 12, 16}.  Differentiable."""
+    v.dtype; probs (B, H, Tq, Tk), v (B, Tk, H, vd) of the same dtype.  Any
+    Tq, Tk; vd in {4, 8, 12, 16}.  Differentiable."""
     return _ProbsApply.apply(probs, v)
 
 
@@ -441,7 +456,7 @@ rel_attention_probs_apply.launches = 0
 
 @_probs_apply_forward.register_fake
 def _(probs, v):
-    return v.new_empty(v.shape)
+    return v.new_empty((v.shape[0], probs.shape[2], *v.shape[2:]))
 
 # value widths the B2 kernel takes; wider consumers contract with torch.matmul
 PROBS_APPLY_VD = (4, 8, 12, 16)
@@ -470,7 +485,7 @@ def rel_attention_consume_bwd(q, k, pq, pe, key_padding_mask, v, g,
     q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
     v, g = v.contiguous(), g.contiguous()
     kt = k.permute(0, 2, 3, 1).contiguous()
-    mask_ptr, _keep = _mask_ptr("rel_attention_consume_bwd", key_padding_mask, q)
+    mask_ptr, _keep = _mask_ptr("rel_attention_consume_bwd", key_padding_mask, k)
     f32 = dict(dtype=torch.float32, device=q.device)
     stats = torch.empty((4, b, h, t), **f32)  # per row: max, 1/sum, sum(p dP), count(p > 0)
     dq = torch.empty((b, t, h, qd), **f32)
@@ -555,7 +570,7 @@ def _consume_inputs(name, q, k, pq, pe, key_padding_mask, v, v_shape):
     if v.shape != v_shape or v.shape[-1] % 4 != 0:
         raise ValueError(f"{name}: v{tuple(v.shape)}, want {v_shape} with a width "
                          "that is a multiple of 4")
-    mask_ptr, keep = _mask_ptr(name, key_padding_mask, q)
+    mask_ptr, keep = _mask_ptr(name, key_padding_mask, k)
     return (q.contiguous(), pq.contiguous(), pe.contiguous(), build.aligned(v.contiguous()),
             mask_ptr, keep)
 

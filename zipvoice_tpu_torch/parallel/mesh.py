@@ -1,36 +1,66 @@
-"""Data parallelism across processes: one process a card, NCCL between them.
+"""Data, tensor and sequence parallelism across processes: one process a
+card, NCCL between them.
 
 The JAX package drives every local device from one process through a
-``data`` mesh and lets XLA insert the gradient psum.  The PyTorch idiom is
-one process per card, started by ``torchrun`` (``python -m
+named mesh and lets XLA insert the collectives.  The PyTorch idiom is one
+process per card, started by ``torchrun`` (``python -m
 torch.distributed.run``), which sets ``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``.  This module holds
-that half of ``zipvoice_tpu/parallel/mesh.py``:
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``; every collective is
+written out here.  This module holds the port of
+``zipvoice_tpu/parallel/mesh.py``:
 
 * ``init_from_env``: the process group from the launcher's environment
   (NCCL on cards; gloo only when a caller passes it) and the process's
   device, ``cuda:LOCAL_RANK``;
 * ``rank``, ``world_size``, ``fold_rank``: a process's place, and its own
-  seed for the draws that differ row by row (t, noise, masks);
+  seed for the draws that differ row by row (t, noise, masks), folded by
+  its data index;
 * ``broadcast_module``: rank 0's parameters and buffers to every rank,
-  once before the first step;
+  once before the first step (and before ``shard_module``);
 * ``all_reduce_gradients``: one coalesced sum of every parameter's
-  gradient (a missing one counts as zeros on every rank, as ScaledAdam
-  takes it), with scalars riding along (the step's loss);
-* ``global_sum``: a scalar summed over the ranks (the loss normalizer);
+  gradient over the data group (a missing one counts as zeros on every
+  rank, as ScaledAdam takes it), with scalars riding along (the step's
+  loss); under tensor parallelism the replicated parameters' gradients
+  are averaged over the model group too, so that its ranks keep equal
+  replicas;
+* ``global_sum``: a scalar summed over the data group (the loss
+  normalizer);
+* ``make_mesh(n_data, n_model)``: a data x model layout of the ranks, rank
+  r at (r // n_model, r % n_model) as JAX's ``reshape(n_data, n_model)``
+  places devices, with a process group for each data row (its model
+  group) and each model column (its data group); ``make_seq_mesh(n_seq)``:
+  one seq group; ``use_mesh``: the mesh a training step runs under, whose
+  data group the gradient and loss sums and ``fold_rank`` read (without
+  one, the data group is the world, as before);
+* tensor parallelism (``tp_param_shardings``, ``shard_module``,
+  ``unshard_state_dict``): the Megatron column/row split of every
+  feedforward's hidden dimension over the model group, and its pair of
+  collectives (``copy_to_model``: identity forward, all-reduce backward;
+  ``reduce_from_model``: all-reduce forward, identity backward);
+* sequence parallelism, inference only (``gather_frames``, ``halo``): the
+  frames of every rank of the seq group, and a rank's neighbours' edge
+  frames for a convolution; both raise under autograd, since they have no
+  backward yet;
 * ``barrier`` and ``shutdown``.
 
-The losses are normalized by the valid count summed over the ranks and the
-gradients summed, so every rank holds the gradient of the mean over the
-global batch (JAX's), and ScaledAdam, run on equal gradients, keeps the
-parameters bit-identical across ranks.  Without a process group every
-function is the single-process identity.
+The losses are normalized by the valid count summed over the data group
+and the gradients summed, so every rank holds the gradient of the mean
+over the global batch (JAX's), and ScaledAdam, run on equal gradients,
+keeps the parameters bit-identical across the ranks of a data group.
+``COUNTS`` counts every collective call by kind (all_reduce, all_gather,
+halo), as the kernels count their launches; without a process group, or
+in a group of one, every function is the single-process identity and
+counts nothing.  Every collective here is one that gloo also runs on CUDA
+tensors (all_reduce, all_gather, broadcast), so two gloo ranks can share
+one card where NCCL refuses them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -76,6 +106,8 @@ def init_from_env(device: str = "cuda", backend: Optional[str] = None) -> torch.
 
 
 def shutdown() -> None:
+    global _ACTIVE
+    _ACTIVE = None
     if is_distributed():
         dist.destroy_process_group()
 
@@ -85,13 +117,153 @@ def barrier() -> None:
         dist.barrier()
 
 
-def fold_rank(seed: int) -> int:
-    """The seed of this rank's per-row draws: ``seed`` itself on rank 0 (a
-    single process draws as before), a derived one on the others."""
+# ---------------------------------------------------------------------------
+# Meshes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a layout of the world's ranks over named axes:
+    ``shape`` {axis: size}, ``index`` {axis: this rank's index} and
+    ``groups`` {axis: the process group of the ranks that differ from this
+    one only along that axis} (None for an axis of size 1)."""
+
+    shape: Dict[str, int]
+    index: Dict[str, int]
+    groups: Dict[str, Optional[object]]
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+
+def _new_groups(rows: Sequence[Sequence[int]]):
+    """One process group for each list of ranks (every rank creates every
+    group, in the same order); returns the one this rank belongs to, None
+    where the lists hold one rank each (nothing to talk to)."""
+    if len(rows[0]) == 1:
+        return None
+    mine, r = None, rank()
+    for ranks in rows:
+        g = dist.new_group(list(ranks))
+        if r in ranks:
+            mine = g
+    return mine
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+    """A data x model layout of the world's ranks: rank r at (r // n_model,
+    r % n_model); the model group of a rank holds the ranks of its data
+    row, its data group those of its model column.  n_data defaults to
+    world_size // n_model; n_data * n_model must be the world size."""
+    n = world_size()
+    n_data = n // n_model if n_data is None else n_data
+    if n_data * n_model != n:
+        raise ValueError(f"a {n_data} x {n_model} mesh needs {n_data * n_model} ranks, "
+                         f"the world has {n}")
     r = rank()
+    groups = {"data": None, "model": None}
+    if is_distributed():
+        groups["data"] = _new_groups([[d * n_model + c for d in range(n_data)]
+                                      for c in range(n_model)])
+        groups["model"] = _new_groups([list(range(d * n_model, (d + 1) * n_model))
+                                       for d in range(n_data)])
+    return Mesh({"data": n_data, "model": n_model},
+                {"data": r // n_model, "model": r % n_model}, groups)
+
+
+def make_seq_mesh(n_seq: Optional[int] = None) -> Mesh:
+    """A 1-D layout of the world's ranks over the time axis (``seq``) for
+    sequence-parallel inference: rank r holds frames [r T/n, (r+1) T/n).
+    n_seq defaults to, and must be, the world size."""
+    n = world_size()
+    n_seq = n if n_seq is None else n_seq
+    if n_seq != n:
+        raise ValueError(f"a seq mesh of {n_seq} needs {n_seq} ranks, the world has {n}")
+    group = _new_groups([list(range(n))]) if is_distributed() else None
+    return Mesh({"seq": n}, {"seq": rank()}, {"seq": group})
+
+
+_ACTIVE: Optional[Mesh] = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Run the body under ``mesh``: fold_rank folds by its data index, and
+    global_sum and all_reduce_gradients sum over its data group."""
+    global _ACTIVE
+    before, _ACTIVE = _ACTIVE, mesh
+    try:
+        yield mesh
+    finally:
+        _ACTIVE = before
+
+
+def data_index() -> int:
+    """This rank's index along the data axis of the active mesh (its rank
+    without one, or in a mesh without a data axis)."""
+    if _ACTIVE is not None and "data" in _ACTIVE.index:
+        return _ACTIVE.index["data"]
+    return rank()
+
+
+def _data_group():
+    """(group, size) of the sums over the data axis: the active mesh's data
+    group, else the world."""
+    if _ACTIVE is not None and "data" in _ACTIVE.shape:
+        return _ACTIVE.group("data"), _ACTIVE.size("data")
+    return None, world_size()
+
+
+def fold_rank(seed: int) -> int:
+    """The seed of this rank's per-row draws: ``seed`` itself at data index
+    0 (a single process draws as before), a derived one at the others.
+    The ranks of one model group hold the same rows and draw the same."""
+    r = data_index()
     if r == 0:
         return int(seed)
     return int(np.random.SeedSequence([int(seed), r]).generate_state(1, np.uint64)[0] >> 2)
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+# collective calls by kind since the last reset_counts()
+COUNTS = {"all_reduce": 0, "all_gather": 0, "halo": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def _all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed in place over ``group`` (the world when None)."""
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _all_gather(x: torch.Tensor, n: int, group) -> List[torch.Tensor]:
+    """Every rank's x (same shape) in group rank order; bool travels as
+    uint8."""
+    src = x.contiguous().view(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return [p.view(torch.bool) for p in parts] if x.dtype == torch.bool else parts
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the data group (x itself without a process group); no
+    gradient flows through the sum."""
+    group, n = _data_group()
+    if not is_distributed() or n == 1:
+        return x
+    COUNTS["all_reduce"] += 1
+    return _all_reduce(x.detach().clone(), group)
 
 
 @torch.no_grad()
@@ -103,35 +275,218 @@ def broadcast_module(module: torch.nn.Module) -> None:
         dist.broadcast(t.data, src=0)
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """x summed over the ranks (x itself without a process group); no
-    gradient flows through the sum."""
-    if not is_distributed():
-        return x
-    y = x.detach().clone()
-    dist.all_reduce(y)
-    return y
-
-
 @torch.no_grad()
 def all_reduce_gradients(params: Sequence[torch.nn.Parameter],
                          extras: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
-    """Sum every parameter's .grad over the ranks in one all-reduce, a
-    missing gradient as zeros, and set each .grad to a view of the sum;
-    ``extras`` (scalars) ride in the same buffer and come back summed.
-    Without a process group nothing moves and ``extras`` come back as
-    they are."""
-    if not is_distributed():
+    """Sum every parameter's .grad over the data group, a missing gradient
+    as zeros, and set each .grad to a view of the sum; ``extras`` (scalars)
+    ride along and come back summed.  Without a process group (or in a
+    mesh of one rank) nothing moves and ``extras`` come back as they are.
+
+    Under an active mesh with a model axis, a replicated parameter's
+    gradient is computed on every rank of its model group, equal but for
+    the order of the card's atomic adds (an embedding's backward, B3's
+    dpe): it is summed over the whole mesh and divided by the model size,
+    so that the ranks of a model group keep equal replicas; a split
+    parameter's gradient (``tp_shard``) is summed over the data group
+    alone."""
+    group, n = _data_group()
+    n_model = _ACTIVE.size("model") if _ACTIVE is not None else 1
+    if not is_distributed() or n * n_model == 1:
         return list(extras)
     # a named range, so that a profile of the step shows the sync's share
     with torch.profiler.record_function("all_reduce_gradients"):
-        flat = torch.cat(
-            [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
-             for p in params] + [e.detach().reshape(-1).float() for e in extras])
-        dist.all_reduce(flat)
-        off = 0
-        for p in params:
-            n = p.numel()
-            p.grad = flat[off:off + n].view_as(p).to(p.dtype)
-            off += n
-        return [flat[off + i].reshape(e.shape) for i, e in enumerate(extras)]
+        split = [p for p in params if hasattr(p, "tp_shard")] if n_model > 1 else []
+        whole = [p for p in params if not hasattr(p, "tp_shard")] if n_model > 1 else params
+        out = _sum_into_grads(whole, extras, None if n_model > 1 else group, n_model)
+        if split and n > 1:
+            _sum_into_grads(split, (), group, 1)
+        return out
+
+
+def _sum_into_grads(params, extras, group, divide: int) -> List[torch.Tensor]:
+    """One all-reduce over ``group`` of the params' gradients (zeros where
+    missing) and the extras, divided by ``divide``; each .grad set to a
+    view of the result; returns the extras."""
+    flat = torch.cat(
+        [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+         for p in params] + [e.detach().reshape(-1).float() for e in extras])
+    COUNTS["all_reduce"] += 1
+    _all_reduce(flat, group)
+    if divide != 1:
+        flat /= divide
+    off = 0
+    for p in params:
+        k = p.numel()
+        p.grad = flat[off:off + k].view_as(p).to(p.dtype)
+        off += k
+    return [flat[off + i].reshape(e.shape) for i, e in enumerate(extras)]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the feedforwards' hidden dimension over the model group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TPShard:
+    """A module's or parameter's share of a model group: the group, its
+    size and this rank's index."""
+
+    group: object
+    size: int
+    index: int
+
+
+def model_all_reduce(x: torch.Tensor, shard: TPShard) -> torch.Tensor:
+    """x (no gradient) summed over the model group, in f32, in x's dtype."""
+    COUNTS["all_reduce"] += 1
+    return _all_reduce(x.float().clone(), shard.group).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_all_reduce(g, ctx.shard), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial sums of the model group's ranks added; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        return model_all_reduce(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, shard: TPShard) -> torch.Tensor:
+    """The input of a column-split linear (Megatron's f)."""
+    return _CopyToModel.apply(x, shard)
+
+
+def reduce_from_model(x: torch.Tensor, shard: TPShard) -> torch.Tensor:
+    """The output of a row-split linear, summed over the shards (Megatron's
+    g)."""
+    return _ReduceFromModel.apply(x, shard)
+
+
+def tp_param_shardings(model: torch.nn.Module) -> Dict[str, Optional[int]]:
+    """Parameter name -> the dimension split over the model axis, or None
+    (replicated): the JAX package's rule (``tp_param_shardings``) in the
+    torch layout.  In every ``feed_forward`` module ``in_proj.weight``
+    (out, in) splits by its output features (dim 0, JAX's columns of (in,
+    out)), ``in_proj.bias`` likewise, ``out_proj.weight`` by its input
+    features (dim 1, JAX's rows); everything else, ``out_proj.bias``
+    included, is replicated."""
+    spec = {}
+    for name, p in model.named_parameters():
+        dim = None
+        if ".feed_forward" in name and p.ndim >= 1:
+            if name.endswith("in_proj.weight") or name.endswith("in_proj.bias"):
+                dim = 0
+            elif name.endswith("out_proj.weight"):
+                dim = 1
+        spec[name] = dim
+    return spec
+
+
+@torch.no_grad()
+def shard_module(model: torch.nn.Module, spec: Dict[str, Optional[int]],
+                 mesh: Mesh) -> torch.nn.Module:
+    """Slice ``model``'s split parameters in place to this rank's share of
+    the model group (its index-th block along the split dimension).  Each
+    split parameter gets ``tp_shard`` and ``tp_dim``, and each module whose
+    in_proj is split gets ``tp_shard``: the forward (nn/zipformer's
+    feedforward) and ScaledAdam read them.  Every rank must hold the same
+    full parameters before (``broadcast_module``)."""
+    n = mesh.size("model")
+    if n == 1:
+        return model
+    shard = TPShard(mesh.group("model"), n, mesh.index["model"])
+    params = dict(model.named_parameters())
+    for name, dim in spec.items():
+        if dim is None:
+            continue
+        p = params[name]
+        if p.shape[dim] % n:
+            raise ValueError(f"{name}: dimension {dim} of {tuple(p.shape)} does not split "
+                             f"over {n} ranks")
+        size = p.shape[dim] // n
+        p.data = p.data.narrow(dim, shard.index * size, size).clone()
+        p.tp_shard, p.tp_dim = shard, dim
+        if name.endswith("in_proj.weight"):
+            model.get_submodule(name[:-len(".in_proj.weight")]).tp_shard = shard
+    return model
+
+
+@torch.no_grad()
+def unshard_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The full state dict on every rank: each split parameter gathered
+    over its model group along its split dimension (a checkpoint written
+    from a tensor-parallel model holds full tensors, as JAX writes global
+    arrays)."""
+    out = {}
+    for name, t in model.state_dict(keep_vars=True).items():
+        shard = getattr(t, "tp_shard", None)
+        if shard is None:
+            out[name] = t.detach().clone()
+            continue
+        COUNTS["all_gather"] += 1
+        out[name] = torch.cat(_all_gather(t.detach(), shard.size, shard.group), dim=t.tp_dim)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (inference): the frame axis over the seq group
+# ---------------------------------------------------------------------------
+
+
+def _no_grad_only(name: str) -> None:
+    if torch.is_grad_enabled():
+        raise RuntimeError(f"{name} has no backward yet: sequence parallelism runs "
+                           "without gradient (torch.no_grad)")
+
+
+def gather_frames(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """Every rank's frames of x concatenated along ``dim`` in rank order:
+    the full sequence on every rank of the seq group."""
+    _no_grad_only("gather_frames")
+    n = mesh.size("seq")
+    if n == 1:
+        return x
+    COUNTS["all_gather"] += 1
+    return torch.cat(_all_gather(x, n, mesh.group("seq")), dim=dim)
+
+
+def halo(x: torch.Tensor, left: int, right: int, mesh: Mesh) -> torch.Tensor:
+    """x (B, t, C), this rank's frames, with the ``left`` frames before
+    them (the previous rank's last) and the ``right`` frames after them
+    (the next rank's first) attached: (B, left + t + right, C), zeros past
+    the sequence's ends, as a convolution with that padding sees the full
+    sequence.  The edges travel in one all-gather."""
+    _no_grad_only("halo")
+    n, i = mesh.size("seq"), mesh.index.get("seq", 0)
+    t = x.shape[1]
+    if t < max(left, right):
+        raise ValueError(f"halo of {left}/{right} frames from ranks of {t} frames: a rank's "
+                         "frames must cover the halo")
+    zeros = x.new_zeros
+    if n == 1:
+        return torch.cat([zeros(x.shape[0], left, *x.shape[2:]), x,
+                          zeros(x.shape[0], right, *x.shape[2:])], dim=1)
+    COUNTS["halo"] += 1
+    edges = _all_gather(torch.cat([x[:, :right], x[:, t - left:]], dim=1), n,
+                        mesh.group("seq"))
+    before = edges[i - 1][:, right:] if i > 0 else zeros(x.shape[0], left, *x.shape[2:])
+    after = edges[i + 1][:, :right] if i < n - 1 else zeros(x.shape[0], right, *x.shape[2:])
+    return torch.cat([before, x, after], dim=1)

@@ -1,5 +1,6 @@
-"""Multi-process dry run on the CPU: the data-parallel training CLIs in n
-gloo processes at a tiny width, in bf16, before a run on cards.
+"""Multi-process dry run on the CPU: the data-parallel training CLIs, a
+tensor-parallel step and the sequence-parallel sampler in n gloo processes
+at a tiny width, before a run on cards.
 
 ``run_dryrun(n)`` writes a tiny corpus and a random base checkpoint,
 starts n processes as torchrun would (``RANK``, ``WORLD_SIZE``,
@@ -14,8 +15,16 @@ finite and equal on every rank (the metrics are global; the train CLI
 also validates every step on a sharded dev set), that the ranks'
 parameters are bit-identical, and that only rank 0 wrote anything.
 
-The JAX package's dry run also rehearses tensor- and sequence-parallel
-steps over its mesh; those wait for their port.
+As the JAX package's dry run does, the same processes then rehearse, on a
+process group of their own: for n >= 4 and even, one bf16 training step
+(the regularizers on) on a data x model mesh of n / 2 x 2
+(``parallel/mesh.make_mesh``, the feedforwards split over the model axis):
+a finite loss, equal on every rank, and each shard bit-identical across the
+data ranks that hold it; for every n, the sequence-parallel sampler
+(``models/zipvoice.sp_sample``) over all n ranks at T = 16 n: the same
+finite output on every rank, within 2e-5 of one process's ``sample``.
+What the JAX package's dry run also rehearses and this one does not yet is
+sequence-parallel training (its ``make_dp_sp_mesh``).
 """
 
 from __future__ import annotations
@@ -138,11 +147,124 @@ CLIS = {
 }
 
 
+# the tensor- and sequence-parallel rehearsal's model: the JAX package's
+# dry-run model (its make_dp_sp_mesh phase's)
+PARALLEL_TINY = dict(TINY, fm_decoder_num_layers=[1, 1, 1], text_encoder_num_layers=1,
+                     vocab_size=40, pad_id=0)
+
+
+def _sp_inputs(n: int):
+    """The sequence-parallel rehearsal's request: one utterance of T = 16 n
+    frames, CFG, 2 steps."""
+    rng = np.random.default_rng(0)
+    t, s, f = 16 * n, 12, TINY["feat_dim"]
+    return {"tokens": rng.integers(1, 40, (1, s)).astype(np.int64),
+            "tokens_lens": np.array([s - 2]), "prompt_features":
+            (rng.standard_normal((1, t, f)) * 0.1).astype(np.float32),
+            "prompt_features_lens": np.array([t // 4]), "features_lens": np.array([t]),
+            "noise": rng.standard_normal((1, t, f)).astype(np.float32)}
+
+
+SP_ORDER = ("tokens", "tokens_lens", "prompt_features", "prompt_features_lens",
+            "features_lens", "noise")
+SP_KW = dict(num_step=2, guidance_scale=1.0, t_shift=0.5)
+
+
+def _parallel_model():
+    import torch
+
+    from zipvoice_tpu_torch.config import ZipVoiceConfig
+    from zipvoice_tpu_torch.models.zipvoice import init_zipvoice
+
+    cfg = ZipVoiceConfig(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in PARALLEL_TINY.items()})
+    return cfg, init_zipvoice(cfg, torch.Generator().manual_seed(0))
+
+
+def _parallel_rank(out: str):
+    """The tensor- and sequence-parallel rehearsal of one rank (module
+    docstring), on the process group the environment names; results into
+    ``out``."""
+    import torch
+
+    from zipvoice_tpu_torch.models.zipvoice import sp_sample
+    from zipvoice_tpu_torch.parallel import mesh
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+    from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
+
+    mesh.init_from_env("cpu", backend="gloo")
+    r, n = mesh.rank(), mesh.world_size()
+    res = {}
+    if n >= 4 and n % 2 == 0:
+        cfg, model = _parallel_model()
+        m = mesh.make_mesh(n_model=2)
+        mesh.shard_module(model, mesh.tp_param_shardings(model), m)
+        rng = np.random.default_rng(0)
+        b, s, t = 2, 12, 32  # rows a data rank
+        d = m.index["data"]
+        rows = {"tokens": rng.integers(1, 40, (b * m.size("data"), s)),
+                "features": rng.standard_normal((b * m.size("data"), t, TINY["feat_dim"]))
+                .astype(np.float32)}
+        batch = {"tokens": rows["tokens"][d * b:(d + 1) * b],
+                 "tokens_lens": np.full((b,), s - 2), "features_lens": np.full((b,), t - 3),
+                 "features": rows["features"][d * b:(d + 1) * b]}
+        step = make_train_step(model, ScaledAdam(model.named_parameters()),
+                               TrainConfig(compute_dtype="bfloat16"), mesh=m)
+        res["tp_loss"] = float(step(batch, 1, 1, 0.0, zipvoice_schedules(0.0, cfg))["loss"])
+        res["tp_index"] = dict(m.index)
+        res["tp_shards"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    _, model = _parallel_model()
+    x = {k: torch.from_numpy(v) for k, v in _sp_inputs(n).items()}
+    res["sp_out"] = sp_sample(model, mesh.make_seq_mesh(), *(x[k] for k in SP_ORDER), **SP_KW)
+    torch.save(res, Path(out) / f"parallel-rank-{r}.pt")
+    mesh.shutdown()
+
+
+def _check_parallel(out: Path, n: int) -> str:
+    """The rehearsal's checks over the ranks' results; returns what ran."""
+    import torch
+
+    from zipvoice_tpu_torch.models.zipvoice import sample
+
+    ranks = [torch.load(out / f"parallel-rank-{r}.pt") for r in range(n)]
+    ran = []
+    if "tp_loss" in ranks[0]:
+        losses = {res["tp_loss"] for res in ranks}
+        if len(losses) != 1 or not np.isfinite(ranks[0]["tp_loss"]):
+            raise AssertionError(f"dp x tp step: losses {losses}")
+        by_model = {}
+        for res in ranks:
+            first = by_model.setdefault(res["tp_index"]["model"], res["tp_shards"])
+            diff = [k for k, v in res["tp_shards"].items() if not torch.equal(v, first[k])]
+            if diff:
+                raise AssertionError(f"dp x tp step: rank at {res['tp_index']} holds other "
+                                     f"shards than its data rank 0: {diff[:5]}")
+        ran.append(f"dp={n // 2} x tp=2 bf16 step, loss {ranks[0]['tp_loss']:.4f}, shards "
+                   "bit-identical across the data ranks")
+    _, model = _parallel_model()
+    x = {k: torch.from_numpy(v) for k, v in _sp_inputs(n).items()}
+    with torch.no_grad():
+        ref = sample(model, *(x[k] for k in SP_ORDER), **SP_KW)
+    for r, res in enumerate(ranks):
+        y = res["sp_out"]
+        if not (torch.equal(y, ranks[0]["sp_out"]) and torch.isfinite(y).all()):
+            raise AssertionError(f"sequence-parallel sampler: rank {r}'s output differs from "
+                                 "rank 0's or is not finite")
+    err = float((ranks[0]["sp_out"] - ref).abs().max())
+    if not err <= 2e-5:
+        raise AssertionError(f"sequence-parallel sampler vs one process: {err} > 2e-5")
+    ran.append(f"sequence-parallel sampler over {n} ranks at T={16 * n}, max |diff| vs one "
+               f"process {err:.2g}")
+    return "; ".join(ran)
+
+
 def _cli_worker(corpus: Dict[str, str], out: str, steps: int, ports: Dict[str, int]):
     """One rank of the dry run: each CLI with --distributed over gloo on
     the CPU, its exp dir its own, its process group on its own port (so
     that no rank joins the group of the CLI before); after each, its
-    parameters and losses into ``out``."""
+    parameters and losses into ``out``; then the tensor- and
+    sequence-parallel rehearsal on a group of its own."""
     import importlib
 
     import torch
@@ -170,6 +292,8 @@ def _cli_worker(corpus: Dict[str, str], out: str, steps: int, ports: Dict[str, i
                     "losses": [loss for _, loss in res["steps"]],
                     "valid": res["trainer"].best_valid_loss if name == "zipvoice" else None},
                    Path(out) / f"{name}-rank-{r}.pt")
+    os.environ["MASTER_PORT"] = str(ports["parallel"])
+    _parallel_rank(out)
 
 
 def run_dryrun(n_processes: int = 2, steps: int = 2, timeout: float = 240.0) -> Dict:
@@ -193,7 +317,7 @@ def run_dryrun(n_processes: int = 2, steps: int = 2, timeout: float = 240.0) -> 
         save_checkpoint(corpus["checkpoint"], init_zipvoice(cfg, torch.Generator().manual_seed(1)))
         spawn(f"{__name__}:_cli_worker", n_processes,
               {"corpus": corpus, "out": td, "steps": steps,
-               "ports": {name: free_port() for name in CLIS}}, timeout)
+               "ports": {name: free_port() for name in [*CLIS, "parallel"]}}, timeout)
         for name, (_, written_by) in CLIS.items():
             ranks = [torch.load(out / f"{name}-rank-{r}.pt") for r in range(n_processes)]
             first = ranks[0]
@@ -219,7 +343,8 @@ def run_dryrun(n_processes: int = 2, steps: int = 2, timeout: float = 240.0) -> 
             if any(written.get(r) for r in range(1, n_processes)):
                 raise AssertionError(f"{name}: ranks other than 0 wrote files: {written}")
             losses[name] = first["losses"]
+        parallel = _check_parallel(out, n_processes)
     print(f"dryrun ok: {n_processes} gloo processes, data parallel, bf16, the train, distill "
           f"and dialog CLIs; losses {losses}; parameters bit-identical across ranks; only "
-          "rank 0 wrote")
+          f"rank 0 wrote; {parallel}")
     return losses

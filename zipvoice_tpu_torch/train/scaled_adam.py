@@ -11,6 +11,15 @@ device.
 Usage: ``opt = ScaledAdam(model.named_parameters()); loss.backward();
 diag = opt.step(lr)``.  ``lr_scales`` maps parameter-name prefixes to LR
 multipliers (longest prefix wins; 0 freezes a tensor).
+
+Under tensor parallelism a parameter split over a model group
+(``parallel/mesh.shard_module`` tags it ``tp_shard``) keeps its moments
+(exp_avg_sq, delta) at its local shape, and every reduction over the
+tensor sees the whole tensor, as GSPMD gives the JAX package: its RMS, its
+scale gradient sum(p * g) and its share of the clipping norm are summed
+over the shards (one all-reduce for all split tensors a step, one more on
+the size-update steps), a replicated tensor counted once.  Build the
+optimizer after sharding.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import dataclasses
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+
+from zipvoice_tpu_torch.parallel.mesh import model_all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +47,26 @@ class ScaledAdamConfig:
 
 def _rms(p: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(torch.square(p.float())))
+
+
+def _whole_sums(parts: List[Optional[torch.Tensor]],
+                params: List[torch.nn.Parameter]) -> List:
+    """Each f32 partial sum of a split parameter summed over its model
+    group, in one all-reduce (the split parameters share one group); the
+    others as they are."""
+    split = [i for i, p in enumerate(params) if getattr(p, "tp_shard", None) is not None]
+    if not split:
+        return parts
+    flat = model_all_reduce(torch.stack([parts[i] for i in split]), params[split[0]].tp_shard)
+    out = list(parts)
+    for j, i in enumerate(split):
+        out[i] = flat[j]
+    return out
+
+
+def _whole_numel(p: torch.nn.Parameter) -> int:
+    shard = getattr(p, "tp_shard", None)
+    return p.numel() * (1 if shard is None else shard.size)
 
 
 def _prefix_scale(name: str, rules: Optional[Dict[str, float]]) -> float:
@@ -61,16 +92,25 @@ class ScaledAdam:
         dev = self.params[0].device
         self.state = []
         with torch.no_grad():
-            for p in self.params:
+            rms = self._rms_all()
+            for p, prms in zip(self.params, rms):
                 z = lambda shape=p.shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
                 self.state.append({
                     "exp_avg_sq": z(), "delta": z(),
-                    "param_rms": z(()) if p.ndim == 0 else _rms(p),
+                    "param_rms": z(()) if p.ndim == 0 else prms,
                     "scale_grads": z((cfg.size_update_period,)),
                     "scale_exp_avg_sq": z(()),
                 })
         self.model_norms = torch.zeros(cfg.clipping_update_period, device=dev)
         self.model_norm_threshold = torch.tensor(float("inf"), device=dev)
+
+    def _rms_all(self) -> List[torch.Tensor]:
+        """Every parameter's whole-tensor RMS."""
+        split = [getattr(p, "tp_shard", None) is not None for p in self.params]
+        sumsq = _whole_sums([torch.sum(torch.square(p.float())) if s else None
+                             for p, s in zip(self.params, split)], self.params)
+        return [torch.sqrt(q / _whole_numel(p)) if s else _rms(p)
+                for p, q, s in zip(self.params, sumsq, split)]
 
     # ------------------------------------------------------------ clipping
 
@@ -83,11 +123,11 @@ class ScaledAdam:
         if c.clipping_scale is None:
             one = torch.ones((), device=dev)
             return one, torch.zeros((), dtype=torch.int64, device=dev), 0.0 * one
-        per_leaf = torch.stack([
+        per_leaf = torch.stack(_whole_sums([
             torch.square(g) * c.scalar_lr_scale**2 if p.ndim == 0
             else torch.sum(torch.square(g * st["param_rms"]))
             for g, p, st in zip(grads, self.params, self.state)
-        ])
+        ], self.params))
         tot_sumsq = torch.sum(per_leaf)
         dom_idx = torch.argmax(per_leaf)
         dom_frac = per_leaf[dom_idx] / torch.clamp(tot_sumsq, min=1e-20)
@@ -119,7 +159,9 @@ class ScaledAdam:
     # ------------------------------------------------------------ update
 
     @torch.no_grad()
-    def _leaf_update(self, g, p, st, lr):
+    def _leaf_update(self, g, p, st, lr, scale_grad, prms_new):
+        """scale_grad: sum(p * g) over the whole tensor; prms_new: its
+        whole-tensor RMS (read on the size-update steps only)."""
         c = self.cfg
         beta1, beta2 = c.betas
         step = self.step_count
@@ -136,9 +178,9 @@ class ScaledAdam:
         if not scalar:
             period = c.size_update_period
             is_update_step = step % period == period - 1
-            st["scale_grads"][step % period] = torch.sum(p32 * g)
+            st["scale_grads"][step % period] = scale_grad
             if is_update_step:
-                st["param_rms"] = _rms(p32)
+                st["param_rms"] = prms_new
             prms = st["param_rms"]
             step_delta = step_delta * torch.clamp(prms, min=c.param_min_rms)
             if is_update_step:
@@ -174,8 +216,16 @@ class ScaledAdam:
         grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
                  for p in self.params]
         clip, dom_idx, dom_frac = self._clipping(grads)
-        for g, p, st, s in zip(grads, self.params, self.state, self.lr_scales):
-            self._leaf_update(g * clip, p, st, lr * s)
+        grads = [g * clip for g in grads]
+        period = self.cfg.size_update_period
+        scale_grads = _whole_sums([torch.sum(p.float() * g) for p, g in zip(self.params, grads)],
+                                  self.params)
+        # the RMS before this step's update, as the JAX package takes it
+        rms = (self._rms_all() if self.step_count % period == period - 1
+               else [None] * len(self.params))
+        for g, p, st, s, sg, prms in zip(grads, self.params, self.state, self.lr_scales,
+                                         scale_grads, rms):
+            self._leaf_update(g, p, st, lr * s, sg, prms)
         self.step_count += 1
         return {"grad_clip": clip, "grad_dominant_idx": dom_idx,
                 "grad_dominant_frac": dom_frac}

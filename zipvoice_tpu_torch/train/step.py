@@ -10,6 +10,13 @@ of it (``parallel/mesh.fold_rank``).  In a process group the loss is this
 rank's share of the global-batch mean, and the gradients (with the loss
 riding along) are summed over the ranks before the update, so every rank
 applies the global batch's gradient and the metrics are global.
+
+``make_train_step(..., mesh=make_mesh(n_data, n_model))`` runs the step
+under a data x model mesh (``parallel/mesh.use_mesh``): the draws fold by
+the data index, so the ranks of a model group draw the same rows' values,
+and the loss normalizer and the gradient sum run over the data group
+only.  With n_model > 1 the model must be sharded first
+(``parallel/mesh.shard_module``), and the optimizer built on the shards.
 """
 
 from __future__ import annotations
@@ -23,7 +30,13 @@ import torch
 
 from zipvoice_tpu_torch.models.dialog import compute_fm_loss_dialog
 from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel, compute_fm_loss
-from zipvoice_tpu_torch.parallel.mesh import all_reduce_gradients, fold_rank, global_sum
+from zipvoice_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_gradients,
+    fold_rank,
+    global_sum,
+    use_mesh,
+)
 from zipvoice_tpu_torch.train.lr_schedule import eden_lr, fixed_lr
 from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
 
@@ -86,17 +99,29 @@ def learning_rate(train_cfg: TrainConfig, step_idx: int, epoch: float) -> float:
     return fixed_lr(train_cfg.base_lr)
 
 
-def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfig = TrainConfig()):
+def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfig = TrainConfig(),
+                    mesh: Optional[Mesh] = None):
     """step(batch, seed, step_idx, epoch, schedules=None) -> metrics.
 
     batch: tokens (B, S), tokens_lens (B,), features (B, T, F) f32,
-    features_lens (B,).  The metrics are device scalars (loss, the clip
-    diagnostics) and the float lr; reading them is the caller's sync."""
+    features_lens (B,): this rank's rows (the same on the ranks of a model
+    group).  The metrics are device scalars (loss, the clip diagnostics)
+    and the float lr; reading them is the caller's sync.  mesh: a data x
+    model mesh (module docstring), or None for the world as the data
+    group."""
     dtype = _DTYPES[train_cfg.compute_dtype]
     loss_fn = _loss_fn(train_cfg)
+    if (mesh is not None and mesh.size("model") > 1
+            and not any(hasattr(p, "tp_shard") for p in model.parameters())):
+        raise ValueError("a mesh with a model axis needs the model sharded over it first "
+                         "(parallel/mesh.shard_module)")
 
     def step(batch, seed: int, step_idx: int, epoch: float,
              schedules: Optional[Dict] = None) -> Dict:
+        with use_mesh(mesh):
+            return _step(batch, seed, step_idx, epoch, schedules)
+
+    def _step(batch, seed, step_idx, epoch, schedules) -> Dict:
         dev = next(model.parameters()).device
         batch = batch_to_device(batch, dev)
         features = batch["features"].to(dtype)
