@@ -6,8 +6,7 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Phases (each raises on failure; nothing is caught):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from zipvoice_tpu_torch/csrc with nvcc and print
-     the -Xptxas -v lines of B1's, B2's, B3's, B4's, B6's, B7's, B8's and
-     B9's entry points;
+     the -Xptxas -v lines of B1's-B9's entry points (B5's both routes);
   3. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main-path shapes (B=2, H=4, T in 1024/512/256 with a
      padded tail in one batch row), ragged T (288, 577), a text-encoder
@@ -30,9 +29,10 @@ Phases (each raises on failure; nothing is caught):
      T=40; T also 1152 and 1408), B9 against an f64 plain version (C = D =
      512 with K 31/15/7 at T 1024/512/256/288 and K 31 at T 1152, C = D =
      192 with K 9 at T=40), B5 at B=8 (H=4,
-     vd 12 and H=1, vd 384, the const gate on and off) and one gradient
-     through rel_attention_apply (B5 forward, B3 backward) against plain
-     autograd, with times and bounds;
+     vd 12 and H=1, vd 384, the const gate on and off; its output equal to
+     B6's at vd 12 and to B7's on v[:, :, 0] at vd 384, bit for bit) and one
+     gradient through rel_attention_apply (B5 forward, B3 backward) with the
+     gate off and on against plain autograd, with times and bounds;
   5b. the same requests with the fused eval path on (set_fused_eval,
      set_fused_conv): the wavs checked as in phase 5 and every request
      launching B1 0, B2 260, B6 260, B7 260 and B9 520 times; then the flags
@@ -407,7 +407,7 @@ TRAIN_ATTN_VARIANTS = [(0.0, False), (1e-2, False), (0.0, True)]
 # the redesigned kernels' symbols, as torch.profiler names them
 KERNEL_SYMBOLS = {"B1": ("rel_probs_kernel",), "B2": ("probs_apply_f32", "probs_apply_bf16"),
                   "B3": ("bwd_rows_kernel", "bwd_cols_kernel"), "B4": ("rel_ds_kernel",),
-                  "B6": ("rel_probs_consume_kernel",), "B7": ("rel_head0_consume_kernel",),
+                  "B6": ("rel_probs_consume_kernel",), "B7": ("rel_wide_consume_kernel",),
                   "B8": ("log_mel_kernel",), "B9": ("conv_glu_kernel",)}
 # the redesigned kernels' entry points, by library, whose -Xptxas -v lines
 # the build prints in full
@@ -416,7 +416,8 @@ ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",),
                  "rel_ds": ("rel_ds_kernel",),
                  "probs_apply": ("probs_apply",),
                  "rel_apply_bwd": ("bwd_",),
-                 "rel_consume_fwd": ("rel_head0_consume_kernel",),
+                 "rel_consume_fwd": ("rel_wide_consume_kernel",),
+                 "rel_apply": ("rel_apply_kernel", "rel_wide_consume_kernel"),
                  "log_mel": ("log_mel_kernel",),
                  "conv_glu": ("conv_glu_kernel",)}
 
@@ -612,7 +613,8 @@ FUSED_ATTN_CASES = [(1024, "main"), (512, "main"), (256, "main"), (288, "ragged"
 # the text encoder's C = 192, K = 9 at T=40, and the ~8 s bucket
 CONV_CASES = [(512, kk, t) for kk in (31, 15, 7) for t in (1024, 512, 256, 288)] + [
     (192, 9, 40), (512, 31, 1152)]
-# B5: (B, H, T, vd); the op's own entry point, no model path calls it
+# B5: (B, H, T, vd); the op's own entry point, no model path calls it; vd
+# 12 takes its narrow route (B6's body), vd 384 its wide one (B7's kernel)
 APPLY_CASES = [(8, 4, 1024, 12), (8, 4, 577, 12), (8, 1, 1024, 384), (8, 1, 577, 384)]
 
 
@@ -743,9 +745,11 @@ def _conv_checks(gen, results):
 
 
 def _apply_checks(gen, results):
-    """Phase 3c, B5: forward against its plain version; returns the launches
-    of one forward + backward through rel_attention_apply, the op's entry
-    point, and the gradient's worst relative error against plain autograd."""
+    """Phase 3c, B5: forward against its plain version, and with the gate
+    closed against B6 (narrow vd) or B7 on v[:, :, 0] (H=1, wide vd) bit for
+    bit; returns the launches of one forward + backward through
+    rel_attention_apply, the op's entry point, and the gradients' worst
+    relative error against plain autograd, gate off and on."""
     import torch
 
     from zipvoice_tpu_torch.ops import attention as att
@@ -763,7 +767,18 @@ def _apply_checks(gen, results):
                 abs_err, err = _errs(out, ref)
                 r = dict(abs_err=abs_err, rel_err=err, tol=tol, ms=None, plain_ms=None,
                          library_ms=None, bound_ms=None, bound_by=None)
+                same = None
                 if not gate:
+                    # the route's kernel on the same inputs: B6 (narrow) or B7
+                    if vd <= 64:
+                        twin, same_as = att.rel_attention_probs_consume(
+                            q, k, pq, pe, mask, v)[1], "B6"
+                    else:
+                        twin, same_as = att.rel_attention_head0_consume(
+                            q, k, pq, pe, mask, v[:, :, 0].contiguous())[:, :, None], "B7"
+                    same = torch.equal(out, twin)
+                    r["equal_" + same_as] = same
+                    del twin
                     r["ms"] = time_ms(lambda: att.rel_attention_apply(q, k, pq, pe, mask, v))
                     r["plain_ms"] = time_ms(
                         lambda: att.rel_attention_apply_plain(q, k, pq, pe, mask, v))
@@ -776,30 +791,40 @@ def _apply_checks(gen, results):
                         nbytes, 2 * b * h * t * t * vd, 2 * b * h * t * t * (32 + 4), dn)
                 results["B5"][(b, h, t, vd, dn, gate)] = r
                 print(f"B5 rel_apply B={b} H={h} T={t} vd={vd} {dn} gate={int(gate)}: rel_err "
-                      f"{err:.3g} (tol {tol:g}), max_abs_err {abs_err:.3g}" + _times(r),
+                      f"{err:.3g} (tol {tol:g}), max_abs_err {abs_err:.3g}"
+                      + ("" if same is None else f", equal to {same_as}'s: {same}") + _times(r),
                       flush=True)
-                if not err <= tol:
+                if not (err <= tol and same is not False):
                     raise AssertionError(f"B5 disagrees at B={b} H={h} T={t} vd={vd} {dn} "
-                                         f"gate={gate}: {err} > {tol}")
+                                         f"gate={gate}: {err} > {tol} or equal {same}")
             del q, k, pq, pe, mask, v, out, ref
 
     # the op's path: one forward + backward through rel_attention_apply
-    # (B5, then B3), f32, against plain autograd
+    # (B5, then B3), f32, against plain autograd, the const gate off and on
+    # (the plain const branch leaves q, k, pq, pe without a gradient: zero)
     q, k, pq, pe, mask, v, g = _rel_inputs(gen, 8, 4, 577, 12, torch.float32)
-    xs = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
-    ys = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
-    (att.rel_attention_apply(*xs[:4], mask, xs[4]) * g).sum().backward()
-    torch.cuda.synchronize()
-    launches = {name: c.launches for name, c in counters.items()}
-    (att.rel_attention_apply_plain(*ys[:4], mask, ys[4]) * g).sum().backward()
-    grad_err = max(_errs(x.grad, y.grad)[1] for x, y in zip(xs, ys))
-    print(f"B5 + B3 through rel_attention_apply, B=8 H=4 T=577 f32: gradients' worst rel_err "
-          f"{grad_err:.3g} (tol 1e-4) against plain autograd; launches {launches}", flush=True)
-    if launches["B5"] != 1 or launches["B3"] != 1 or not grad_err <= 1e-4:
-        raise AssertionError(f"rel_attention_apply gradient: {grad_err}, launches {launches}")
+    grad_err = 0.0
+    for gate in (False, True):
+        xs = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
+        ys = [x.clone().requires_grad_() for x in (q, k, pq, pe, v)]
+        for c in counters.values():
+            c.launches = 0
+        (att.rel_attention_apply(*xs[:4], mask, xs[4], const_gate=gate) * g).sum().backward()
+        torch.cuda.synchronize()
+        gate_launches = {name: c.launches for name, c in counters.items()}
+        (att.rel_attention_apply_plain(*ys[:4], mask, ys[4], const_gate=gate) * g).sum().backward()
+        err = max(_errs(x.grad, torch.zeros_like(y) if y.grad is None else y.grad)[1]
+                  for x, y in zip(xs, ys))
+        print(f"B5 + B3 through rel_attention_apply, B=8 H=4 T=577 f32 gate={int(gate)}: "
+              f"gradients' worst rel_err {err:.3g} (tol 1e-4) against plain autograd; "
+              f"launches {gate_launches}", flush=True)
+        if gate_launches["B5"] != 1 or gate_launches["B3"] != 1 or not err <= 1e-4:
+            raise AssertionError(f"rel_attention_apply gradient (gate {gate}): {err}, "
+                                 f"launches {gate_launches}")
+        grad_err = max(grad_err, err)
+        if not gate:
+            launches = gate_launches
     return launches, grad_err
 
 
@@ -4536,9 +4561,8 @@ def main() -> int:
     logs = build.build_all()
     print(f"kernel build: {time.monotonic() - t0:.1f} s for {sorted(logs)}", flush=True)
     for name, log in logs.items():
-        # every entry point of the redesigned B1-B4 and B6-B9 with its
-        # registers, shared memory and spills; the other kernels' register
-        # lines
+        # every entry point of the redesigned B1-B9 with its registers,
+        # shared memory and spills; the other kernels' register lines
         entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:
@@ -4668,11 +4692,14 @@ def main() -> int:
                       launches_per_two_rank_step=two_ranks["ranks"][0]["no-regularizers"][
                           "launches"]["B4"]),
         _kernel_entry(results, "B5", "rel_attention_apply",
-                      "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
+                      "zipvoice_tpu_torch/csrc/rel_apply.cu",
                       "zipvoice_tpu/ops/attention.py:643", apply_launches["B5"],
                       (8, 4, 1024, 12, "float32", False), "B=8 H=4 T=1024 vd=12 f32",
                       launches_per_call=apply_launches["B5"],
-                      grad_max_rel_err=apply_grad_err),
+                      grad_max_rel_err=apply_grad_err,
+                      wide_route_ms=results["B5"][(8, 1, 1024, 384, "float32", False)]["ms"],
+                      wide_route_bound_ms=results["B5"][(8, 1, 1024, 384, "float32", False)][
+                          "bound_ms"]),
         _kernel_entry(results, "B6", "rel_attention_probs_consume",
                       "zipvoice_tpu_torch/csrc/rel_probs_consume.cu",
                       "zipvoice_tpu/ops/attention.py:1224", fused_launches["B6"],

@@ -389,6 +389,81 @@ def test_rel_apply_kernel_matches_plain(gen, t, h, vd, dtype, gate):
         assert _rel(x.grad, torch.zeros_like(y) if y.grad is None else y.grad) <= 1e-4
 
 
+# B5's narrow route (vd <= 64) is B6's kernel body and epilogue without the
+# probabilities' store: B6's cases of vd <= 64, v staged once a block or
+# streamed (vd 64 at T=1024), fewer rows a tile and the 1-row tile at long T
+_APPLY_NARROW_CASES = ([(t, 12, 2, 4) for t in (1, 17, 40, 288, 577, 1024, 1408)]
+                       + [(t, vd, 2, 4) for vd in (4, 16, 64) for t in (40, 1024)]
+                       + [(4000, 12, 1, 1), (8000, 12, 1, 1)])
+
+
+@pytest.mark.parametrize("t,vd,b,h", _APPLY_NARROW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_apply_narrow_equals_probs_consume(gen, t, vd, b, h, dtype):
+    """Gate closed, out in v's dtype: B5's output is B6's bit for bit."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, b=b, h=h)
+    v = torch.randn((b, t, h, vd), generator=gen, device="cuda").to(dtype)
+    n = att.rel_attention_apply.launches
+    out = att.rel_attention_apply(q, k, pq, pe, mask, v)
+    ref = att.rel_attention_probs_consume(q, k, pq, pe, mask, v)[1]
+    torch.cuda.synchronize()
+    assert att.rel_attention_apply.launches == n + 1
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("t", [1, 17, 40, 288, 577, 1024, 1408])
+@pytest.mark.parametrize("c", [384, 144, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_apply_wide_equals_head0_consume(gen, t, c, dtype):
+    """At H=1 and vd > 64, gate closed, out in v's dtype: B5's output is
+    B7's on v[:, :, 0] bit for bit (B7's widths and its ragged 100)."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, h=1)
+    v = torch.randn((2, t, 1, c), generator=gen, device="cuda").to(dtype)
+    out = att.rel_attention_apply(q, k, pq, pe, mask, v)
+    ref = att.rel_attention_head0_consume(q, k, pq, pe, mask, v[:, :, 0].contiguous())
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out[:, :, 0], ref)
+
+
+@pytest.mark.parametrize("t,h,vd", [(577, 4, 96), (40, 2, 384), (1024, 4, 12), (1024, 1, 384)])
+@pytest.mark.parametrize("dtype,out_dtype", _DTYPE_PAIRS)
+@pytest.mark.parametrize("gate", [False, True])
+def test_rel_apply_every_head_matches_plain(gen, t, h, vd, dtype, out_dtype, gate):
+    """Both routes at H > 1 (the wide one walks every head) and in every
+    input / output type pair, against the plain version; with the gate
+    open, also against the contraction of the const probabilities of B1's
+    kernel, whose support p > 0 the kernel must take (one key more or less
+    in a row moves its outputs by a 1 / count share)."""
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, h=h)
+    v = torch.randn((2, t, h, vd), generator=gen, device="cuda").to(dtype)
+    out = att.rel_attention_apply(q, k, pq, pe, mask, v, out_dtype=out_dtype, const_gate=gate)
+    ref = att.rel_attention_apply_plain(q, k, pq, pe, mask, v, out_dtype, gate)
+    torch.cuda.synchronize()
+    tol = max(TOL[dtype], TOL[out_dtype])
+    assert out.dtype == out_dtype and out.shape == (2, t, h, vd) and _rel(out, ref) <= tol
+    if gate:
+        probs = att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=torch.float32)
+        used = att._const_probs(probs).to(dtype)
+        assert _rel(out, att.rel_attention_probs_apply_plain(used, v)) <= tol
+
+
+@pytest.mark.parametrize("h,vd", [(4, 12), (1, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [False, True])
+def test_rel_apply_long_t_matches_plain(gen, h, vd, dtype, gate):
+    """T = 3072, the JAX export default's frame count, at both routes: the
+    narrow one on fewer rows a tile, the wide one on fewer rows and two
+    stages of v."""
+    t = 3072
+    q, k, pq, pe, mask = _inputs(gen, t, dtype, h=h)
+    v = torch.randn((2, t, h, vd), generator=gen, device="cuda").to(dtype)
+    out = att.rel_attention_apply(q, k, pq, pe, mask, v, out_dtype=torch.float32,
+                                  const_gate=gate)
+    ref = att.rel_attention_apply_plain(q, k, pq, pe, mask, v, torch.float32, gate)
+    torch.cuda.synchronize()
+    assert out.shape == (2, t, h, vd) and _rel(out, ref) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("c,d,kernel,t", [(512, 512, 31, 1024), (512, 512, 15, 512),
                                           (512, 512, 7, 288), (192, 192, 9, 40),
                                           (512, 512, 31, 1), (512, 512, 31, 1408),

@@ -147,10 +147,10 @@ def _apply_jax(q, k, pq, pe, mask, v, gate, pen=None, t=None):
     return jatt.rel_attention_apply_any(q, k, pq, pe, mask, v, **kw)
 
 
-def _apply_case(t, gate, pen=None, valid_cols=None, scale=1.0, seed=0):
+def _apply_case(t, gate, pen=None, valid_cols=None, scale=1.0, seed=0, h=2, vd=VD):
     """The port's rel_attention_apply against the JAX op: forward and the
     gradients of sum(sin(out)) in q, k, pq, pe, v."""
-    q, k, pq, pe, v, mask = _rel_inputs(t, True, seed=seed, b=2, h=2)
+    q, k, pq, pe, v, mask = _rel_inputs(t, True, seed=seed, b=2, h=h, vd=vd)
     q, k = q * scale, k * scale
     tq = [_t(a).requires_grad_() for a in (q, k, pq, pe, v)]
     before = _launches()
@@ -172,12 +172,15 @@ def _apply_case(t, gate, pen=None, valid_cols=None, scale=1.0, seed=0):
     return [x.grad for x in tq]
 
 
-@pytest.mark.parametrize("t", [128, 200])
+@pytest.mark.parametrize("t,h,vd", [pytest.param(128, 2, VD, id="128"),
+                                    pytest.param(200, 2, VD, id="200"),
+                                    pytest.param(128, 1, 48, id="128-h1-vd48")])
 @pytest.mark.parametrize("gate", [False, True])
-def test_rel_apply_matches_jax(t, gate):
-    """B5 forward and its B3 backward against rel_attention_apply_any; with
-    the const gate the score gradients are exactly zero."""
-    grads = _apply_case(t, gate, seed=t)
+def test_rel_apply_matches_jax(t, h, vd, gate):
+    """B5 forward and its B3 backward against rel_attention_apply_any (at
+    H=2, vd=12, and at H=1 with a wider vd, the head-0 consumer's shape);
+    with the const gate the score gradients are exactly zero."""
+    grads = _apply_case(t, gate, seed=t, h=h, vd=vd)
     if gate:
         assert all(float(g.abs().max()) == 0.0 for g in grads[:4])
 

@@ -88,6 +88,27 @@ def test_probs_consume_shares_b1s_kernel_body():
     assert "zv_rel_probs_consume" not in (build.CSRC / "rel_consume_fwd.cu").read_text()
 
 
+def test_rel_apply_routes_are_b6s_body_and_b7s_kernel():
+    """B5 takes B1's kernel body with its own epilogue at a narrow vd and
+    B7's kernel at a wide one: its library is its entry point and the narrow
+    route's bf16 half (both include the header that holds B1's body) and the
+    wide route, which includes B7's kernel header as B7's own source does;
+    neither of those two defines a kernel.  zv_rel_apply is defined in
+    rel_apply.cu and is gone from rel_consume_fwd.cu, with its old kernel."""
+    lib = att._SIGNATURES["zv_rel_apply"][0]
+    assert lib == "rel_apply" and lib in build.SOURCES
+    assert build.sources(lib) == ("rel_apply", "rel_apply_bf16", "rel_apply_wide")
+    for src in ("rel_apply", "rel_apply_bf16"):
+        text = (build.CSRC / f"{src}.cu").read_text()
+        assert '#include "rel_probs.cuh"' in text and "Epi::kApply" in text
+    for src in ("rel_apply_wide", "rel_consume_fwd"):
+        text = (build.CSRC / f"{src}.cu").read_text()
+        assert '#include "rel_wide_consume.cuh"' in text and "__global__" not in text
+    assert 'extern "C" int zv_rel_apply(' in (build.CSRC / "rel_apply.cu").read_text()
+    fwd = (build.CSRC / "rel_consume_fwd.cu").read_text()
+    assert "zv_rel_apply" not in fwd and "consume_tile" not in fwd
+
+
 def test_rel_ds_shares_b1s_kernel_body():
     """B4 is B1's kernel body with a score-cotangent epilogue: its one
     source includes the header that holds the body and defines no kernel of

@@ -7,6 +7,7 @@ repository on one card in one run.
     python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B2,B5,B6,B7,B8]
                                         [--tag NAME] [--ptxas FILE] [--sass FILE]
     python3 tools/time_rel_attention.py [--tree DIR] --full-build
+    python3 tools/time_rel_attention.py [--tree DIR] --crossover
 
 --tree is the root of the checkout whose ``zipvoice_tpu_torch`` is timed
 (default: this one).  Only the kernel libraries that the chosen kernels
@@ -23,7 +24,12 @@ through torch.stft beside it.  --ptxas writes the
 machine code (cuobjdump -sass), so that two checkouts' compiled code can be
 compared.  --full-build times the build of every
 kernel library of the checkout (as chip_smoke.py's phase 2 builds them)
-into a fresh directory, and times nothing else.
+into a fresh directory, and times nothing else.  --crossover builds B5's
+library twice more, with every width on its narrow route
+(-DZV_NARROW_VD=4096) and with every width on its wide one
+(-DZV_NARROW_VD=0), and times the two routes side by side at
+CROSSOVER_CASES, f32 and bf16 in, out in f32 (the width at which the wide
+route starts to win is the crossover rel_apply.cu keeps).
 Times are chip_smoke.time_ms (mean of 10 launches, L2 flushed, the host
 hidden behind a device sleep), taken from this checkout's chip_smoke.py.
 
@@ -51,6 +57,47 @@ SYMBOLS = {"B1": "zv_rel_probs", "B2": "zv_probs_apply", "B4": "zv_rel_ds",
            "B6": "zv_rel_probs_consume", "B7": "zv_rel_head0_consume"}
 # the library of each other kernel
 LIBRARIES = {"B8": "log_mel"}
+# B5's (B, H, T, vd) at which --crossover times its two routes
+CROSSOVER_CASES = [(8, 4, 1024, vd) for vd in (16, 32, 48, 64, 96, 128)] + [
+    (8, 1, 1024, vd) for vd in (32, 64, 96, 128)]
+
+
+def route_libraries(build):
+    """B5's library built with ZV_NARROW_VD set so that every width takes
+    the narrow route or the wide one: {route: path}, all compiles at once."""
+    import os
+
+    out = build.BUILD / "crossover"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    srcs = build.sources("rel_apply")
+    objs, procs, logs = {}, {}, []
+    try:
+        for route, narrow_vd in (("narrow", 4096), ("wide", 0)):
+            for src in srcs:
+                # only rel_apply.cu reads ZV_NARROW_VD; the other sources build once
+                key = (route, src) if src == "rel_apply" else ("any", src)
+                if key in objs:
+                    continue
+                objs[key] = out / f"{key[0]}-{src}.o"
+                logs.append(open(out / f"{key[0]}-{src}.log", "w"))
+                procs[key] = subprocess.Popen(
+                    [nvcc, *build.NVCC_FLAGS, f"-DZV_NARROW_VD={narrow_vd}", "-c", "-o",
+                     str(objs[key]), str(build.CSRC / f"{src}.cu")], stdout=logs[-1],
+                    stderr=subprocess.STDOUT)
+        failed = [key for key, proc in procs.items() if proc.wait()]
+    finally:
+        for log in logs:
+            log.close()
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}: see {out}")
+    libs = {}
+    for route in ("narrow", "wide"):
+        libs[route] = out / f"librel_apply-{route}-{os.getpid()}.so"
+        subprocess.run([nvcc, "-shared", "-o", str(libs[route]),
+                        *(str(objs[(route if src == "rel_apply" else "any", src)])
+                          for src in srcs)], check=True)
+    return libs
 
 
 def main() -> int:
@@ -61,6 +108,7 @@ def main() -> int:
     ap.add_argument("--ptxas", type=Path, default=None)
     ap.add_argument("--sass", type=Path, default=None)
     ap.add_argument("--full-build", action="store_true")
+    ap.add_argument("--crossover", action="store_true")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     if "B4" in kernels and "B1" not in kernels:
@@ -87,6 +135,39 @@ def main() -> int:
             seconds = time.monotonic() - t0
         print(json.dumps({"tag": args.tag, "card": cs.card_line(), "full_build_s": seconds,
                           "libraries": len(build.SOURCES)}), flush=True)
+        return 0
+    if args.crossover:
+        import ctypes
+
+        card = cs.card_line()
+        libs = route_libraries(build)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ms = {}
+        lib, argtypes = att._SIGNATURES["zv_rel_apply"]
+        for b, h, t, vd in CROSSOVER_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, pq, pe, mask, v, _ = cs._rel_inputs(gen, b, h, t, vd, dtype)
+                outs = {}
+                for route, path in libs.items():
+                    fn = ctypes.CDLL(str(path)).zv_rel_apply
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    build._entry_points[(lib, "zv_rel_apply")] = fn  # the wrapper calls it
+
+                    def run():
+                        return att.rel_attention_apply(q, k, pq, pe, mask, v,
+                                                       out_dtype=torch.float32)
+
+                    outs[route] = run()
+                    name = f"B5 {route} B={b} H={h} T={t} vd={vd} {str(dtype)[6:]}"
+                    ms[name] = cs.time_ms(run)
+                    print(f"{args.tag} {name}: {ms[name]:.4f} ms", flush=True)
+                ref = att.rel_attention_apply_plain(q, k, pq, pe, mask, v, torch.float32)
+                for route, out in outs.items():
+                    err = float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+                    if not err <= (2e-5 if dtype == torch.float32 else 8e-3):
+                        raise AssertionError(f"B5 {route} route at vd={vd} {dtype}: {err}")
+        build._entry_points.pop((lib, "zv_rel_apply"), None)
+        print(json.dumps({"tag": args.tag, "card": card, "ms": ms}), flush=True)
         return 0
     build.SOURCES = tuple(sorted({LIBRARIES.get(k) or att._SIGNATURES[SYMBOLS[k]][0]
                                   for k in kernels}))

@@ -1,6 +1,7 @@
-// Shared device code of the relative-position attention kernels B1, B4 and
-// B6 (rel_probs.cuh), B3 (rel_apply_bwd.cu), B5 and B7 (rel_consume_fwd.cu);
-// B9 (conv_glu.cu) takes its type and copy helpers.
+// Shared device code of the relative-position attention kernels B1, B4, B6
+// and B5's narrow route (rel_probs.cuh), B3 (rel_apply_bwd.cu), B7 and B5's
+// wide route (rel_wide_consume.cuh); B9 (conv_glu.cu) takes its type and
+// copy helpers.
 // The score of
 // query row i against key j is
 //

@@ -1,9 +1,10 @@
 // Relative-position attention probabilities for the Zipformer (B1), the
-// same probabilities with a fused probs @ V epilogue (B6), and their score
-// cotangent (B4): the kernel body the three share (one epilogue mode each),
-// their kernels and launch code.  rel_probs.cu builds B1's entry point,
-// rel_probs_consume.cu B6's, rel_ds.cu B4's, as libraries that nvcc
-// compiles side by side.
+// same probabilities with a fused probs @ V epilogue (B6), their score
+// cotangent (B4) and softmax @ V with the const gate at a narrow V (B5): the
+// kernel body the four share (one epilogue mode each), their kernels and
+// launch code.  rel_probs.cu builds B1's entry point, rel_probs_consume.cu
+// B6's, rel_ds.cu B4's, rel_apply.cu B5's, as libraries that nvcc compiles
+// side by side.
 //
 // B1 replaces the TPU kernel zipvoice_tpu/ops/attention.py `_pallas_rel_probs`
 // (body `_kernel` with `_tile_scores` / `_tile_softmax`):
@@ -25,6 +26,12 @@
 // (B,T,H,VD) in v's dtype.  It is B1's kernel body with an epilogue
 // (`rel_probs_consume_kernel`), so its probabilities are B1's by
 // construction; see "B6's epilogue" below.
+//
+// B5 at VD <= 64 replaces `_pallas_rel_apply` (body `_apply_kernel`,
+// probabilities `_apply_probs`): used = const_gate ? (p > 0) / count(p >
+// 0) : p, rounded to v's dtype, @ v with f32 sums, out (B,T,H,VD) in
+// out_dtype; see "B5's epilogue" below (its wide route, VD > 64, is
+// rel_wide_consume.cuh).
 //
 // The arithmetic is that of the shared row tile (rel_common.cuh), which B3-B5
 // and B7 recompute, so B3's const gate recomputes B1's support p > 0 and B7's
@@ -93,6 +100,19 @@
 // `mma.sync` a 16-key step and warp bounds it, in bf16 the latency of the
 // steps.  Overlapping it with the next tile's scores (a second score
 // buffer, the warps split between the two) measured slower.
+//
+// B5's epilogue (`rel_apply_kernel`) is B6's without the probabilities'
+// store: what bounds B6 beyond B1 bounds it.
+//   * the write pass writes nothing to device memory: it leaves round(p),
+//     rounded to v's dtype, in the score rows (p = e * inv as B6's pass
+//     takes it, so with the gate closed and out in v's dtype the output is
+//     B6's bit for bit), and zero for the keys T .. up to a multiple of 16;
+//   * with the const gate, one more pass of the row's warp counts the
+//     support p > 0 (B1's p, whose support B3 recomputes) and leaves
+//     round(1 / max(count, 1e-20)) on it;
+//   * the contraction is B6's, on the probabilities' v-dtype rounding (bf16
+//     inputs: `mma.sync.m16n8k16` whatever the output type), and the
+//     outputs go out in out_dtype.
 //
 // B4's epilogue.  B4 replaces `_pallas_rel_ds` (body `_bwd_kernel`), B1's
 // backward with the probabilities recomputed:
@@ -443,11 +463,11 @@ __device__ __forceinline__ void write_row(float* srow, float inv, Tout* __restri
 // B6's epilogue: round(p) @ v on the tensor cores
 // ---------------------------------------------------------------------------
 
-// v (B,T,H,VD) and out (B,T,H,VD), both in the input type; all: v is
-// staged whole once a block (kc = keys16(T) keys), else streamed in chunks
-// of kc = min(keys16(T), kChunkKeys) keys and 16 columns (kc is passed, not
-// worked out in the kernel: that register is the one the f32-input, 16-row
-// kernels do not have)
+// v (B,T,H,VD) in the input type and out (B,T,H,VD) (B6: the input type;
+// B5: its output type); all: v is staged whole once a block (kc = keys16(T)
+// keys), else streamed in chunks of kc = min(keys16(T), kChunkKeys) keys
+// and 16 columns (kc is passed, not worked out in the kernel: that register
+// is the one the f32-input, 16-row kernels do not have)
 struct ConsumeArgs {
   const void* v;
   void* out;
@@ -585,11 +605,11 @@ __device__ __forceinline__ void contract_keys(const float* P, int stride, const 
 }
 
 // The warps' sums of columns c0 .. c0+15 meet in red, added in warp order;
-// rows < nrows go out (row i0 + r of (b,h), of Tq rows) in Tin.  Ends with
+// rows < nrows go out (row i0 + r of (b,h), of Tq rows) in To.  Ends with
 // every warp past its reads of P and v.
-template <typename Tin>
+template <typename To>
 __device__ __forceinline__ void reduce_out(float* red, const float (&acc)[2][4],
-                                           const float (&acc2)[2][4], Tin* __restrict__ out,
+                                           const float (&acc2)[2][4], To* __restrict__ out,
                                            int b, int h, int Tq, int H, int VD, int i0,
                                            int nrows, int c0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -609,7 +629,33 @@ __device__ __forceinline__ void reduce_out(float* red, const float (&acc)[2][4],
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w * 256 + threadIdx.x];
-    out[((size_t)(b * Tq + i0 + r) * H + h) * VD + col] = from_f32<Tin>(s);
+    out[((size_t)(b * Tq + i0 + r) * H + h) * VD + col] = from_f32<To>(s);
+  }
+}
+
+// B5: one row by one warp, e in srow from row_sum: round(p) to Tin, p = e *
+// inv (with the gate: round(1 / max(count(p > 0), 1e-20)) on the support p
+// > 0, zero off it) in place of e for keys < T, zero for keys T .. Tk - 1
+// (Tk a multiple of 16, srow 16-byte aligned); nothing to device memory.
+template <typename Tin>
+__device__ __forceinline__ void apply_row(float* srow, float inv, int T, int Tk, int gate) {
+  const int lane = threadIdx.x & 31;
+  float used = 0.f;
+  if (gate) {
+    float cnt = 0.f;
+    for (int j = lane; j < T; j += 32) cnt += srow[j] * inv > 0.f ? 1.f : 0.f;
+    used = round_out<Tin>(1.f / fmaxf(warp_sum(cnt), 1e-20f));
+  }
+  float4* s4 = reinterpret_cast<float4*>(srow);
+  for (int v = lane; v < Tk / 4; v += 32) {
+    const float4 x = s4[v];
+    float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float p = e[u] * inv;
+      e[u] = 4 * v + u >= T ? 0.f : gate ? (p > 0.f ? used : 0.f) : round_out<Tin>(p);
+    }
+    s4[v] = make_float4(e[0], e[1], e[2], e[3]);
   }
 }
 
@@ -772,33 +818,42 @@ __device__ __forceinline__ void ds_row(float* srow, const Tin* grow, Bias bias, 
 }
 
 // The epilogue modes of the shared body: B1's probabilities, B6's
-// contraction, B4's score cotangent
-enum class Epi { kProbs, kConsume, kDs };
+// contraction, B4's score cotangent, B5's contraction without the
+// probabilities
+enum class Epi { kProbs, kConsume, kDs, kApply };
 
 // grid (row blocks, B*H); block x owns rows [x*rpb, min(Tq, x*rpb + rpb)) in
 // tiles of R rows (the last one may be short): the scores of a tile, a
 // barrier, its softmax, a barrier; with kConsume (B6), then the tile's
-// round(p) @ v; with kDs (B4), the softmax passes write ds instead of p.
+// round(p) @ v; with kDs (B4), the softmax passes write ds instead of p;
+// with kApply (B5), they write nothing and the tile's round(p) (or, with
+// gate, the const branch's) @ v goes out in Tout (out is not read).
 template <int QD, int R, typename Tin, typename Tout, Epi kE>
 __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin* __restrict__ kt,
                                            const Tin* __restrict__ pq,
                                            const Tin* __restrict__ pe,
                                            const uint8_t* __restrict__ mask,
                                            Tout* __restrict__ out, int Tq, int T, int H,
-                                           int rpb, const ConsumeArgs& c, const DsArgs& d) {
+                                           int rpb, const ConsumeArgs& c, const DsArgs& d,
+                                           int gate = 0) {
   constexpr bool kConsume = kE == Epi::kConsume;
   constexpr bool kDs = kE == Epi::kDs;
+  constexpr bool kApply = kE == Epi::kApply;
+  constexpr bool kContract = kConsume || kApply;  // round(p) @ v after each tile
   constexpr int KPT = KeysPerThread<QD>::value;
   constexpr int kShift = BandPad<R>::shift;
-  constexpr bool kBf16Mma =
-      std::is_same<Tin, __nv_bfloat16>::value && std::is_same<Tout, __nv_bfloat16>::value;
+  // the contraction's operands: p rounded to the probs dtype (B6) or to
+  // v's (B5), and v
+  constexpr bool kBf16Mma = std::is_same<Tin, __nv_bfloat16>::value &&
+                            (kApply || std::is_same<Tout, __nv_bfloat16>::value);
+  using To = std::conditional_t<kApply, Tout, Tin>;  // the contraction's output type
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int i0b = blockIdx.x * rpb;                 // first row of the block
   const int i_end = min(Tq, i0b + rpb);
   const int ntb = (i_end - i0b + R - 1) / R;          // tiles of the block
   const int RB = (rpb + R - 1) / R * R;               // rows the layout holds
-  const int stride = kConsume ? stride16(keys16(T)) : score_stride(T, R);
+  const int stride = kContract ? stride16(keys16(T)) : score_stride(T, R);
   const int NB = band_rows(T, RB);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
@@ -812,16 +867,16 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
   const float4* pq4 = reinterpret_cast<const float4*>(pqs);
   const float4* band4 = reinterpret_cast<const float4*>(band);
 
-  // B6: the v buffer (all of v, or a streamed chunk of 16 columns) and the
-  // partial sums after the scores; all of v staged now, landing while the
-  // rows and keys load
+  // B6, B5: the v buffer (all of v, or a streamed chunk of 16 columns) and
+  // the partial sums after the scores; all of v staged now, landing while
+  // the rows and keys load
   const int Tk = keys16(T);
   const int vcols = c.all ? c.VD : min(c.VD, 16);
   const int vs = v_stride(vcols, c.kc, (int)sizeof(Tin));
   Tin* vbuf = reinterpret_cast<Tin*>(scores + (size_t)R * stride);
   float* red = scores + (size_t)R * stride + v_floats(vcols, c.kc, (int)sizeof(Tin));
   const Tin* vb = static_cast<const Tin*>(c.v) + ((size_t)b * T * H + h) * c.VD;
-  if constexpr (kConsume) {
+  if constexpr (kContract) {
     if (c.all) copy_v(vb, (size_t)H * c.VD, vbuf, vs, 0, Tk, 0, c.VD, T);
   }
 
@@ -939,6 +994,8 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
           else
             ds_row<true, false>(srow, gb + off, bias_of, rmax, out + off, T, 0.f, 0.f);
         }
+      } else if constexpr (kApply) {
+        apply_row<Tin>(srow, row_sum(srow, rmax, T), T, Tk, gate);
       } else {
         const float inv = row_sum(srow, rmax, T);
         write_row<Tout, kConsume>(srow, inv, out + ((size_t)bh * Tq + i0 + r) * T, T);
@@ -947,7 +1004,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
         for (int j = T + lane; j < Tk; j += 32) srow[j] = 0.f;  // keys past T
       }
     }
-    if constexpr (kConsume) cp_async_wait<0>();  // the staged v has landed
+    if constexpr (kContract) cp_async_wait<0>();  // the staged v has landed
     __syncthreads();
 
     if constexpr (kDs) {  // the next tile's g rows, landing while its scores are made
@@ -955,7 +1012,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
         copy_g(gb, gbuf, gs, (size_t)bh * Tq + i0 + R, min(R, i_end - i0 - R), T);
     }
 
-    if constexpr (kConsume) {
+    if constexpr (kContract) {
       // round(p) @ v, 16 columns at a time
       for (int c0 = 0; c0 < c.VD; c0 += 16) {
         float acc[2][4], acc2[2][4];
@@ -976,7 +1033,7 @@ __device__ __forceinline__ void probs_body(const Tin* __restrict__ q, const Tin*
             contract_keys<R, kBf16Mma>(scores, stride, vbuf, vs, k0, nk, 0, ncol, acc, acc2);
           }
         }
-        reduce_out(red, acc, acc2, static_cast<Tin*>(c.out), b, h, Tq, H, c.VD, i0, nrows, c0);
+        reduce_out(red, acc, acc2, static_cast<To*>(c.out), b, h, Tq, H, c.VD, i0, nrows, c0);
         if (c0 + 16 < c.VD) __syncthreads();  // red is read before the next columns
       }
     }
@@ -1014,23 +1071,36 @@ rel_ds_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt, const Tin* 
   probs_body<QD, R, Tin, Tin, Epi::kDs>(q, kt, pq, pe, mask, ds, Tq, T, H, rpb, ConsumeArgs{}, d);
 }
 
+// B5 at a narrow V: round(p) (or, with gate, the const branch's) @ v in
+// Tout to c.out; no probabilities
+template <int QD, int R, typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads, 1)
+rel_apply_kernel(const Tin* __restrict__ q, const Tin* __restrict__ kt,
+                 const Tin* __restrict__ pq, const Tin* __restrict__ pe,
+                 const uint8_t* __restrict__ mask, int T, int H, int rpb, ConsumeArgs c,
+                 int gate) {
+  probs_body<QD, R, Tin, Tout, Epi::kApply>(q, kt, pq, pe, mask, nullptr, T, T, H, rpb, c,
+                                            DsArgs{}, gate);
+}
+
 // Launch with R-row tiles and rpb rows a block (fewer if the shared memory
 // asks for it); 1 if launched (or the launch failed: *code), 0 if R does not
-// fit.  B6 counts its v buffer and partial sums too: all of v where that
-// fits, else a chunk of kChunkKeys keys and 16 columns.  B4 counts its
+// fit.  B6 and B5 count their v buffer and partial sums too: all of v where
+// that fits, else a chunk of kChunkKeys keys and 16 columns.  B4 counts its
 // staged g rows and bias row; where they do not fit at one row a tile, the
 // kernel reads g from device memory instead.
 template <int QD, int R, typename Tin, typename Tout, Epi kE>
 int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
                const void* mask, void* out, int B, int Tq, int T, int H, int rpb0,
-               ConsumeArgs c, DsArgs d, cudaStream_t stream, int* code) {
+               ConsumeArgs c, DsArgs d, int gate, cudaStream_t stream, int* code) {
   constexpr bool kConsume = kE == Epi::kConsume, kDs = kE == Epi::kDs;
+  constexpr bool kContract = kConsume || kE == Epi::kApply;
   const int max_smem = max_optin_smem();
   const int Tk = keys16(T);
-  const int stride = kConsume ? stride16(Tk) : score_stride(T, R);
+  const int stride = kContract ? stride16(Tk) : score_stride(T, R);
   auto bytes = [&](int rpb, bool all) {
     size_t f = smem_floats<R>(T, (rpb + R - 1) / R * R, QD, stride);
-    if (kConsume)
+    if (kContract)
       f += (all ? v_floats(c.VD, Tk, (int)sizeof(Tin))
                 : v_floats(std::min(c.VD, 16), std::min(Tk, kChunkKeys), (int)sizeof(Tin))) +
            kRedFloats;
@@ -1041,8 +1111,8 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
   int rpb = rpb0;
   bool all = true;
   while (rpb > R && bytes(rpb, all) > (size_t)max_smem) rpb = std::max(R, (rpb + 1) / 2);
-  if ((kConsume || (kDs && R == 1)) && bytes(rpb, all) > (size_t)max_smem) {
-    all = false;  // B6: stream v; B4: g from device memory
+  if ((kContract || (kDs && R == 1)) && bytes(rpb, all) > (size_t)max_smem) {
+    all = false;  // B6, B5: stream v; B4: g from device memory
     rpb = rpb0;
     while (rpb > R && bytes(rpb, all) > (size_t)max_smem) rpb = std::max(R, (rpb + 1) / 2);
   }
@@ -1064,6 +1134,11 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
     if (e == cudaSuccess)
       kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, static_cast<Tout*>(out), Tq, T,
                                              H, rpb, c);
+  } else if constexpr (kE == Epi::kApply) {
+    auto kern = rel_apply_kernel<QD, R, Tin, Tout>;
+    e = allow_smem(kern, smem);
+    if (e == cudaSuccess)
+      kern<<<grid, kThreads, smem, stream>>>(qi, kti, pqi, pei, m, T, H, rpb, c, gate);
   } else if constexpr (kDs) {
     auto kern = rel_ds_kernel<QD, R, Tin>;
     e = allow_smem(kern, smem);
@@ -1084,7 +1159,7 @@ int try_launch(const void* q, const void* kt, const void* pq, const void* pe,
 template <int QD, Epi kE, typename Tin, typename Tout>
 int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
                  const void* mask, void* out, int B, int Tq, int T, int H, const ConsumeArgs& c,
-                 const DsArgs& d, cudaStream_t stream) {
+                 const DsArgs& d, int gate, cudaStream_t stream) {
   // one block an SM: the rows of each (b, h) split evenly over SMs / (B*H)
   // blocks; tiles of 16 rows, or of 8 / 4 where a block has no more rows
   // (short T), or where long rows fill shared memory (then 1)
@@ -1092,23 +1167,24 @@ int launch_typed(const void* q, const void* kt, const void* pq, const void* pe,
   const int rpb = (Tq + blocks - 1) / blocks;
   int code = 0;
   if ((rpb > 8 && try_launch<QD, 16, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb,
-                                                     c, d, stream, &code)) ||
+                                                     c, d, gate, stream, &code)) ||
       (rpb > 4 && try_launch<QD, 8, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c,
-                                                    d, stream, &code)) ||
-      try_launch<QD, 4, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c, d, stream,
-                                       &code) ||
-      try_launch<QD, 1, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c, d, stream,
-                                       &code))
+                                                    d, gate, stream, &code)) ||
+      try_launch<QD, 4, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c, d, gate,
+                                       stream, &code) ||
+      try_launch<QD, 1, Tin, Tout, kE>(q, kt, pq, pe, mask, out, B, Tq, T, H, rpb, c, d, gate,
+                                       stream, &code))
     return code;
   return (int)cudaErrorInvalidValue;
 }
 
 // QD, PD and the output type dispatched, for Tin inputs (B4's output type
-// is its input type); Tq query rows against T keys
+// is its input type; B5's is out_bf16's, its probabilities are not
+// written); Tq query rows against T keys; gate: B5's const gate
 template <Epi kE, typename Tin>
 int launch_in(const void* q, const void* kt, const void* pq, const void* pe, const void* mask,
               void* out, int B, int Tq, int T, int H, int QD, int PD, int out_bf16,
-              const ConsumeArgs& c, const DsArgs& d, void* stream) {
+              const ConsumeArgs& c, const DsArgs& d, void* stream, int gate = 0) {
   if (PD != kPD || B <= 0 || Tq <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (QD) {
@@ -1116,12 +1192,12 @@ int launch_in(const void* q, const void* kt, const void* pq, const void* pe, con
   case QDV:                                                                                  \
     if constexpr (kE == Epi::kDs)                                                            \
       return launch_typed<QDV, kE, Tin, Tin>(q, kt, pq, pe, mask, out, B, Tq, T, H, c, d,   \
-                                             s);                                             \
+                                             gate, s);                                       \
     else                                                                                     \
       return out_bf16 ? launch_typed<QDV, kE, Tin, __nv_bfloat16>(q, kt, pq, pe, mask, out, \
-                                                                  B, Tq, T, H, c, d, s)      \
+                                                                  B, Tq, T, H, c, d, gate, s) \
                       : launch_typed<QDV, kE, Tin, float>(q, kt, pq, pe, mask, out, B, Tq, T, \
-                                                          H, c, d, s);
+                                                          H, c, d, gate, s);
     ZV_QD(8)
     ZV_QD(16)
     ZV_QD(24)

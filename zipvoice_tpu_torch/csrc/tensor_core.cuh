@@ -1,5 +1,6 @@
-// Tensor-core and asynchronous-copy building blocks of the redesigned B4 and
-// B6 (rel_probs.cuh), B7 (rel_consume_fwd.cu) and B9 (conv_glu.cu): inline PTX
+// Tensor-core and asynchronous-copy building blocks of the redesigned B4, B5
+// and B6 (rel_probs.cuh), B7 and B5 (rel_wide_consume.cuh) and B9
+// (conv_glu.cu): inline PTX
 // for `cp.async`, `ldmatrix` and `mma.sync` (sm_80 and later, built here
 // for sm_90a).
 //

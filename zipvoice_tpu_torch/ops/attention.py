@@ -26,12 +26,15 @@ Seven kernels carry the Zipformer attention:
   B1's kernel with a fused epilogue on the tensor cores, (probs, rounded
   probs @ v), its probabilities B1's bit for bit; the fused eval path's
   SelfAttention-1, which hands the probabilities to SelfAttention-2.
-* ``rel_attention_head0_consume`` (B7, ``csrc/rel_consume_fwd.cu``): head 0's
-  probabilities, recomputed and never written, @ the wide NonlinAttention
-  value stream (B, T, C); the fused eval path's NonlinAttention.
-* ``rel_attention_apply`` (B5, B7's source): softmax(scores) @ v with the
-  const-attention gate, differentiable through B3.  No model path calls
-  it; it is the op the JAX package exposes as ``rel_attention_apply``.
+* ``rel_attention_head0_consume`` (B7, ``csrc/rel_consume_fwd.cu``, its
+  kernel in ``csrc/rel_wide_consume.cuh``): head 0's probabilities,
+  recomputed and never written, @ the wide NonlinAttention value stream
+  (B, T, C); the fused eval path's NonlinAttention.
+* ``rel_attention_apply`` (B5, ``csrc/rel_apply.cu``): softmax(scores) @ v
+  with the const-attention gate, differentiable through B3; B6's kernel
+  without the probabilities' store for vd <= 64, B7's kernel on every head
+  for a wider v.  No model path calls it; it is the op the JAX package
+  exposes as ``rel_attention_apply``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version beside it only for CPU tensors.  ``launches`` on each
@@ -276,7 +279,7 @@ _SIGNATURES = {
     "zv_rel_head0_consume": ("rel_consume_fwd", [_P] * 7 + [_I] * 7 + [_P]),
     # zv_rel_apply(q, kt, pq, pe, mask, v, out, B, T, H, QD, PD, VD, bf16, out_bf16,
     #              const_gate, stream)
-    "zv_rel_apply": ("rel_consume_fwd", [_P] * 7 + [_I] * 9 + [_P]),
+    "zv_rel_apply": ("rel_apply", [_P] * 7 + [_I] * 9 + [_P]),
 }
 
 

@@ -24,10 +24,12 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("rel_probs", "rel_probs_consume", "probs_apply", "rel_ds", "rel_apply_bwd",
-           "log_mel", "rel_consume_fwd", "conv_glu")
-# further sources of a library, each its own nvcc process: B6's instantiations
-# for bf16 inputs build beside those for f32 inputs
-EXTRA_SOURCES = {"rel_probs_consume": ("rel_probs_consume_bf16",)}
+           "log_mel", "rel_consume_fwd", "conv_glu", "rel_apply")
+# further sources of a library, each its own nvcc process: B6's and B5's
+# instantiations for bf16 inputs build beside those for f32 inputs, and B5's
+# wide route beside both
+EXTRA_SOURCES = {"rel_probs_consume": ("rel_probs_consume_bf16",),
+                 "rel_apply": ("rel_apply_bf16", "rel_apply_wide")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
