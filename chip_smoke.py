@@ -130,8 +130,8 @@ Phases (each raises on failure; nothing is caught):
      NCCL's answer to two ranks on the one card (it refuses), then two
      gloo ranks sharing it (``train/dryrun.spawn``): the first batch's
      summed f32 gradient against one process's on both ranks' rows with
-     the same draws (relative L2 a group <= 1e-5), 3 steps with the
-     regularizers and 3 without with the parameters bit-identical after
+     the same draws (relative L2 a group <= 1e-5), 2 steps with the
+     regularizers and 2 without with the parameters bit-identical after
      each, the launches a rank's step pinned, files in rank 0's exp dir
      only; 14c, one regularized step under each --remat-policy (full, all,
      dots, xprobs, xprobs_ff) at B=8, T=1024: step ms (one timed round in
@@ -153,16 +153,17 @@ Phases (each raises on failure; nothing is caught):
      unquantized pipeline; the infer CLI with --quantize int8-dynamic and
      the serve CLI with --quantize int8, one request each; 15b, in a worker
      process (``--export-worker``) started after phase 4 at low priority:
-     bin/export_model (bf16 with the fused sampler at 16 steps, bf16
+     bin/export_model (bf16 with the fused sampler at 4 steps, bf16
      int8-dynamic at 1 step, both at 256 tokens and 3072 frames, and a CPU
      export of a tiny model) as three processes, the trace and total
      seconds and each artifact's MB, then bin/infer_exported's loads of
      both modes; after 15a, on the card: its request in both modes on the
-     ~8 s text (launches a request B1 260 / B2 520 in each; a finite wav of
-     the expected length), the fused exported sampler against the
-     pipeline's own sample on the same inputs (relative L2 <= 1e-2), the
-     warm RTF of the fused sampler replayed and of the host loop, both at
-     16 steps (medians of 4 in turns), the int8-dynamic export's fused
+     ~8 s text (launches a request pinned: B1 68 / B2 136 fused, B1 260 /
+     B2 520 in the host loop at 16 steps; a finite wav of the expected
+     length), the fused exported sampler against the pipeline's own sample
+     on the same inputs (relative L2 <= 1e-2), the warm RTF of the fused
+     sampler replayed and of the host loop, both at 4 steps (medians of 4
+     in turns), the int8-dynamic export's fused
      sampler against the int8-dynamic pipeline's sample at 1 step
      (relative L2 <= 1e-3), and the loader's refusal of the CPU export on
      the card; 15c, the MFU (utils/flops.py, against the card's dense bf16
@@ -194,7 +195,13 @@ Phases (each raises on failure; nothing is caught):
      tiles (Tq query rows against Tk keys, the rows' window of pe) against
      their plain versions, f32 and bf16, at B=2, H=4: Tq 1536 of Tk 3072 at
      r0 0 and 1536, Tq 256 of 1024 and Tq 20 of 40, one row's keys padded,
-     with times and bounds beside phase 3's square T=1024 times; then two
+     with times and bounds beside phase 3's square T=1024 times; B3 and B4
+     on rectangular tiles against their plain versions, f32 and bf16, B3
+     with the failsafe and the const gate each on and off at (H=4, vd=12)
+     and (H=1, vd=384), B4 with the failsafe on and off at H=4: Tq 512 of
+     Tk 1024 at r0 0 and 512 (B=8, the SP step's stack-0 halves), Tq 1536
+     of 3072 (B=2) and Tq 20 of 40 (B=8), with times and bounds beside
+     phase 3b's square T=1024 times; then two
      gloo ranks sharing the card (NCCL refuses two ranks on one card,
      14b): 18b, models/zipvoice.sp_sample at full width (phase 4's
      weights, f32, TF32 off) on one request of 3072 frames (32.8 s), 16
@@ -207,7 +214,32 @@ Phases (each raises on failure; nothing is caught):
      1e-5), then 2 bf16 steps with the regularizers through
      make_train_step(mesh=...): finite losses, every shard updated, B1 40
      / B2 80 / B3 60 a step, the all-reduces a step pinned, the
-     feedforward shards at local shape (1536 -> 768).
+     feedforward shards at local shape (1536 -> 768); 18d, dp = 1 x sp = 2
+     (make_dp_sp_mesh) on 18c's rows: one f32 gradient without the
+     regularizers (TF32 off, torch's deterministic algorithms on both
+     sides) against 18c's one-process gradient (relative L2 a group and
+     a tensor <= 1e-5, the largest printed; the 0-d log_scales and the
+     downsampling biases, whose gradients cancel, held by their groups),
+     its launches (B1 40, B2 80,
+     B4 20, 16 of B4's rectangular) and collectives pinned; on the same
+     rows and draws with every balancer and whitening applied (f32), the
+     statistics each takes over the seq group equal on both ranks and
+     within 1e-5 relative of one process's; 2 bf16 steps
+     with the regularizers through make_train_step(mesh=...), losses
+     within 1e-2 relative of one process's steps from the same weights and
+     seeds, both ranks' parameters bit-identical, B1 40 / B2 80 / B3 60 a
+     step (48 of B3's rectangular: the fm_decoder's), each step's wall
+     beside one process's.  The build's, phase 18's and the total seconds
+     are printed.
+
+Order: phases 1-9 run in this process one after another; then three jobs
+start in a thread (``Background``), one after another, each a run of other
+processes: 14a's torchrun, 14b's ranks and phase 18's ranks, beside phases
+10-17 here; after phase 12, phase 13 starts in a process of its own
+(``--phase13-worker``) beside phases 14-17.  Phase 14 checks 14a's and 14b's
+runs when it reaches them, phase 18 its ranks' results, and phase 13's
+output is printed after phase 17.  The times those runs print were taken
+beside other work on the card and the host.
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -424,6 +456,148 @@ ENTRY_KERNELS = {"rel_probs": ("rel_probs_kernel",),
 
 def _dev_us(e):
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+class _Row:
+    """One key's row of ``_profile_rows``, with key_averages' fields."""
+
+    def __init__(self, key, device_type):
+        self.key, self.device_type, self.count = key, device_type, 0
+        self.cpu_time_total = self.self_cpu_time_total = 0.0
+        self.device_time_total = self.self_device_time_total = 0.0
+
+
+class _Ev:
+    __slots__ = ("name", "dtype", "dev", "sync", "start", "end", "thread", "corr", "kernels",
+                 "children", "parent", "device_total", "legacy")
+
+    def __init__(self, name, dtype, dev, sync, start, end, thread, corr):
+        self.name, self.dtype, self.dev, self.sync = name, dtype, dev, sync
+        self.start, self.end, self.thread, self.corr = start, end, thread, corr
+        self.kernels, self.children, self.parent, self.device_total = [], [], None, 0.0
+        self.legacy = False
+
+
+def _profile_rows(prof):
+    """``prof.key_averages()`` as {key: _Row}, computed from the profiler's
+    raw events by the rules key_averages applies (the same filtered names,
+    asynchronous events, kernels attributed through correlation ids, CPU
+    nesting per thread, duplicate parent-child nodes merged).  key_averages
+    first builds a Python object for every recorded event, its shapes and
+    stack with it: a training step's ~300k events cost it tens of seconds
+    of host time, this pass a few.  ``_check_rows`` holds the two equal."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    results = prof.profiler.kineto_results
+    base = results.trace_start_ns()
+    device_types = (DeviceType.CUDA, DeviceType.PrivateUse1, DeviceType.XPU)
+    cuda = getattr(prof.profiler, "use_device", None) == "cuda"
+    names, evs, frontend, linked = {}, [], [], {}
+    for k in results.events():
+        raw = k.name()
+        if _filter_name(raw) or getattr(k, "is_hidden_event", lambda: False)():
+            continue
+        if raw not in names:
+            names[raw] = _rewrite_name(name=raw, with_wildcard=True)
+        dt = k.device_type()
+        e = _Ev(names[raw], dt, dt in device_types,
+                not (k.is_async() or k.start_thread_id() != k.end_thread_id()),
+                (k.start_ns() - base) / 1000, (k.end_ns() - base) / 1000,
+                k.start_thread_id(), k.correlation_id())
+        if cuda and e.sync and dt == DeviceType.CPU:  # a legacy CUDA range's own time
+            legacy_us = getattr(k, "cuda_elapsed_us", lambda: 0)()
+            if legacy_us > 0:
+                e.kernels.append(legacy_us)
+                e.legacy = True
+        evs.append(e)
+        corr = k.linked_correlation_id()
+        if corr > 0:
+            linked.setdefault(corr, []).append(e)
+        elif corr == 0:
+            frontend.append(e)
+    for fe in frontend:  # kernels and runtime calls to the op that launched them
+        if fe.dtype == DeviceType.CPU and fe.sync and fe.corr in linked:
+            for f in linked[fe.corr]:
+                if f.dev:
+                    fe.kernels.append(f.end - f.start)
+                elif f.dtype == DeviceType.CPU:
+                    f.thread = fe.thread
+    evs.sort(key=lambda e: (e.start, -e.end))
+    nested = sorted((e for e in evs if e.sync and e.dtype == DeviceType.CPU),
+                    key=lambda e: e.thread)
+    stack, thread = [], None
+    for e in nested:
+        if e.thread != thread:
+            stack, thread = [], e.thread
+        while stack:
+            parent = stack[-1]
+            if e.start >= parent.end or e.end > parent.end:
+                stack.pop()
+            else:
+                parent.children.append(e)
+                e.parent = parent
+                break
+        stack.append(e)
+    while True:  # a parent's only child of the same name merges into it
+        dropped = set()
+        for i, e in enumerate(evs):
+            p = e.parent
+            if p is not None and p.name == e.name and len(p.children) == 1:
+                p.children, p.kernels = e.children, e.kernels
+                for ch in e.children:
+                    ch.parent = p
+                dropped.add(i)
+        if not dropped:
+            break
+        evs = [e for i, e in enumerate(evs) if i not in dropped]
+    use_device = bool(getattr(prof.profiler, "use_device", None))
+    for e in reversed(evs):  # children start after their parents: totals bottom-up
+        if not (e.sync and use_device):
+            e.device_total = 0.0
+        elif e.dtype == DeviceType.CPU:
+            e.device_total = sum(e.kernels) + (0.0 if e.legacy else sum(
+                ch.device_total for ch in e.children))
+        else:
+            e.device_total = e.end - e.start
+    rows = {}
+    for e in evs:
+        row = rows.get(e.name)
+        if row is None:
+            row = rows[e.name] = _Row(e.name, e.dtype)
+        row.count += 1
+        cpu_total = e.end - e.start if e.dtype == DeviceType.CPU else 0.0
+        row.cpu_time_total += cpu_total
+        row.device_time_total += e.device_total
+        if e.sync and e.dtype == DeviceType.CPU:
+            row.self_cpu_time_total += cpu_total - sum(ch.end - ch.start for ch in e.children)
+            row.self_device_time_total += e.device_total - sum(
+                ch.device_total for ch in e.children)
+        elif e.sync and use_device:
+            row.self_device_time_total += e.device_total
+    return rows
+
+
+def _check_rows(prof, rows, rel: float = 1e-6):
+    """Raises unless ``rows`` (``_profile_rows``) equal key_averages' rows:
+    the keys, device types and counts exactly, the times within ``rel`` of
+    their largest (the sums' order differs)."""
+    want = {e.key: e for e in prof.key_averages()}
+    fields = ("cpu_time_total", "self_cpu_time_total", "device_time_total",
+              "self_device_time_total")
+    scale = {f: max([abs(getattr(e, f)) for e in want.values()] + [1.0]) for f in fields}
+    bad = [k for k in set(want) | set(rows)
+           if k not in want or k not in rows
+           or (want[k].count, want[k].device_type) != (rows[k].count, rows[k].device_type)
+           or any(abs(getattr(want[k], f) - getattr(rows[k], f)) > rel * scale[f]
+                  for f in fields)]
+    if bad:
+        k = sorted(bad)[0]
+        raise AssertionError(
+            f"profiler rows differ from key_averages in {len(bad)} keys, e.g. {k!r}: "
+            + (f"{vars(rows[k]) if k in rows else None} vs "
+               + (str({f: getattr(want[k], f) for f in ('count', 'device_type', *fields)})
+                  if k in want else "None")))
 
 
 def _kernel_device_ms(events, kernel):
@@ -1044,6 +1218,72 @@ class _NoDraws:
         return out
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Within the block: torch's deterministic algorithms, so that an f32
+    gradient reproduces bit for bit on the card.  Otherwise the backwards
+    of the text condition's gather and of the upsampling's
+    repeat_interleave add by atomics in any order, and 18d's nearly
+    cancelling gradients (0-d log_scales, downsampling biases) read that
+    order as relative errors of up to 1e-5 between two runs of one process
+    (``tools/sp_gradient_noise.py``).  cuBLAS runs on one stream here,
+    where it reproduces without a workspace setting; its warning is
+    muted."""
+    import warnings
+
+    import torch
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=r"Deterministic behavior was enabled.*CuBLAS")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+class _RegStats:
+    """Within the block: every balancer and whitening applied (their gates
+    forced open, the host draws still made), and the statistics each takes
+    in the backward recorded in call order (``summary``): a balancer's
+    per-channel mean squares (``nn/regularizers.balancer_stats``) summed,
+    a whitening's metric."""
+
+    def __enter__(self):
+        from zipvoice_tpu_torch.nn import regularizers as reg
+
+        self.saved = [(reg, n, getattr(reg, n))
+                      for n in ("balancer", "whiten", "balancer_stats", "whitening_metric")]
+        balancer, whiten, stats, metric = (fn for _, _, fn in self.saved)
+        self.records = {"balancer": [], "whiten": []}
+
+        def recorded_stats(*a, **k):
+            uv, mean, n = stats(*a, **k)
+            self.records["balancer"].append(uv.sum().detach())
+            return uv, mean, n
+
+        def recorded_metric(*a, **k):
+            m = metric(*a, **k)
+            self.records["whiten"].append(m.detach())
+            return m
+
+        reg.balancer = lambda x, gate, **k: balancer(x, True, **k)
+        reg.whiten = lambda x, gate, **k: whiten(x, True, **k)
+        reg.balancer_stats = recorded_stats
+        reg.whitening_metric = recorded_metric
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def summary(self):
+        return {k: [float(v) for v in vs] for k, vs in self.records.items()}
+
+
 def _param_group(name: str) -> str:
     parts = name.split(".")
     if parts[0] == "fm_decoder" and parts[1] == "encoders":
@@ -1231,8 +1471,9 @@ def profile_train_step(res, manifest: Path, card: str, regularizers: bool = True
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
 
-    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=_dev_us, reverse=True)
+    rows = _profile_rows(prof).values()
+    events = sorted((e for e in rows if e.device_type == DeviceType.CUDA), key=_dev_us,
+                    reverse=True)
     busy = sum(_dev_us(e) for e in events) / 1e6
     b, t = batch["features"].shape[:2]
     kind = "regularizers" if regularizers else "no-regularizers"
@@ -1245,7 +1486,7 @@ def profile_train_step(res, manifest: Path, card: str, regularizers: bool = True
     for e in events[:15]:
         print(f"  {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     # the host side: operators by their own CPU time
-    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+    host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     print(f"  host: {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms of operator "
           f"self time in {sum(e.count for e in host)} calls; the most:")
@@ -1367,8 +1608,11 @@ def profile_request(root: Path, card: str, fused: bool = False, replayed: bool =
 
     from torch.autograd import DeviceType
 
+    rows = _profile_rows(prof)
+    if replayed:  # few host events: key_averages is cheap here, and holds the rows
+        _check_rows(prof, rows)
     # device-side entries only (CPU ops repeat their kernels' time)
-    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    events = sorted((e for e in rows.values() if e.device_type == DeviceType.CUDA),
                     key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in events) / 1e6
     dev = {k: _kernel_device_ms(events, k)
@@ -2522,6 +2766,51 @@ def run_phase13(root: Path, card: str):
     return bigvgan, recipes, grads
 
 
+def _phase13_worker(root: str, card: str) -> int:
+    """Phase 13 in a process of its own (``--phase13-worker``), its results
+    into ``phase13.json``."""
+    sys.path.insert(0, str(REPO))
+    root = Path(root)
+    bigvgan, recipes, grads = run_phase13(root, card)
+    (root / "phase13.json").write_text(json.dumps(
+        {"bigvgan": bigvgan, "recipes": recipes, "grads": grads}, default=float))
+    return 0
+
+
+def start_phase13(root: Path, card: str):
+    """Starts ``_phase13_worker`` beside phases 14-17 (its assets, phase
+    4's and 12's, exist by then; it writes only under its own names);
+    returns (Popen, log path, start time)."""
+    log = root / "phase13.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase13-worker", str(root),
+             card], cwd=REPO, stdout=f, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=_die_with_parent)
+    return proc, log, time.monotonic()
+
+
+def finish_phase13(p13, root: Path, timeout: float = 900.0):
+    """Waits for ``start_phase13``'s process, prints its output and
+    returns run_phase13's (bigvgan, recipes, grads); a failed process fails
+    the phase."""
+    proc, log, t_start = p13
+    t0 = time.monotonic()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    print(log.read_text(), end="", flush=True)
+    print(f"phase 13 ran in a process of its own beside phases 14-17: "
+          f"{time.monotonic() - t_start:.1f} s, waited {time.monotonic() - t0:.1f} s for it",
+          flush=True)
+    if rc != 0:
+        raise AssertionError(f"phase 13's process exited {rc}")
+    res = json.loads((root / "phase13.json").read_text())
+    return res["bigvgan"], res["recipes"], res["grads"]
+
+
 # ---------------------------------------------------------------------------
 # Phase 14: data parallelism across processes (14a, 14b), the remat policies
 # (14c), and the diagnostics and scan-oom CLIs (14d)
@@ -2585,7 +2874,7 @@ def _ddp_worker(out: str, argv) -> int:
             float(m["loss"])
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
-        averages = prof.key_averages()
+        averages = _profile_rows(prof).values()
         events = [e for e in averages if e.device_type == DeviceType.CUDA]
         sync = [e for e in averages if e.key == "all_reduce_gradients"]
         prof_res.update(
@@ -2614,28 +2903,41 @@ def _ddp_worker(out: str, argv) -> int:
     return 0
 
 
-def run_distributed_cli(root: Path, manifest: Path, card: str, single_ms: float):
-    """14a: ``torchrun --standalone --nproc-per-node 1`` over the train CLI
-    with --distributed (NCCL, world size 1), DDP_STEPS steps with the
-    regularizers: finite losses, the launches a step at phase 8's pins, the
-    NCCL all-reduce's device time in the last (profiled) step and the warm
-    step ms beside phase 8's single-process step; then the checkpoint rank
-    0 wrote, as a model dir (``check_distributed_checkpoint``).  Returns
-    the results."""
-    import numpy as np
-
-    exp = root / "exp_ddp"
+def distributed_cli_job(root: Path, manifest: Path) -> float:
+    """14a's run, a background job: ``torchrun --standalone
+    --nproc-per-node 1`` over the train CLI with --distributed (NCCL, world
+    size 1), DDP_STEPS steps with the regularizers, its rank's results in
+    ``root``/ddp.  Returns the run's seconds."""
     out = root / "ddp"
     out.mkdir()
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "1", str(Path(__file__).resolve()), "--ddp-worker", str(out),
-           *_train_argv(root, manifest, exp, DDP_STEPS, "--distributed")]
+           *_train_argv(root, manifest, root / "exp_ddp", DDP_STEPS, "--distributed")]
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=420, cwd=REPO)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=REPO, preexec_fn=_die_with_parent)
+    try:
+        stdout, stderr = proc.communicate(timeout=420)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         raise AssertionError(f"torchrun train CLI exit {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    wall = time.monotonic() - t0
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    return time.monotonic() - t0
+
+
+def run_distributed_cli(root: Path, card: str, single_ms: float, wall: float):
+    """14a's checks on ``distributed_cli_job``'s run (``wall`` seconds):
+    finite losses, the launches a step at phase 8's pins, the NCCL
+    all-reduce's device time in the last (profiled) step and the warm step
+    ms beside phase 8's single-process step; then the checkpoint rank 0
+    wrote, as a model dir (``check_distributed_checkpoint``).  Returns the
+    results."""
+    import numpy as np
+
+    exp = root / "exp_ddp"
+    out = root / "ddp"
     res = json.loads((out / "rank-0.json").read_text())
     n = len(res["losses"])
     want = {k: PER_STEP.get(k, 0) * n for k in res["launches"]}
@@ -2691,6 +2993,7 @@ def check_distributed_checkpoint(root: Path, exp: Path, digest: str, card: str) 
 
 def _nccl_probe_worker():
     """14b's probe: two NCCL ranks on the one card."""
+    _die_with_parent()
     import os
 
     import torch
@@ -2717,6 +3020,8 @@ def _two_ranks_worker(root: str, manifest: str, out: str, steps: int):
     import hashlib
     import itertools
     import os
+
+    _die_with_parent()
 
     import torch
     import torch.distributed as dist
@@ -2811,18 +3116,15 @@ def _concat_rows(parts, key, pad=0):
     return torch.cat(out)
 
 
-def check_two_ranks(root: Path, manifest: Path, card: str, steps: int = 3):
-    """14b: NCCL's answer to two ranks on one card, then two gloo ranks on
-    it (``_two_ranks_worker``): the summed gradient of the first batch
-    equals one process's gradient on the two ranks' batches together with
-    the same draws (relative L2 per parameter group <= 1e-5, f32), the
-    parameters bit-identical across the ranks after every step, the
-    launches a step per rank at the pins, and only rank 0's exp dir
-    holding files.  Returns the results."""
-    import numpy as np
-    import torch
+TWO_RANK_STEPS = 2
 
-    from zipvoice_tpu_torch.models import zipvoice as zv
+
+def two_ranks_job(root: Path, manifest: Path):
+    """14b's runs, a background job: NCCL's answer to two ranks on one
+    card, then two gloo ranks on it (``_two_ranks_worker``, TWO_RANK_STEPS
+    steps with the regularizers and as many without), their results in
+    ``root``/two_ranks.  Returns (NCCL's answer, its seconds, the gloo
+    run's seconds)."""
     from zipvoice_tpu_torch.train.dryrun import spawn
 
     here = str(Path(__file__).resolve().parent)  # the workers import this file
@@ -2834,16 +3136,31 @@ def check_two_ranks(root: Path, manifest: Path, card: str, steps: int = 3):
         lines = [ln for ln in str(ex).splitlines()
                  if "uplicate" in ln or "nvalid" in ln or "outlived" in ln]
         nccl = "refused: " + (lines[0].strip()[:300] if lines else str(ex)[-300:])
-    print(f"14b NCCL, two ranks on one card: {nccl} ({time.monotonic() - t0:.1f} s)",
-          flush=True)
-
+    probe_s = time.monotonic() - t0
     out = root / "two_ranks"
     out.mkdir()
     t0 = time.monotonic()
     spawn("chip_smoke:_two_ranks_worker", 2,
-          {"root": str(root), "manifest": str(manifest), "out": str(out), "steps": steps},
-          timeout=480, path=[here])
-    wall = time.monotonic() - t0
+          {"root": str(root), "manifest": str(manifest), "out": str(out),
+           "steps": TWO_RANK_STEPS}, timeout=480, path=[here])
+    return nccl, probe_s, time.monotonic() - t0
+
+
+def check_two_ranks(root: Path, card: str, nccl: str, probe_s: float, wall: float):
+    """14b's checks on ``two_ranks_job``'s runs: the summed gradient of the
+    first batch equals one process's gradient on the two ranks' batches
+    together with the same draws (relative L2 per parameter group <= 1e-5,
+    f32), the parameters bit-identical across the ranks after every step,
+    the launches a step per rank at the pins, and only rank 0's exp dir
+    holding files.  Returns the results."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.models import zipvoice as zv
+
+    print(f"14b NCCL, two ranks on one card: {nccl} ({probe_s:.1f} s)", flush=True)
+    steps = TWO_RANK_STEPS
+    out = root / "two_ranks"
     ranks = [json.loads((out / f"ranks-{r}.json").read_text()) for r in range(2)]
     for kind in ("regularizers", "no-regularizers"):
         a, b = ranks[0][kind], ranks[1][kind]
@@ -3087,13 +3404,58 @@ def re_numbers(text: str):
     return re.findall(r"-?(?:\d+\.\d*|\d+)(?:e[-+]?\d+)?|nan|inf", text)
 
 
-def run_phase14(root: Path, manifest: Path, card: str, single_ms: float):
-    """Phase 14 (14a-14d) with its wall time."""
+class Background:
+    """Jobs that run other processes (14a's torchrun, 14b's ranks, phase
+    18's ranks), one after another in a thread of this process, beside
+    the phases that follow their start; ``result`` waits for a job and
+    returns its value or raises its error.  After a failed job the later
+    ones do not start.  Their processes die with the thread (their own
+    ``_die_with_parent``, 14a's launcher by ``preexec_fn``)."""
+
+    def __init__(self, jobs):
+        import threading
+
+        self.jobs = dict(jobs)
+        self.done = {name: threading.Event() for name in self.jobs}
+        self.out = {}
+        self.t0 = time.monotonic()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        failed = None
+        for name, fn in self.jobs.items():
+            t0 = time.monotonic()
+            if failed is None:
+                try:
+                    self.out[name] = (True, fn(), t0, time.monotonic())
+                except BaseException as ex:  # handed to the phase that reads it
+                    failed = name
+                    self.out[name] = (False, ex, t0, time.monotonic())
+            else:
+                self.out[name] = (False, AssertionError(f"not started: {failed} failed"),
+                                  t0, t0)
+            self.done[name].set()
+
+    def result(self, name: str):
+        t0 = time.monotonic()
+        self.done[name].wait()
+        ok, value, start, end = self.out[name]
+        print(f"background {name}: {end - start:.1f} s from {start - self.t0:.1f} s after the "
+              f"jobs' start; waited {time.monotonic() - t0:.1f} s for it", flush=True)
+        if not ok:
+            raise value
+        return value
+
+
+def run_phase14(root: Path, manifest: Path, card: str, single_ms: float, bg: Background):
+    """Phase 14 (14a-14d) with its wall time: 14a's and 14b's runs are
+    ``bg``'s jobs, checked here after 14c and 14d (while they finish)."""
     t0 = time.monotonic()
-    ddp = run_distributed_cli(root, manifest, card, single_ms)
-    two = check_two_ranks(root, manifest, card)
     policies = compare_remat_policies(root, card)
     tools = check_diagnostics_and_scan_oom(root, manifest, card)
+    ddp = run_distributed_cli(root, card, single_ms, bg.result("14a"))
+    two = check_two_ranks(root, card, *bg.result("14b"))
     print(f"phase 14: {time.monotonic() - t0:.1f} s on {card}", flush=True)
     return ddp, two, policies, tools
 
@@ -3112,11 +3474,12 @@ INT8_FUSED_PER_REQUEST = {"B2": LAYERS_PER_REQUEST, "B6": LAYERS_PER_REQUEST,
 # width's serving shapes (CFG batch 2 x 1024 frames through an fm_decoder
 # feed-forward's two linears; 2 x 192 tokens into a text-encoder one)
 INT8_LINEAR_SHAPES = ((2048, 512, 1536), (2048, 1536, 512), (384, 192, 512))
-# the exported fused sampler's steps: the recipe's 16.  torch.export has no
-# loop, so the steps unroll (about 64k graph nodes), and its trace, save and
-# load take minutes on the host: 15b's exports and loads run in a worker
-# process started after phase 4, beside phases 5-15a
-EXPORT_STEPS = N_STEP
+# the exported fused sampler's steps: 4 of the recipe's 16, a cut of depth.
+# torch.export has no loop, so the steps unroll (about 4k graph nodes a
+# step), and the trace, save and load of the 16-step program took 7 minutes
+# of the host (250 s and 177 s): 15b's exports and loads run in a worker
+# process started after phase 4, beside phases 5-15a, and must be done by then
+EXPORT_STEPS = 4
 # the int8-dynamic export's steps: one shows that its programs compute what
 # the int8-dynamic pipeline computes
 EXPORT_STEPS_INT8 = 1
@@ -3471,11 +3834,11 @@ def load_exported_runs(root: Path, exports, card: str):
 def run_exported(root: Path, state, card: str):
     """15b on the card: bin/infer_exported's request in both modes on the
     ~8 s text (the fused exported sampler, EXPORT_STEPS steps, captured then
-    replayed; the host loop at 16), launches a request pinned at B1 260 /
-    B2 520, a finite wav of the expected length; the fused sampler against
-    the pipeline's own ``sample`` on the same inputs (relative L2 <=
-    EXPORT_REL_L2); the warm RTF of each mode at 16 steps (medians of 4 in
-    turns); the int8-dynamic export's fused sampler (EXPORT_STEPS_INT8
+    replayed; the host loop at 16), launches a request pinned (the host
+    loop's at B1 260 / B2 520), a finite wav of the expected length; the
+    fused sampler against the pipeline's own ``sample`` on the same inputs
+    (relative L2 <= EXPORT_REL_L2); the warm RTF of each mode at
+    EXPORT_STEPS steps (medians of 4 in turns); the int8-dynamic export's fused sampler (EXPORT_STEPS_INT8
     steps) pinned and against the int8-dynamic pipeline's ``sample`` at as
     many steps (relative L2 <= EXPORT_INT8_REL_L2), beside its error against
     the float model's.  Returns the numbers."""
@@ -3529,17 +3892,17 @@ def run_exported(root: Path, state, card: str):
     if not rel <= EXPORT_REL_L2:
         raise AssertionError(f"exported sampler vs sample: relative L2 {rel}")
 
-    # warm RTF, fused replayed and host loop, both at 16 steps, in turns
+    # warm RTF, fused replayed and host loop, both at EXPORT_STEPS steps, in turns
     kw = dict(text=TEXTS["r8s"], prompt_text=PROMPT_TEXT, prompt_wav=prompt, prompt_sr=sr,
-              num_step=N_STEP)
+              num_step=EXPORT_STEPS)
     runs = {"fused": [], "host-loop": []}
     for mode in ("fused", "host-loop", "host-loop", "fused") * 2:
         _, s_, p_ = state[mode]
         runs[mode].append(infer_exported.synthesize(s_, p_, **kw)["rtf"])
     for mode in runs:
         res[mode]["rtf"] = float(np.median(runs[mode]))
-    print(f"15b exported warm rtf at {N_STEP} steps: fused replayed {res['fused']['rtf']:.5f} "
-          f"{[round(x, 5) for x in runs['fused']]}, host loop {res['host-loop']['rtf']:.5f} "
+    print(f"15b exported warm rtf at {EXPORT_STEPS} steps: fused replayed "
+          f"{res['fused']['rtf']:.5f} {[round(x, 5) for x in runs['fused']]}, host loop {res['host-loop']['rtf']:.5f} "
           f"{[round(x, 5) for x in runs['host-loop']]} (medians of 4 in turns; the programs "
           f"and the vocoder at {sampler.t_max} frames) on {card}", flush=True)
 
@@ -4132,18 +4495,38 @@ def _phase14_launches(ddp, two_ranks, policies, key):
 
 
 def _phase18_extras(p18, key):
-    """B1's or B2's phase-18 numbers: each rectangular case of 18a (its
-    error, kernel, plain, library and bound ms), the launches of a rank's
-    sequence-parallel request (18b) and of a rank's tensor-parallel step
-    (18c)."""
-    rect = {f"Tq={tq} Tk={tk} r0={r0} {dn}": {
+    """A kernel's phase-18 numbers: each rectangular case of 18a (its
+    error, kernel, plain, library and bound ms; B3 and B4 timed without the
+    failsafe and the gate), the launches of a rank's sequence-parallel
+    request (18b, B1 and B2), of a rank's tensor-parallel step (18c) and of
+    a rank's sequence-parallel training step (18d: the f32 step without the
+    regularizers, a bf16 step with them), and of those its rectangular
+    ones."""
+    if key in ("B1", "B2"):
+        rect = {f"Tq={tq} Tk={tk} r0={r0} {dn}": (tq, r) for (tq, tk, r0, dn), r in
+                p18["rect"][key].items()}
+    else:
+        rect = {f"Tq={tq} Tk={tk} r0={r0} H={h} vd={vd} {dn}": (tq, r)
+                for (tq, tk, r0, h, vd, dn, pen, gate), r in p18["rect_train"][key].items()
+                if r["ms"] is not None}
+    every = (p18["rect"] if key in ("B1", "B2") else p18["rect_train"])[key].values()
+    out = {"rectangular": {name: {
         "max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "library_ms": r["library_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
-        for (tq, tk, r0, dn), r in p18["rect"][key].items()}
-    return {"rectangular": rect,
-            "rectangular_max_abs_err": max(r["abs_err"] for r in p18["rect"][key].values()),
-            "launches_per_sp_request_rank": p18["ranks"][0]["sp"]["launches"][key],
-            "launches_per_tp_step": p18["ranks"][0]["tp_steps"][-1]["launches"][key]}
+        for name, (_, r) in rect.items()},
+        "rectangular_max_abs_err": max(r["abs_err"] for r in every),
+        "launches_per_tp_step": p18["ranks"][0]["tp_steps"][-1]["launches"].get(key, 0)}
+    if key in ("B1", "B2"):
+        out["launches_per_sp_request_rank"] = p18["ranks"][0]["sp"]["launches"][key]
+    sp = p18["sp_train"]["ranks"][0]
+    out["launches_per_sp_step_rank"] = {
+        "f32 no regularizers": sp["grad"]["launches"].get(key, 0),
+        "bf16 regularizers": sp["steps"][-1]["launches"].get(key, 0)}
+    if key in ("B3", "B4"):
+        out["rectangular_launches_per_sp_step_rank"] = {
+            "f32 no regularizers": sp["grad"]["rect"][key],
+            "bf16 regularizers": sp["steps"][-1]["rect"][key]}
+    return out
 
 
 def _phase15_launches(p15, key):
@@ -4175,6 +4558,7 @@ SP_FRAMES = 3072  # 32.8 s at 93.75 frames a second, beyond the 30 s cap
 SP_RANKS = 2
 SP_TOL = 1e-4  # relative L2 of the SP output against one process's, f32 without TF32
 TP_STEPS = 2
+SP_TRAIN_STEPS = 2  # 18d's bf16 steps with the regularizers
 
 
 def check_rect_kernels(square, card: str):
@@ -4253,6 +4637,111 @@ def check_rect_kernels(square, card: str):
     return results
 
 
+# B3's and B4's rectangular tiles (Tq, Tk, r0, B, kind): the SP training
+# step's stack-0 halves (B=8 at T=1024 over two ranks), 18a's long tile and
+# a text-encoder-sized one; B3 at (H=4, vd=12) and (H=1, vd=384), B4 at H=4
+RECT_TRAIN_CASES = [(512, 1024, 0, 8, "stack-0 first half"),
+                    (512, 1024, 512, 8, "stack-0 second half"),
+                    (1536, 3072, 1536, 2, "second half"), (20, 40, 20, 8, "text")]
+RECT_TRAIN_HEADS = [(4, 12), (1, 384)]
+
+
+def check_rect_training_kernels(square, card: str):
+    """18a: B3 and B4 on rectangular tiles against their plain versions on
+    the same inputs, f32 and bf16, B3 with the failsafe and the const gate
+    each on and off, B4 with the failsafe on and off (RECT_TRAIN_CASES, one
+    batch row's keys padded, 3b's input scale), with their times and bounds
+    beside phase 3b's square T=1024 times (``square``)."""
+    import torch
+
+    from zipvoice_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    results = {"B3": {}, "B4": {}}
+    for tq, tk, r0, b, kind in RECT_TRAIN_CASES:
+        for h, vd in RECT_TRAIN_HEADS:
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                s = torch.finfo(dtype).bits // 8
+                q, k, pq, pe, mask, v, _ = _rel_inputs(gen, b, h, tk, vd, dtype, scale=1.5)
+                rows = slice(r0, r0 + tq)
+                q, pq = q[:, rows].contiguous(), pq[:, rows].contiguous()
+                pe = pe[tk - r0 - tq: 2 * tk - 1 - r0].contiguous()
+                g = torch.randn((b, tq, h, vd), generator=gen, device="cuda").to(dtype)
+                in_bytes = (s * (b * tq * h * 36 + b * tk * h * 32 + (tq + tk - 1) * h * 4)
+                            + b * tk)
+                score_ops = 2 * b * h * tq * tk * 36
+                limit_hi = _penalty_limit(q, k, pq, pe)
+                for pen, gate in TRAIN_ATTN_VARIANTS:
+                    limit = limit_hi if pen else 25.0
+                    key = (tq, tk, r0, h, vd, dn, pen, gate)
+                    timed = pen == 0.0 and not gate
+                    if h == 4 and not gate:
+                        gp = torch.randn((b, h, tq, tk), generator=gen, device="cuda").to(dtype)
+                        ds = att.rel_attention_ds(q, k, pq, pe, mask, gp, pen, limit)
+                        ref = att.rel_attention_ds_plain(q, k, pq, pe, mask, gp, pen, limit)
+                        torch.cuda.synchronize()
+                        abs_err, err = _errs(ds, ref)
+                        tol = 2e-5 if dtype == torch.float32 else 8e-3  # 3b's
+                        r = dict(abs_err=abs_err, rel_err=err, tol=tol, ms=None, plain_ms=None,
+                                 library_ms=None, bound_ms=None, bound_by=None)
+                        if timed:
+                            r["ms"] = time_ms(lambda: att.rel_attention_ds(q, k, pq, pe, mask,
+                                                                           gp))
+                            r["plain_ms"] = time_ms(
+                                lambda: att.rel_attention_ds_plain(q, k, pq, pe, mask, gp))
+                            r["bound_ms"], r["bound_by"] = bound_ms(
+                                in_bytes + 2 * s * b * h * tq * tk, score_ops, dn)
+                        results["B4"][key] = r
+                        sq = square["B4"][("main", 1024, 4, 12, dn, 0.0, False)]["ms"]
+                        print(f"18a B4 rel_ds rectangular Tq={tq} of Tk={tk} (r0={r0}, {kind}) "
+                              f"B={b} {dn} pen={pen:g}: rel_err {err:.3g} (tol {tol:g}), "
+                              f"max_abs_err {abs_err:.3g}" + _times(r)
+                              + (f"; square B=8 T=1024 kernel_ms {sq:.4f} (3b)" if timed else "")
+                              + f" on {card}", flush=True)
+                        if not err <= tol:
+                            raise AssertionError(f"B4 rectangular disagrees at {key}: {err}")
+                        del gp, ds, ref
+                    outs = att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g, pen, limit,
+                                                         gate)
+                    refs = att.rel_attention_consume_bwd_plain(q, k, pq, pe, mask, v, g, pen,
+                                                               limit, gate)
+                    torch.cuda.synchronize()
+                    pairs = {n: _errs(o, rf) for n, o, rf in
+                             zip(("dq", "dk", "dpq", "dpe", "dv"), outs, refs)}
+                    errs = {n: rel for n, (_, rel) in pairs.items()}
+                    err = max(errs.values())
+                    tol = 1e-4  # 3b's
+                    r = dict(abs_err=max(a for a, _ in pairs.values()), rel_err=err, tol=tol,
+                             ms=None, plain_ms=None, library_ms=None, bound_ms=None,
+                             bound_by=None)
+                    if timed:
+                        r["ms"] = time_ms(
+                            lambda: att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g))
+                        r["plain_ms"] = time_ms(
+                            lambda: att.rel_attention_consume_bwd_plain(q, k, pq, pe, mask, v, g))
+                        out_bytes = 4 * (b * tq * h * 36 + b * tk * h * 32
+                                         + (tq + tk - 1) * h * 4 + b * tk * h * vd)
+                        ops = score_ops + 2 * b * h * tq * tk * (2 * vd + 2 * 32 + 8)
+                        r["bound_ms"], r["bound_by"] = bound_ms(
+                            in_bytes + s * (b * tk + b * tq) * h * vd + out_bytes, ops, dn)
+                    results["B3"][key] = r
+                    label = "main" if h == 4 else "head0"
+                    sq = square["B3"][(label, 1024, h, vd, dn, 0.0, False)]["ms"]
+                    worst = max(errs, key=errs.get)
+                    print(f"18a B3 rel_apply_bwd rectangular Tq={tq} of Tk={tk} (r0={r0}, {kind}) "
+                          f"B={b} H={h} vd={vd} {dn} pen={pen:g} gate={int(gate)}: rel_err "
+                          f"{err:.3g} ({worst}, tol {tol:g}), max_abs_err {r['abs_err']:.3g}"
+                          + _times(r)
+                          + (f"; square B=8 T=1024 kernel_ms {sq:.4f} (3b)" if timed else "")
+                          + f" on {card}", flush=True)
+                    if not err <= tol:
+                        raise AssertionError(f"B3 rectangular disagrees at {key}: {errs}")
+                    del outs, refs
+                del q, k, pq, pe, mask, v, g
+    return results
+
+
 def _sp_request(cfg, frames: int = SP_FRAMES):
     """18b's request: one utterance of ``frames`` frames, a 3 s prompt,
     ~400 tokens, from a fixed seed (host tensors)."""
@@ -4274,13 +4763,13 @@ SP_ORDER = ("tokens", "tokens_lens", "prompt_features", "prompt_features_lens", 
             "noise")
 
 
-def _tp_inputs(cfg):
+def _tp_inputs(cfg, seed: int = 19):
     """18c's rows (phase 14c's B=8, T=1024 batch) and the f32 step's
-    draws."""
+    draws (noise, t) from ``seed``."""
     import torch
 
     batch = _policy_batch(cfg)
-    g = torch.Generator().manual_seed(19)
+    g = torch.Generator().manual_seed(seed)
     return batch, torch.randn(batch["features"].shape, generator=g), \
         torch.rand((batch["features"].shape[0], 1, 1), generator=g)
 
@@ -4294,6 +4783,8 @@ def _phase18_worker(root: str, out: str):
     make_train_step(mesh=...), launches and collectives counted a step."""
     import hashlib
     import os
+
+    _die_with_parent()
 
     import torch
     import torch.distributed as dist
@@ -4381,30 +4872,137 @@ def _phase18_worker(root: str, out: str):
             digest.update(p.detach().cpu().numpy().tobytes())
     res["replicated_digest"] = digest.hexdigest()
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, opt, step
+    torch.cuda.empty_cache()
+    res["sp_train"] = _sp_training(root, out, dev, counters)
     (out / f"phase18-{r}.json").write_text(json.dumps(res))
     mesh.shutdown()
 
 
-def run_phase18(root: Path, card: str, square):
-    """Phase 18 (module docstring): 18a on this process; 18b and 18c in two
-    gloo ranks sharing the card (``_phase18_worker``), each against one
-    process on the card here."""
-    import numpy as np
+def _sp_training(root: str, out: Path, dev, counters):
+    """18d on one rank of a dp = 1 x sp = 2 mesh (make_dp_sp_mesh): one f32
+    gradient without the regularizers (TF32 off, ``_deterministic``) on
+    18c's rows, noise and t, synced (rank 0 saves it); the regularizers' statistics on the same
+    rows and draws (``_RegStats``); then SP_TRAIN_STEPS bf16 steps with the
+    regularizers through make_train_step(mesh=...); the launches, the (Tq,
+    Tk) of every B3 and B4 launch and the collectives counted each time."""
+    import hashlib
+
     import torch
 
     from zipvoice_tpu_torch.io.model_dir import load_model_dir
     from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.ops import attention as att
+    from zipvoice_tpu_torch.parallel import mesh
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+    from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
+
+    tiles = []
+    entry = att._entry
+
+    def recording(symbol):  # the (Tq, Tk) of every B3 and B4 launch
+        fn = entry(symbol)
+        at = {"zv_rel_apply_bwd": 14, "zv_rel_ds": 8}.get(symbol)
+        if at is None:
+            return fn
+        return lambda *a: tiles.append(("B3" if at == 14 else "B4", a[at], a[at + 1])) or fn(*a)
+
+    def counted():
+        got = {"launches": _launched(counters), "collectives": dict(mesh.COUNTS),
+               "rect": {k: sum(1 for n, tq, tk in tiles if n == k and tq != tk)
+                        for k in ("B3", "B4")}}
+        _zero(counters)
+        mesh.reset_counts()
+        tiles.clear()
+        return got
+
+    att._entry = recording
+    model = load_model_dir(root, tokenizer_name="simple").model.to(dev)
+    cfg = model.cfg
+    sp = mesh.make_dp_sp_mesh(1, SP_RANKS)
+    replicated = zv.seq_replicated_params(model)
+    batch, noise, t = _tp_inputs(cfg)
+    inputs = {k: v.to(dev) for k, v in batch.items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counted()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with _deterministic(), mesh.use_mesh(sp):
+        loss = zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"],
+                                  inputs["features"], inputs["features_lens"], noise.to(dev),
+                                  t.to(dev), 9)
+        loss.backward()
+        (loss,) = mesh.all_reduce_gradients(list(model.parameters()), [loss.detach()],
+                                            replicated)
+    torch.cuda.synchronize()
+    res = {"grad": dict(counted(), wall_s=time.monotonic() - t0, loss=float(loss))}
+    if mesh.rank() == 0:
+        torch.save({n: p.grad.cpu() for n, p in model.named_parameters()}, out / "sp_grads.pt")
+    model.zero_grad(set_to_none=True)
+    # the same rows and draws with every balancer and whitening applied
+    # (TF32 still off): the statistics they take over the seq group
+    scheds = zipvoice_schedules(1000.0, cfg)
+    with _RegStats() as stats, mesh.use_mesh(sp):
+        zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"], inputs["features"],
+                           inputs["features_lens"], noise.to(dev), t.to(dev), 9,
+                           schedules=scheds).backward()
+    res["reg_stats"] = stats.summary()
+    model.zero_grad(set_to_none=True)
+    counted()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    step = make_train_step(model, ScaledAdam(model.named_parameters()),
+                           TrainConfig(compute_dtype="bfloat16"), mesh=sp)
+    res["steps"] = []
+    for i in range(SP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = float(step(batch, 50 + i, i + 1, 0.0, scheds)["loss"])
+        torch.cuda.synchronize()
+        res["steps"].append(dict(counted(), loss=loss, ms=(time.monotonic() - t0) * 1e3))
+    digest = hashlib.blake2b()
+    for p in model.parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    res["digest"] = digest.hexdigest()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    att._entry = entry
+    return res
+
+
+def phase18_job(root: Path) -> float:
+    """Phase 18's ranks, a background job: two gloo ranks sharing the card
+    (``_phase18_worker``: 18b, 18c, 18d), their results in
+    ``root``/phase18.  Returns their seconds."""
     from zipvoice_tpu_torch.train.dryrun import spawn
 
-    t_phase = time.monotonic()
-    rect = check_rect_kernels(square, card)
     out = root / "phase18"
     out.mkdir()
     here = str(Path(__file__).resolve().parent)  # the workers import this file
     t0 = time.monotonic()
     spawn("chip_smoke:_phase18_worker", SP_RANKS, {"root": str(root), "out": str(out)},
           timeout=600, path=[here])
-    workers_s = time.monotonic() - t0
+    return time.monotonic() - t0
+
+
+def run_phase18(root: Path, card: str, square, bg: Background):
+    """Phase 18 (module docstring): 18a on this process; 18b, 18c and 18d
+    in two gloo ranks sharing the card (``phase18_job``, ``bg``'s), each
+    against one process on the card here."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+
+    t_phase = time.monotonic()
+    rect = check_rect_kernels(square, card)
+    rect_train = check_rect_training_kernels(square, card)
+    rect_s = time.monotonic() - t_phase
+    out = root / "phase18"
+    workers_s = bg.result("18")
     ranks = [json.loads((out / f"phase18-{r}.json").read_text()) for r in range(SP_RANKS)]
 
     # 18b: one process's sample on the card, same request and noise
@@ -4450,24 +5048,33 @@ def run_phase18(root: Path, card: str, square):
           f"{one_s:.2f} s on {card}", flush=True)
     del model, x, ref, y
 
-    # 18c: one process's f32 gradient on the same rows and draws
+    # 18c: one process's f32 gradient on the same rows and draws (18d's
+    # reference too, reproducible)
     model = load_model_dir(str(root), tokenizer_name="simple").model.cuda()
     batch, noise, t = _tp_inputs(cfg)
     inputs = {k: v.cuda() for k, v in batch.items()}
-    loss = zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"],
-                              inputs["features"], inputs["features_lens"], noise.cuda(),
-                              t.cuda(), 9)
-    loss.backward()
+    with _deterministic():
+        loss = zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"],
+                                  inputs["features"], inputs["features_lens"], noise.cuda(),
+                                  t.cuda(), 9)
+        loss.backward()
+    one_grads = {name: p.grad.cpu() for name, p in model.named_parameters()}
+    one_loss = float(loss.detach())
+    model.zero_grad(set_to_none=True)
+    with _RegStats() as stats:  # 18d's statistics in one process
+        zv.compute_fm_loss(model, inputs["tokens"], inputs["tokens_lens"], inputs["features"],
+                           inputs["features_lens"], noise.cuda(), t.cuda(), 9,
+                           schedules=zipvoice_schedules(1000.0, cfg)).backward()
+    one_stats = stats.summary()
     tpg = torch.load(out / "tp_grads.pt")
     groups = {}
-    for name, p in model.named_parameters():
-        g = p.grad.cpu()
+    for name, g in one_grads.items():
         d2, r2 = groups.get(_param_group(name), (0.0, 0.0))
         groups[_param_group(name)] = (d2 + float(((tpg["grads"][name] - g) ** 2).sum()),
                                       r2 + float((g ** 2).sum()))
     errs = {k: (d / max(r, 1e-30)) ** 0.5 for k, (d, r) in groups.items()}
     worst = max(errs.values())
-    loss_err = abs(tpg["loss"] - float(loss.detach())) / abs(float(loss.detach()))
+    loss_err = abs(tpg["loss"] - one_loss) / abs(one_loss)
     del model, inputs
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
@@ -4503,7 +5110,6 @@ def run_phase18(root: Path, card: str, square):
     if ([s["loss"] for s in ranks[0]["tp_steps"]] != [s["loss"] for s in ranks[1]["tp_steps"]]
             or ranks[0]["replicated_digest"] != ranks[1]["replicated_digest"]):
         raise AssertionError("18c: the ranks' losses or replicated parameters differ")
-    seconds = time.monotonic() - t_phase
     print(f"18c tensor-parallel training (full width, tp=2 over {SP_RANKS} gloo ranks sharing "
           f"the card): the f32 step's summed gradient (B=8, T=1024, no regularizers) against "
           f"one process's on the same rows and draws: worst relative L2 a group {worst:.2e} "
@@ -4516,10 +5122,161 @@ def run_phase18(root: Path, card: str, square):
           f"{len(ranks[0]['split'])} shards updated (replicated tensors "
           f"unchanged, their pq zeroed by the pos_emb_skip gate in both steps: "
           f"{ranks[0]['unchanged']}), feed_forward2 shards {ranks[0]['ff_shapes']}, peak "
-          f"{ranks[0]['peak_gib']:.2f} GiB a rank; workers {workers_s:.1f} s; phase 18: "
-          f"{seconds:.1f} s on {card}", flush=True)
-    return {"rect": rect, "ranks": ranks, "sp_err": sp_err, "sp_one_s": one_s,
-            "tp_grad_err": worst, "seconds": seconds}
+          f"{ranks[0]['peak_gib']:.2f} GiB a rank; workers {workers_s:.1f} s on {card}",
+          flush=True)
+    sp_train = check_sp_training(root, out, card, cfg, ranks, one_grads, one_loss, one_stats)
+    seconds = time.monotonic() - t_phase
+    print(f"phase 18: {seconds:.1f} s (18a {rect_s:.1f} s, workers {workers_s:.1f} s) on {card}",
+          flush=True)
+    return {"rect": rect, "rect_train": rect_train, "ranks": ranks, "sp_err": sp_err,
+            "sp_one_s": one_s, "tp_grad_err": worst, "sp_train": sp_train, "seconds": seconds}
+
+
+# 18d's tensors whose gradient cancels by construction: a BiasNorm's 0-d
+# log_scale (sum(g * y) over normalized y) and a downsampling's softmax
+# bias (its entries' gradients sum to zero).  At phase 4's weights they
+# cancel to 1/1500-1/12000 of their terms, so any other f32 order of the
+# sums beneath moves them by 1e-5 relative and more: two runs of one
+# process in the card's default mode differ by up to 1.36e-05 on a
+# log_scale, the SP order reads 1.51e-05 on it and 1.05e-04 on a bias at
+# other draws (tools/sp_gradient_noise.py).  They are held within their
+# groups.
+CANCELLING = (".norm.log_scale", ".downsample.bias")
+
+# 18d's launches a rank's step: every layer as in phase 8 (B1 forward and
+# recompute, B2 in both SelfAttention consumers twice, B3 in the three
+# consumers or B4 once a layer); the fm_decoder's layers on rectangular
+# tiles (a rank's T / 2 rows against all T keys), the text encoder's square
+FM_LAYERS = 16
+
+
+def check_sp_training(root: Path, out: Path, card: str, cfg, ranks, one_grads, one_loss,
+                      one_stats):
+    """18d: the ranks' synced f32 SP gradient against one process's
+    (``one_grads``, 18c's on the same rows and draws; relative L2 a group
+    and a tensor <= 1e-5, the CANCELLING tensors held by their groups
+    alone), the launches, rectangular tiles and collectives of a rank's
+    step pinned; the regularizers' statistics over the seq group
+    (``_RegStats``, f32) equal on both ranks, and each within 1e-5
+    relative of one process's (``one_stats``); SP_TRAIN_STEPS bf16
+    regularized steps against one process's from the same weights with
+    the same seeds (losses within 1e-2 relative), both ranks' parameters
+    bit-identical; the wall of a rank's step beside one process's."""
+    import numpy as np
+    import torch
+
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.schedules import zipvoice_schedules
+    from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
+
+    spg = torch.load(out / "sp_grads.pt")
+    errs = {n: float((spg[n] - g).norm()) / max(float(g.norm()), float(spg[n].norm()), 1e-30)
+            for n, g in one_grads.items()}
+    groups = {}
+    for n, g in one_grads.items():
+        d2, r2 = groups.get(_param_group(n), (0.0, 0.0))
+        groups[_param_group(n)] = (d2 + float(((spg[n] - g) ** 2).sum()),
+                                   r2 + float((g ** 2).sum()))
+    group_errs = {k: (d / max(r, 1e-30)) ** 0.5 for k, (d, r) in groups.items()}
+    worst_group = max(group_errs, key=group_errs.get)
+    held = {n: e for n, e in errs.items() if not n.endswith(CANCELLING)}
+    worst = max(held, key=held.get)
+    cancelling = max((n for n in errs if n not in held), key=errs.get)
+    sp = [r["sp_train"] for r in ranks]
+    loss_err = abs(sp[0]["grad"]["loss"] - one_loss) / abs(one_loss)
+    if not (held[worst] <= 1e-5 and group_errs[worst_group] <= 1e-5 and loss_err <= 1e-5):
+        raise AssertionError(f"18d SP gradient vs one process: worst tensor {worst} "
+                             f"{held[worst]}, worst group {worst_group} "
+                             f"{group_errs[worst_group]}, loss {loss_err}")
+    # a step without the regularizers: B4 once a layer, B1 twice, B2 four
+    # times; collectives: a layer's four all-gathers (k, three values) and
+    # two halos, each again in its recompute, their adjoints in the
+    # backward (four all-reduces, two halos); a stack's key-mask gather; the
+    # text condition's slices gathered in the backward; the loss normalizer
+    # and the gradient sum
+    stacks = len(cfg.fm_decoder_num_layers)
+    want_grad = {"launches": {"B1": PER_STEP["B1"], "B2": PER_STEP["B2"], "B3": 0,
+                              "B4": PER_STEP["B4"]}, "rect": {"B3": 0, "B4": FM_LAYERS},
+                 "collectives": {"all_gather": 8 * FM_LAYERS + stacks + 1,
+                                 "all_reduce": 4 * FM_LAYERS + 2, "halo": 6 * FM_LAYERS}}
+    want_step = {"launches": {"B1": PER_STEP["B1"], "B2": PER_STEP["B2"], "B3": PER_STEP["B3"],
+                              "B4": 0}, "rect": {"B3": 3 * FM_LAYERS, "B4": 0}}
+    for r, res in enumerate(sp):
+        got = {"launches": {k: res["grad"]["launches"].get(k, 0) for k in ("B1", "B2", "B3",
+                                                                          "B4")},
+               "rect": res["grad"]["rect"], "collectives": res["grad"]["collectives"]}
+        if got != want_grad:
+            raise AssertionError(f"18d rank {r}: the f32 gradient's {got}, want {want_grad}")
+        for st in res["steps"]:
+            got = {"launches": {k: st["launches"].get(k, 0) for k in ("B1", "B2", "B3", "B4")},
+                   "rect": st["rect"]}
+            if got != want_step or not np.isfinite(st["loss"]):
+                raise AssertionError(f"18d rank {r}: a step's {got} (loss {st['loss']}), "
+                                     f"want {want_step}")
+    if ([s["loss"] for s in sp[0]["steps"]] != [s["loss"] for s in sp[1]["steps"]]
+            or sp[0]["digest"] != sp[1]["digest"]):
+        raise AssertionError("18d: the ranks' losses or parameters differ")
+    # the statistics a call: the same calls in both runs, their backward
+    # order not compared (sorted; two near-equal values that swap stay
+    # within the tolerance); a rank's own would differ by percents
+    stat_errs = {}
+    for kind, one in one_stats.items():
+        got = sp[0]["reg_stats"][kind]
+        if not one or len(got) != len(one) or got != sp[1]["reg_stats"][kind]:
+            raise AssertionError(f"18d {kind} statistics: {len(got)} calls a rank (equal on "
+                                 f"both: {got == sp[1]['reg_stats'][kind]}), {len(one)} in one "
+                                 f"process")
+        stat_errs[kind] = max(abs(a - b) / abs(b) for a, b in zip(sorted(got), sorted(one)))
+    if not max(stat_errs.values()) <= 1e-5:
+        raise AssertionError(f"18d regularizer statistics vs one process: {stat_errs}")
+
+    # one process's bf16 steps from the same weights, rows and seeds
+    model = load_model_dir(str(root), tokenizer_name="simple").model.cuda()
+    step = make_train_step(model, ScaledAdam(model.named_parameters()),
+                           TrainConfig(compute_dtype="bfloat16"))
+    batch, _, _ = _tp_inputs(cfg)
+    scheds = zipvoice_schedules(1000.0, cfg)
+    one = []
+    for i in range(SP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = float(step(batch, 50 + i, i + 1, 0.0, scheds)["loss"])
+        torch.cuda.synchronize()
+        one.append({"loss": loss, "ms": (time.monotonic() - t0) * 1e3})
+    del model, step
+    torch.cuda.empty_cache()
+    step_errs = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(sp[0]["steps"], one)]
+    if not max(step_errs) <= 1e-2:
+        raise AssertionError(f"18d bf16 steps vs one process: losses "
+                             f"{[s['loss'] for s in sp[0]['steps']]} vs "
+                             f"{[s['loss'] for s in one]}")
+    print(f"18d sequence-parallel training (full width, dp=1 x sp={SP_RANKS} over gloo ranks "
+          f"sharing the card, 18c's rows B=8 T=1024): the f32 step's synced gradient (no "
+          f"regularizers, TF32 off, deterministic algorithms) against one process's: largest "
+          f"relative L2 a group {group_errs[worst_group]:.3g} ({worst_group}) and a tensor "
+          f"{held[worst]:.3g} ({worst}; tol 1e-5 each), of a cancelling tensor "
+          f"{errs[cancelling]:.3g} ({cancelling}; held by its group), loss {loss_err:.2e}; "
+          f"launches "
+          f"{sp[0]['grad']['launches']}, rectangular {sp[0]['grad']['rect']}, collectives "
+          f"{sp[0]['grad']['collectives']}, wall {sp[0]['grad']['wall_s']:.2f} s; every "
+          f"balancer's and whitening's statistics (f32, gates open) equal on both ranks and "
+          f"within {stat_errs['balancer']:.2e} / {stat_errs['whiten']:.2e} relative of one "
+          f"process's ({len(one_stats['balancer'])} balancers, {len(one_stats['whiten'])} "
+          f"whitenings; tol 1e-5); "
+          f"{SP_TRAIN_STEPS} bf16 steps with the regularizers: losses "
+          f"{[round(s['loss'], 5) for s in sp[0]['steps']]} against one process's "
+          f"{[round(s['loss'], 5) for s in one]} (relative {max(step_errs):.2e}, tol 1e-2), "
+          f"launches a step {sp[0]['steps'][-1]['launches']}, rectangular "
+          f"{sp[0]['steps'][-1]['rect']}, collectives {sp[0]['steps'][-1]['collectives']}, "
+          f"both ranks' parameters bit-identical; step ms a rank "
+          f"{[round(s['ms'], 1) for s in sp[0]['steps']]} (rank 1 "
+          f"{[round(s['ms'], 1) for s in sp[1]['steps']]}) against one process's "
+          f"{[round(s['ms'], 1) for s in one]}; peak {sp[0]['peak_gib']:.2f} GiB a rank on "
+          f"{card}", flush=True)
+    return {"grad_err": held[worst], "worst": worst, "group_err": group_errs[worst_group],
+            "cancelling_err": errs[cancelling], "one_steps": one, "ranks": sp,
+            "step_err": max(step_errs), "stat_errs": stat_errs}
 
 
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
@@ -4559,7 +5316,11 @@ def main() -> int:
 
     t0 = time.monotonic()
     logs = build.build_all()
-    print(f"kernel build: {time.monotonic() - t0:.1f} s for {sorted(logs)}", flush=True)
+    build_s = time.monotonic() - t0
+    print(f"kernel build: {build_s:.1f} s for {sorted(logs)}", flush=True)
+    print("kernel build seconds a process: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(build.SECONDS.items(), key=lambda kv: -kv[1])),
+        flush=True)
     for name, log in logs.items():
         # every entry point of the redesigned B1-B9 with its registers,
         # shared memory and spills; the other kernels' register lines
@@ -4579,7 +5340,7 @@ def main() -> int:
 
     build.BUILD.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="smoke-", dir=build.BUILD))
-    worker = None
+    worker = p13 = None
     try:
         t0 = time.monotonic()
         n_params = make_assets(root)
@@ -4614,6 +5375,12 @@ def main() -> int:
         del res
         _, noreg_busy, noreg_dev = profile_train_step(noreg_res, manifest, card, False)
         del noreg_res
+        print(f"phases 1-9: {time.monotonic() - t_start:.1f} s on {card}", flush=True)
+        # the runs of other processes that phases 14 and 18 check start
+        # here, one after another, beside phases 10-17
+        bg = Background({"14a": lambda: distributed_cli_job(root, manifest),
+                         "14b": lambda: two_ranks_job(root, manifest),
+                         "18": lambda: phase18_job(root)})
         check_checkpoint_serves(root, exp, card)
         server_launches, serve_res = serve_on_card(root, card)
         gc.collect()
@@ -4621,10 +5388,9 @@ def main() -> int:
         variants = run_variants(root, card)
         gc.collect()
         torch.cuda.empty_cache()
-        bigvgan, recipes, variant_grads = run_phase13(root, card)
-        gc.collect()
-        torch.cuda.empty_cache()
-        ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms)
+        print(f"phases 1-12: {time.monotonic() - t_start:.1f} s on {card}", flush=True)
+        p13 = start_phase13(root, card)
+        ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms, bg)
         gc.collect()
         torch.cuda.empty_cache()
         p15 = run_phase15(root, manifest, card, graph_res["bfloat16"]["rtf"]["replay"],
@@ -4635,11 +5401,13 @@ def main() -> int:
         p17 = run_phase17(root, card)
         gc.collect()
         torch.cuda.empty_cache()
-        p18 = run_phase18(root, card, results)
+        bigvgan, recipes, variant_grads = finish_phase13(p13, root)
+        p18 = run_phase18(root, card, results, bg)
     finally:
-        if worker is not None and worker[0].poll() is None:
-            worker[0].kill()
-            worker[0].wait()
+        for proc in (worker and worker[0], p13 and p13[0]):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
 
     n_req = len(TEXTS)
@@ -4682,7 +5450,7 @@ def main() -> int:
                       launches_per_dialog_step=recipes["dialog"]["launches"]["B3"],
                       launches_per_stereo_step=recipes["stereo"]["launches"]["B3"],
                       launches_per_prep_train_step=p16["launches"]["B3"],
-                      launches_per_tp_step=p18["ranks"][0]["tp_steps"][-1]["launches"]["B3"],
+                      **_phase18_extras(p18, "B3"),
                       **_phase14_launches(ddp, two_ranks, policies, "B3")),
         _kernel_entry(results, "B4", "rel_attention_ds", "zipvoice_tpu_torch/csrc/rel_ds.cu",
                       "zipvoice_tpu/ops/attention.py:209", noreg_launches["B4"],
@@ -4690,7 +5458,8 @@ def main() -> int:
                       launches_per_train_step=noreg_step["B4"],
                       launches_per_distill_step=recipes["distill stage 1"]["launches"]["B4"],
                       launches_per_two_rank_step=two_ranks["ranks"][0]["no-regularizers"][
-                          "launches"]["B4"]),
+                          "launches"]["B4"],
+                      **_phase18_extras(p18, "B4")),
         _kernel_entry(results, "B5", "rel_attention_apply",
                       "zipvoice_tpu_torch/csrc/rel_apply.cu",
                       "zipvoice_tpu/ops/attention.py:643", apply_launches["B5"],
@@ -4795,7 +5564,7 @@ def main() -> int:
         + "; export: " + "; ".join(
             f"{name} {e['total_s']:.1f} s, sampler_fused {e['mb']['sampler_fused']:.1f} MB"
             for name, e in p15["exports"].items())
-        + f"; exported rtf at {N_STEP} steps fused {ex['fused']['rtf']:.5f}, host loop "
+        + f"; exported rtf at {EXPORT_STEPS} steps fused {ex['fused']['rtf']:.5f}, host loop "
         f"{ex['host-loop']['rtf']:.5f}; MFU request {mfu['request_mfu']:.4f}, train step "
         f"{mfu['step_mfu']:.4f} on {card}", flush=True)
     print(f"data preparation: stage 2 step {p16['segment_step_ms']:.1f} ms on the segment rows "
@@ -4806,11 +5575,17 @@ def main() -> int:
           f"{p17['ecapa_ms']:.2f} ms on the card ({p17['ecapa_cpu_ms']:.1f} ms on the CPU); "
           f"phases 16-17 {p16['seconds'] + p17['seconds']:.1f} s; total "
           f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
+    spt = p18["sp_train"]
     print(f"parallelism: 18b sp_sample over {SP_RANKS} ranks relative L2 {p18['sp_err']:.3g} "
           f"against one process, wall {p18['ranks'][0]['sp']['wall_s']:.2f} s against "
           f"{p18['sp_one_s']:.2f} s; 18c tp=2 gradient worst relative L2 a group "
-          f"{p18['tp_grad_err']:.2e}; phase 18 {p18['seconds']:.1f} s; total "
-          f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
+          f"{p18['tp_grad_err']:.2e}; 18d sp=2 training gradient largest relative L2 a "
+          f"group {spt['group_err']:.3g}, a tensor {spt['grad_err']:.3g} (a cancelling one "
+          f"{spt['cancelling_err']:.3g}), bf16 step ms a rank "
+          f"{[round(x['ms'], 1) for x in spt['ranks'][0]['steps']]} against one process's "
+          f"{[round(x['ms'], 1) for x in spt['one_steps']]}; kernel build {build_s:.1f} s, "
+          f"phase 18 {p18['seconds']:.1f} s; total {time.monotonic() - t_start:.1f} s on "
+          f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4823,4 +5598,6 @@ if __name__ == "__main__":
         sys.exit(_ddp_worker(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--export-worker"]:  # 15b, started by main
         sys.exit(_export_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase13-worker"]:  # phase 13, started by main
+        sys.exit(_phase13_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -236,6 +236,71 @@ def test_rel_ds_kernel_one_hot_cotangent(gen, b, h, t):
     assert float((ds - want).abs().max()) <= 2 ** -24 * float(want.abs().max())
 
 
+# rectangular tiles of B3 and B4 (Tq, Tk, r0): query rows [r0, r0 + Tq) of a
+# Tk-frame problem against every key, pe the window pe[Tk - r0 - Tq : 2 Tk
+# - 1 - r0]; the sequence-parallel training step's stack-0 halves (B=8 at
+# T=1024), a ragged tile, a text-encoder-sized one and a single row
+_RECT_CASES = [(512, 1024, 0), (512, 1024, 512), (100, 577, 333), (20, 40, 20), (1, 17, 5)]
+
+
+def _rect(gen, tq, tk, r0, dtype, b=2, h=4, vd=12):
+    """A tile's inputs: q, pq, g of its rows; k, v, the key mask of every
+    key; pe's window; and the probabilities' cotangent (B, H, Tq, Tk)."""
+    q, k, pq, pe, mask = _inputs(gen, tk, dtype, b=b, h=h)
+    v = torch.randn((b, tk, h, vd), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, tq, h, vd), generator=gen, device="cuda").to(dtype)
+    gp = torch.randn((b, h, tq, tk), generator=gen, device="cuda").to(dtype)
+    rows = slice(r0, r0 + tq)
+    return (q[:, rows].contiguous(), k, pq[:, rows].contiguous(),
+            pe[tk - r0 - tq: 2 * tk - 1 - r0].contiguous(), mask, v, g, gp)
+
+
+@pytest.mark.parametrize("tq,tk,r0", _RECT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pen", [0.0, 1e-2])
+def test_rel_ds_kernel_rectangular_matches_plain(gen, tq, tk, r0, dtype, pen):
+    """B4 on a rectangular tile against its plain version (the square
+    tolerances), and with a one-hot cotangent against B1's rectangular
+    probabilities (B4 takes B1's scores and softmax on the same tile)."""
+    q, k, pq, pe, mask, _, _, gp = _rect(gen, tq, tk, r0, dtype)
+    n = att.rel_attention_ds.launches
+    ds = att.rel_attention_ds(q, k, pq, pe, mask, gp, pen, 25.0)
+    ref = att.rel_attention_ds_plain(q, k, pq, pe, mask, gp, pen, 25.0)
+    torch.cuda.synchronize()
+    assert att.rel_attention_ds.launches == n + 1
+    assert ds.shape == (2, 4, tq, tk) and _rel(ds, ref) <= TOL[dtype]
+    if dtype == torch.float32 and not pen:
+        j = torch.randint(0, tk, (2, 4, tq, 1), generator=gen, device="cuda")
+        hot = torch.zeros((2, 4, tq, tk), device="cuda").scatter_(-1, j, 1.0)
+        p = att.rel_attention_probs(q, k, pq, pe, mask)
+        want = p * (hot - torch.gather(p, -1, j))
+        got = att.rel_attention_ds(q, k, pq, pe, mask, hot)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 2 ** -24 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("tq,tk,r0", _RECT_CASES)
+@pytest.mark.parametrize("h,vd", [(4, 12), (1, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pen,gate", [(0.0, False), (1e-2, False), (0.0, True)])
+def test_rel_apply_bwd_kernel_rectangular_matches_plain(gen, tq, tk, r0, h, vd, dtype, pen,
+                                                        gate):
+    """B3 on a rectangular tile: dq, dpq over the Tq rows, dk, dv over the
+    Tk keys and dpe over the Tq + Tk - 1 band rows, each within 1e-4 of its
+    max of the plain version's (the square tolerance)."""
+    q, k, pq, pe, mask, v, g, _ = _rect(gen, tq, tk, r0, dtype, h=h, vd=vd)
+    s = att.rel_scores_plain(q, k, pq, pe).abs().flatten().sort(descending=True).values
+    limit = float(s[min(len(s) - 1, 5)]) - 1e-3 if pen else 25.0
+    n = att.rel_attention_consume_bwd.launches
+    outs = att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g, pen, limit, gate)
+    refs = att.rel_attention_consume_bwd_plain(q, k, pq, pe, mask, v, g, pen, limit, gate)
+    torch.cuda.synchronize()
+    assert att.rel_attention_consume_bwd.launches == n + 1
+    assert outs[3].shape == (tq + tk - 1, h, 4) and outs[1].shape == (2, tk, h, 32)
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape and _rel(o, r) <= 1e-4
+
+
 def _log_mel_input(gen, b, samples, n_fft, zero_rows=0):
     """(b, samples) audio, its last zero_rows rows zero (a padded batch),
     reflect-padded by n_fft/2 on both sides as the fbank collator pads it."""

@@ -118,6 +118,20 @@ def test_rel_ds_shares_b1s_kernel_body():
     assert '#include "rel_probs.cuh"' in src and "__global__" not in src
 
 
+def test_rel_apply_bwd_builds_its_two_halves_from_one_header():
+    """B3's kernels live in one header, built for f32 inputs with the entry
+    point and for bf16 inputs in a second source of the same library, so
+    that nvcc compiles the halves side by side; neither source defines a
+    kernel of its own."""
+    lib = att._SIGNATURES["zv_rel_apply_bwd"][0]
+    assert build.sources(lib) == ("rel_apply_bwd", "rel_apply_bwd_bf16")
+    for src in build.sources(lib):
+        text = (build.CSRC / f"{src}.cu").read_text()
+        assert '#include "rel_apply_bwd.cuh"' in text and "__global__" not in text
+    assert "launch_in<__nv_bfloat16>" in (build.CSRC / "rel_apply_bwd_bf16.cu").read_text()
+    assert "launch_in<float>" in (build.CSRC / "rel_apply_bwd.cu").read_text()
+
+
 @pytest.fixture
 def fake_tree(tmp_path, monkeypatch):
     """A csrc/ of two libraries, "a" of sources a.cu and b.cu and "c" of

@@ -14,8 +14,10 @@ fm_decoder's frame axis over a seq group of gloo processes,
   with each rank's Tq = T / n rows against all Tk = T keys;
 * the refusals: a frame count not divisible by n x the largest
   downsampling factor, a stack whose rank holds fewer frames than its
-  convolution's halo, the fused eval flags, and gather_frames / halo under
-  autograd.
+  convolution's halo, the fused eval flags;
+* the collectives' adjoints (gather_frames, halo, scatter_frames) and the
+  balancer's and whitening's seq-summed statistics over two gloo ranks
+  under autograd, against the whole-sequence ops in one process.
 """
 
 import json
@@ -177,15 +179,64 @@ def test_sp_refuses_the_fused_eval_path(flag):
         getattr(tzf, flag)(False)
 
 
-def test_sp_collectives_refuse_autograd():
-    """gather_frames and halo have no backward yet: under grad mode they
-    raise instead of giving gradients that skip the other ranks."""
-    x = torch.zeros(2, 8, 4, requires_grad=True)
+def test_sp_collectives_refuse_autograd(tmp_path):
+    """Named for the refusal it replaced: gather_frames, halo and
+    scatter_frames now have their adjoints as their backwards.  Over two
+    gloo ranks under autograd (``tests/torch_sp_worker.adjoints``), each
+    rank's input gradient of the sum of every rank's loss equals the
+    gradient of the whole-sequence op in one process: a concatenation, the
+    zero-padded sequence's windows, a slice; the balancer's and the
+    whitening's backwards on a (B, T, C) tensor split along T (their
+    statistics over the seq group) equal theirs on the whole tensor, within
+    1e-6 (channel statistics away from the balancer's limits).  A rank's
+    frames must still cover the halo."""
+    import torch_sp_worker as w
+    from zipvoice_tpu_torch.nn import regularizers as treg
+
+    dryrun.spawn("torch_sp_worker:adjoints", 2, {"out": str(tmp_path)}, timeout=120,
+                 path=[str(TESTS)])
+    ranks = [torch.load(tmp_path / f"adjoints-{r}.pt") for r in range(2)]
+    a = w.adjoint_inputs(2)
+    t = w.ADJ_T
+
+    def whole(x, fn):
+        x = x.clone().requires_grad_(True)
+        fn(x).backward()
+        return x.grad
+
+    pad = (0, 0, w.LEFT, w.RIGHT)
+    ref = {
+        "gather": whole(a["x"], lambda x: sum((x * wr).sum() for wr in a["w_gather"])),
+        "halo": whole(a["x"], lambda x: sum(
+            (torch.nn.functional.pad(x, pad)[:, r * t: r * t + w.LEFT + t + w.RIGHT] * wr).sum()
+            for r, wr in enumerate(a["w_halo"]))),
+        "scatter": whole(a["x"], lambda x: sum(
+            (x[:, r * t:(r + 1) * t] * wr).sum() for r, wr in enumerate(a["w_scatter"]))),
+        "balancer": whole(a["bal"], lambda x: (treg.balancer(x, True, **w.BALANCER)
+                                               * a["g"]).sum()),
+        "whiten": whole(a["white"], lambda x: (treg.whiten(x, True, **w.WHITEN)
+                                               * a["g"]).sum()),
+    }
+    assert float((ref["balancer"] - a["g"]).abs().max()) > 1e-3  # the balancer acts
+    assert float((ref["whiten"] - a["g"]).abs().max()) > 1e-3  # the whitening acts
+    for r, res in enumerate(ranks):
+        mine = slice(r * t, (r + 1) * t)
+        for name, want in ref.items():
+            got = res["grads"][name]
+            want = want if name == "scatter" else want[:, mine]
+            err = float((got - want).abs().max())
+            assert err <= 1e-6 * max(1.0, float(want.abs().max())), (r, name, err)
+        assert res["counts"]["gather"] == {"all_gather": 1, "all_reduce": 1, "halo": 0}
+        assert res["counts"]["halo"] == {"all_gather": 0, "all_reduce": 0, "halo": 2}
+        assert res["counts"]["scatter"] == {"all_gather": 1, "all_reduce": 0, "halo": 0}
+        # the balancer: the (B, T) sums, then the RMS of its gradient; the
+        # whitening: the mean, the covariance, then the norms
+        assert res["counts"]["balancer"] == {"all_gather": 0, "all_reduce": 2, "halo": 0}
+        assert res["counts"]["whiten"] == {"all_gather": 0, "all_reduce": 3, "halo": 0}
+
     seq = _fake_seq_mesh(2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        mesh.gather_frames(x, seq)
-    with pytest.raises(RuntimeError, match="no backward"):
-        mesh.halo(x, 2, 2, seq)
+    with pytest.raises(ValueError, match="cover the halo"):
+        mesh.halo(torch.zeros(2, 1, 4), 2, 2, seq)
     with torch.no_grad():
         with pytest.raises(ValueError, match="cover the halo"):
             mesh.halo(torch.zeros(2, 1, 4), 2, 2, seq)

@@ -132,3 +132,86 @@ def test_log_mel_plain_matches_jax_kernel():
     assert fused_log_mel.launches == n_launch
     assert ours.shape == ref.shape == (2, 128, 100)
     np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+def _square_and_tiles(t, tq, seed, vd=12):
+    """Square inputs (B=2, H=2, T=t, one row's keys padded) in torch, and
+    the (r0, rows, pe window) of each Tq-row tile of them: rows [r0, r0 +
+    Tq) against every key with pe[t - r0 - Tq : 2t - 1 - r0]."""
+    (q, k, pq, pe, v), mask = _inputs(t, seed, vd=vd)
+    g = np.random.default_rng(seed + 1).standard_normal(v.shape).astype(np.float32)
+    gp = np.random.default_rng(seed + 2).standard_normal((2, 2, t, t)).astype(np.float32)
+    xs = {n: torch.from_numpy(a) for n, a in zip(("q", "k", "pq", "pe", "v", "g", "gp"),
+                                                  (q, k, pq, pe, v, g, gp))}
+    xs["mask"] = torch.from_numpy(mask)
+    tiles = [(r0, slice(r0, r0 + tq), slice(t - r0 - tq, 2 * t - 1 - r0))
+             for r0 in range(0, t, tq)]
+    return xs, tiles
+
+
+def _close(a, ref, what):
+    """Within 1e-6 of ref, relative to max(1, max |ref|): the tile's f32
+    sums are the square's in another blocking."""
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((a - ref).abs().max())
+    assert err <= 1e-6 * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("tq", [8, 12])
+@pytest.mark.parametrize("pen", [0.0, PEN])
+def test_rel_ds_plain_tile_is_the_square_rows(tq, pen):
+    """B4's plain version on a (Tq, Tk = T, r0) tile: the square score
+    cotangent's rows [r0, r0 + Tq)."""
+    x, tiles = _square_and_tiles(24, tq, seed=5)
+    square = ta.rel_attention_ds_plain(x["q"], x["k"], x["pq"], x["pe"], x["mask"], x["gp"],
+                                       pen, LIMIT)
+    for r0, rows, win in tiles:
+        tile = ta.rel_attention_ds_plain(x["q"][:, rows], x["k"], x["pq"][:, rows],
+                                         x["pe"][win], x["mask"], x["gp"][:, :, rows], pen,
+                                         LIMIT)
+        assert tile.shape == (2, 2, tq, 24)
+        _close(tile, square[:, :, rows], f"ds r0={r0}")
+
+
+@pytest.mark.parametrize("tq", [8, 12])
+@pytest.mark.parametrize("pen,const_gate", [(0.0, False), (PEN, False), (0.0, True)])
+def test_consume_bwd_plain_tiles_sum_to_the_square(tq, pen, const_gate):
+    """B3's plain version on the (Tq, Tk = T, r0) tiles of a square
+    problem: dq and dpq are the square's rows [r0, r0 + Tq); dk, dv and dpe
+    (over Tq + Tk - 1 band rows, placed at the tile's pe window) summed over
+    the tiles are the square's."""
+    t = 24
+    x, tiles = _square_and_tiles(t, tq, seed=7)
+    names = ("dq", "dk", "dpq", "dpe", "dv")
+    square = dict(zip(names, ta.rel_attention_consume_bwd_plain(
+        x["q"], x["k"], x["pq"], x["pe"], x["mask"], x["v"], x["g"], pen, LIMIT, const_gate)))
+    summed = {n: torch.zeros_like(square[n]) for n in ("dk", "dpe", "dv")}
+    for r0, rows, win in tiles:
+        out = dict(zip(names, ta.rel_attention_consume_bwd_plain(
+            x["q"][:, rows], x["k"], x["pq"][:, rows], x["pe"][win], x["mask"], x["v"],
+            x["g"][:, rows], pen, LIMIT, const_gate)))
+        assert out["dpe"].shape == (tq + t - 1, 2, 4) and out["dk"].shape == (2, t, 2, 8)
+        _close(out["dq"], square["dq"][:, rows], f"dq r0={r0}")
+        _close(out["dpq"], square["dpq"][:, rows], f"dpq r0={r0}")
+        summed["dk"] += out["dk"]
+        summed["dv"] += out["dv"]
+        summed["dpe"][win] += out["dpe"]
+    for n, v in summed.items():
+        _close(v, square[n], n)
+
+
+@pytest.mark.parametrize("tq,tk", [(1, 5), (3, 7), (6, 6), (4, 2), (5, 16)])
+def test_unshear_is_the_adjoint_of_the_rectangular_rel_shift(tq, tk):
+    """<rel_shift(x), y> = <x, unshear(y)> for x (B, H, Tq, Tq + Tk - 1)
+    and y (B, H, Tq, Tk), in f64; unshear's band rows outside the shift's
+    reach are zero."""
+    r = np.random.default_rng(tq * 31 + tk)
+    x = torch.from_numpy(r.standard_normal((2, 3, tq, tq + tk - 1)))
+    y = torch.from_numpy(r.standard_normal((2, 3, tq, tk)))
+    lhs = float((ta.rel_shift(x, tq, tk) * y).sum())
+    assert ta.unshear(y).shape == x.shape
+    assert lhs == pytest.approx(float((x * ta.unshear(y)).sum()), rel=1e-12, abs=1e-12)
+    band = ta.unshear(torch.ones(1, 1, tq, tk))[0, 0]
+    for i in range(tq):
+        assert band[i].tolist() == [1.0 if 0 <= n - (tq - 1) + i < tk else 0.0
+                                    for n in range(tq + tk - 1)]

@@ -12,7 +12,13 @@ NCCL, at full width (123M, chip_smoke.py's phase 4 weights):
   regularizers, its gathered parameters against a dp = 2 run's (a second
   torchrun over two cards, the same rows and seed; atol 1e-4, JAX's TP
   tolerance), then 2 bf16 steps with the regularizers; after each step the
-  shards of the two data ranks of every model index bit-identical.
+  shards of the two data ranks of every model index bit-identical;
+* sequence-parallel training, dp = 2 x sp = 2
+  (``parallel/mesh.make_dp_sp_mesh(2, 2)``) on the same rows, each data
+  row's frames over two cards: one f32 step without the regularizers,
+  against the same dp = 2 run (JAX's test_sp_train_step_matches_dp: loss
+  within 1e-5, parameters within atol 1e-4), every rank's parameters
+  bit-identical.
 
     python3 tools/parallel_cards.py
 
@@ -90,9 +96,45 @@ def _steps(root: Path, out: Path, mesh_shape, dev, regularized_steps: int):
     return res
 
 
+def _sp_step(root: Path, out: Path, dev):
+    """One f32 step without the regularizers on dp = 2 x sp = 2 (the same
+    rows and seed as _steps' first), this rank's parameter digest after it;
+    rank 0 saves the parameters (``sp_params.pt``)."""
+    import torch
+
+    import chip_smoke as cs
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+    from zipvoice_tpu_torch.parallel import mesh
+    from zipvoice_tpu_torch.train.scaled_adam import ScaledAdam
+    from zipvoice_tpu_torch.train.step import TrainConfig, make_train_step
+
+    m = mesh.make_dp_sp_mesh(2, 2)
+    model = load_model_dir(str(root), tokenizer_name="simple").model.to(dev)
+    batch = cs._policy_batch(model.cfg)
+    b = batch["tokens"].shape[0] // 2
+    d = m.index["data"]
+    rows = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}  # whole rows, all T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step = make_train_step(model, ScaledAdam(model.named_parameters()),
+                           TrainConfig(compute_dtype="float32"), mesh=m)
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    loss = float(step(rows, 40, 1, 0.0, None)["loss"])
+    torch.cuda.synchronize()
+    res = {"index": dict(m.index), "loss": loss, "ms": (time.monotonic() - t0) * 1e3,
+           "collectives": dict(mesh.COUNTS), "digest": _digest(dict(model.named_parameters()))}
+    if mesh.rank() == 0:
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   out / "sp_params.pt")
+    return res
+
+
 def _rank(root: str, out: str, mode: str) -> int:
     """A rank under torchrun: ``sp_tp`` (sequence-parallel sampler, then
-    dp = 2 x tp = 2) or ``dp`` (the dp = 2 reference step)."""
+    dp = 2 x tp = 2, then dp = 2 x sp = 2 training) or ``dp`` (the dp = 2
+    reference step)."""
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -136,6 +178,8 @@ def _rank(root: str, out: str, mode: str) -> int:
         del model, x, y
         torch.cuda.empty_cache()
         res["tp"] = _steps(root, out, (n // 2, 2), dev, 2)
+        torch.cuda.empty_cache()
+        res["sp_train"] = _sp_step(root, out, dev)
     else:
         res["tp"] = _steps(root, out, (n, 1), dev, 0)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -214,8 +258,23 @@ def main() -> int:
           f"across the data ranks after every step: {same}; step ms rank 0 "
           f"{[round(s['ms'], 1) for s in ranks[0]['tp']['steps']]} (dp=2's f32 step "
           f"{dp_ranks[0]['tp']['steps'][0]['ms']:.1f}); collectives a bf16 step "
-          f"{ranks[0]['tp']['steps'][-1]['collectives']}; peak "
-          f"{max(r['peak_gib'] for r in ranks):.2f} GiB on {card}", flush=True)
+          f"{ranks[0]['tp']['steps'][-1]['collectives']}; a rank's peak over "
+          f"the run {max(r['peak_gib'] for r in ranks):.2f} GiB on {card}", flush=True)
+
+    st = [r["sp_train"] for r in ranks]
+    sp = torch.load(out_sp / "sp_params.pt")
+    worst = max(float((sp[k] - v).abs().max()) for k, v in dp.items())
+    dp_step = dp_ranks[0]["tp"]["steps"][0]
+    loss_diff = abs(st[0]["loss"] - dp_step["loss"])
+    same = len({r["digest"] for r in st}) == 1
+    ok &= same and worst <= 1e-4 and loss_diff <= 1e-5
+    print(f"dp=2 x sp=2 over {CARDS} cards (NCCL, make_dp_sp_mesh): the f32 step (no "
+          f"regularizers, TF32 off) loss {st[0]['loss']:.7f} against dp=2's "
+          f"{dp_step['loss']:.7f} (|diff| {loss_diff:.3g}, tol 1e-5), parameters max |diff| "
+          f"against dp=2's {worst:.3g} (tol 1e-4); every rank's parameters bit-identical: "
+          f"{same}; step ms {[round(r['ms'], 1) for r in st]} against dp=2's "
+          f"{dp_step['ms']:.1f}; collectives a rank {st[0]['collectives']} on {card}",
+          flush=True)
     return 0 if ok else 1
 
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Device times of the port's rel-position attention kernels (B1, B2, B4,
-B5, B6, B7) and of the log-mel kernel (B8) on one NVIDIA card, at the shapes
+"""Device times of the port's rel-position attention kernels (B1-B7) and of
+the log-mel kernel (B8) on one NVIDIA card, at the shapes
 and with the timing of chip_smoke.py, for comparing two checkouts of this
 repository on one card in one run.
 
-    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B2,B5,B6,B7,B8]
+    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B2,B3,B4,B5,B6,B7,B8]
                                         [--tag NAME] [--ptxas FILE] [--sass FILE]
     python3 tools/time_rel_attention.py [--tree DIR] --full-build
     python3 tools/time_rel_attention.py [--tree DIR] --crossover
@@ -17,7 +17,9 @@ B2 at the same cases (vd 12) on B1's probabilities,
 B6 and B7 at its phase-3c cases (T also 1152 and 1408; B7 at C=384, 144 at
 T=40), B5 at its APPLY_CASES without the const gate, B4 without the penalty
 at phase 3b's H=4 training cases (B=8, T 1024/512/256/288/577/120) and B1
-at the same shapes beside it; f32 and bf16 each; B8 at phase 3b's
+at the same shapes beside it, B3 without the penalty and the const gate at
+every one of phase 3b's training cases (H=4 with vd 12; H=1 with vd 384
+at T=1024 and 144 at T=120); f32 and bf16 each; B8 at phase 3b's
 LOG_MEL_CASES (B=8, f32), with its plain version and the same function
 through torch.stft beside it.  --ptxas writes the
 -Xptxas -v lines of the libraries it built to FILE, and --sass their
@@ -52,7 +54,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 
 # the C entry point of each attention kernel, whose library the run builds
-SYMBOLS = {"B1": "zv_rel_probs", "B2": "zv_probs_apply", "B4": "zv_rel_ds",
+SYMBOLS = {"B1": "zv_rel_probs", "B2": "zv_probs_apply", "B3": "zv_rel_apply_bwd",
+           "B4": "zv_rel_ds",
            "B5": "zv_rel_apply",
            "B6": "zv_rel_probs_consume", "B7": "zv_rel_head0_consume"}
 # the library of each other kernel
@@ -205,6 +208,12 @@ def main() -> int:
                 record(f"B1 B={b} T={t} {str(dtype)[6:]}",
                        lambda: att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=dtype))
                 del gp
+    if "B3" in kernels:
+        for _, b, h, t, vd in cs.TRAIN_ATTN_CASES:
+            for dtype in dtypes:
+                q, k, pq, pe, mask, v, g = cs._rel_inputs(gen, b, h, t, vd, dtype, scale=1.5)
+                record(f"B3 B={b} H={h} T={t} vd={vd} {str(dtype)[6:]}",
+                       lambda: att.rel_attention_consume_bwd(q, k, pq, pe, mask, v, g))
     if {"B1", "B2"} & set(kernels):
         for t, _ in [(1024, 0), (512, 0), (256, 0), (288, 0), (577, 0), (40, 0)]:
             for dtype in dtypes:

@@ -18,7 +18,8 @@
 // the square case Tq = T is the model's; a rectangular tile (Tq < T) is a
 // block of query rows against every key, its pe the window of the square
 // pe that those rows touch (the sequence-parallel sampler's), so the kernel
-// needs no row offset.  B4 and B6 run at Tq = T.
+// needs no row offset.  B4 takes the same tiles (the sequence-parallel
+// training step's); B6 runs at Tq = T.
 //
 // B6 replaces `rel_attention_probs_consume` (body `_probs_consume_kernel`):
 // it writes the same probabilities and contracts them, as rounded to the

@@ -20,6 +20,7 @@ torch-layout state_dicts: nn.Linear weights are (out, in).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -28,8 +29,8 @@ from torch import nn
 
 from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.models import zipvoice as zv
-from zipvoice_tpu_torch.nn.zipformer import TrainCtx, TTSZipformer
-from zipvoice_tpu_torch.parallel.mesh import fold_rank, global_sum
+from zipvoice_tpu_torch.nn.zipformer import TrainCtx, TTSZipformer, sequence_parallel
+from zipvoice_tpu_torch.parallel.mesh import fold_rank, global_sum, scatter_frames
 
 # the turn-token ids the released dialog vocabulary puts [S1]/[S2] at; the
 # sampler takes these, not the tokenizer's ids (as the reference package)
@@ -127,7 +128,9 @@ def energy_based_loss(fbank1: torch.Tensor, fbank2: torch.Tensor, gt_fbank: torc
     """The both-speaking penalty (B, T): where both channels' frame energies
     (mean over the mels) exceed the median frame energy of the ground
     truth's two channels, the product of their excesses; else 0.  The
-    median is the 0.5 quantile with linear interpolation."""
+    median is the 0.5 quantile with linear interpolation, over gt_fbank's
+    frames, which may be the whole sequence of a rank's frames fbank1 and
+    fbank2 (sequence parallelism)."""
     e1 = fbank1.float().mean(dim=-1)
     e2 = fbank2.float().mean(dim=-1)
     gt_both = torch.cat([gt_fbank[:, :, :feat_dim], gt_fbank[:, :, feat_dim:]], dim=1)
@@ -158,8 +161,11 @@ def compute_fm_loss_dialog(
     estimate x_t + v (1 - t), averaged over the loss frames.  ``seed``
     seeds the mask, the text-condition drop and the training contexts, in
     compute_fm_loss's order; both means are over the global batch as in
-    compute_fm_loss."""
+    compute_fm_loss, and under a data x seq mesh a rank runs the fm_decoder
+    on its frames as compute_fm_loss does (the penalty's median taken over
+    the whole sequence)."""
     num_frames = features.shape[1]
+    seq = zv.loss_seq_mesh(model, num_frames)
     dev = features.device
     seeds = np.random.default_rng(seed).integers(0, 2**62, size=4)
     text_ctx = fm_ctx = None
@@ -178,12 +184,19 @@ def compute_fm_loss_dialog(
         drop = torch.rand((features.shape[0], 1, 1),
                           generator=gen.manual_seed(fold_rank(seeds[1])), device=dev)
         text_condition = text_condition * (drop > condition_drop_ratio).to(text_condition.dtype)
+    loss_mask = speech_condition_mask & ~padding_mask
+    whole = features
+    if seq is not None:  # this rank's frames
+        text_condition = scatter_frames(text_condition, seq)
+        speech_condition, padding_mask, loss_mask, features, noise = (
+            scatter_frames(x, seq) for x in (speech_condition, padding_mask, loss_mask,
+                                             features, noise))
     tm = t.to(features.dtype)
     xt = features * tm + noise * (1.0 - tm)
     ut = features - noise
-    vt = zv.forward_fm_decoder(model, t, xt, text_condition, speech_condition, padding_mask,
-                               ctx=fm_ctx)
-    loss_mask = speech_condition_mask & ~padding_mask
+    with contextlib.nullcontext() if seq is None else sequence_parallel(seq):
+        vt = zv.forward_fm_decoder(model, t, xt, text_condition, speech_condition, padding_mask,
+                                   ctx=fm_ctx)
     w = loss_mask[:, :, None].float()
     se = torch.square((vt - ut).float()) * w
     fm_loss = torch.sum(se) / torch.clamp(global_sum(torch.sum(w)) * features.shape[-1],
@@ -192,7 +205,7 @@ def compute_fm_loss_dialog(
         return fm_loss
     f = model.cfg.feat_dim
     target = xt + vt * (1.0 - t)
-    pen = energy_based_loss(target[:, :, :f], target[:, :, f:], features, f)
+    pen = energy_based_loss(target[:, :, :f], target[:, :, f:], whole, f)
     wm = loss_mask.float()
     return fm_loss + se_weight * torch.sum(pen * wm) / torch.clamp(global_sum(torch.sum(wm)),
                                                                    min=1.0)

@@ -8,6 +8,7 @@ in numpy.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -17,7 +18,14 @@ from torch import nn
 
 from zipvoice_tpu_torch.config import ZipVoiceConfig
 from zipvoice_tpu_torch.nn.functional import make_pad_mask
-from zipvoice_tpu_torch.parallel.mesh import Mesh, fold_rank, gather_frames, global_sum
+from zipvoice_tpu_torch.parallel.mesh import (
+    Mesh,
+    active_mesh,
+    fold_rank,
+    gather_frames,
+    global_sum,
+    scatter_frames,
+)
 from zipvoice_tpu_torch.nn.zipformer import (
     BiasNorm,
     TrainCtx,
@@ -211,6 +219,27 @@ def condition_time_mask(features_lens: torch.Tensor, max_len: int,
     return (seq >= start[:, None]) & (seq < (start + size)[:, None])
 
 
+def loss_seq_mesh(model: nn.Module, num_frames: int) -> Optional[Mesh]:
+    """The active mesh (``parallel/mesh.use_mesh``) when a seq axis of it
+    splits the frames, its frame count checked against the fm_decoder
+    (``check_sp_frames``); None otherwise."""
+    mesh = active_mesh()
+    if mesh is None or mesh.size("seq") == 1:
+        return None
+    check_sp_frames(model.fm_decoder.cfg, num_frames, mesh.size("seq"))
+    return mesh
+
+
+def seq_replicated_params(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters whose forward runs whole on every rank of a seq group:
+    everything outside the fm_decoder (the token and speaker embeddings,
+    the text encoder), whose frame-rate output each rank slices.  The
+    fm_decoder's run on a rank's frames.  ``parallel/mesh.
+    all_reduce_gradients`` averages the former over the seq group and sums
+    the latter."""
+    return [p for name, p in model.named_parameters() if not name.startswith("fm_decoder.")]
+
+
 def compute_fm_loss(
     model: ZipVoiceModel,
     tokens_padded: torch.Tensor,
@@ -232,14 +261,27 @@ def compute_fm_loss(
     the per-row draws take the rank's fold of it (``parallel/mesh``).
     Returns the sum over this rank's masked, non-padded positions divided
     by their count over every rank, f32: the mean over the global batch
-    once summed over the ranks (the mean itself in one process)."""
+    once summed over the ranks (the mean itself in one process).
+
+    Under a mesh with a seq axis (``parallel/mesh.make_dp_sp_mesh``, the
+    step's ``use_mesh``) every rank of a seq group passes the same whole
+    rows: the text encoder, its frame-rate condition, the condition mask
+    and the padding mask are computed whole (the draws from the data
+    index's fold, so the ranks agree), then each rank takes its T / n frames
+    of them and of features, noise (``scatter_frames``: the text
+    condition's cotangent gathered back in the backward) and runs the
+    fm_decoder on them (``nn/zipformer.sequence_parallel``).  T must pass
+    ``check_sp_frames``."""
     num_frames = features.shape[1]
+    seq = loss_seq_mesh(model, num_frames)
     dev = features.device
     seeds = np.random.default_rng(seed).integers(0, 2**62, size=4)
     text_ctx = fm_ctx = None
-    if schedules is not None:
-        text_ctx = TrainCtx(int(seeds[2]), schedules["text_encoder"], dev)
-        fm_ctx = TrainCtx(int(seeds[3]), schedules["fm_decoder"], dev)
+    if schedules is not None:  # a backbone whose schedule is None runs without one
+        if schedules["text_encoder"] is not None:
+            text_ctx = TrainCtx(int(seeds[2]), schedules["text_encoder"], dev)
+        if schedules["fm_decoder"] is not None:
+            fm_ctx = TrainCtx(int(seeds[3]), schedules["fm_decoder"], dev)
     text_condition, padding_mask = forward_text_train(
         model, tokens_padded, tokens_lens, features_lens, num_frames,
         dtype=features.dtype, ctx=text_ctx)
@@ -251,14 +293,20 @@ def compute_fm_loss(
         drop = torch.rand((features.shape[0], 1, 1),
                           generator=gen.manual_seed(fold_rank(seeds[1])), device=dev)
         text_condition = text_condition * (drop > condition_drop_ratio).to(text_condition.dtype)
+    loss_mask = speech_condition_mask & ~padding_mask
+    if seq is not None:  # this rank's frames
+        text_condition = scatter_frames(text_condition, seq)
+        speech_condition, padding_mask, loss_mask, features, noise = (
+            scatter_frames(x, seq) for x in (speech_condition, padding_mask, loss_mask,
+                                             features, noise))
     # mix in the features' compute dtype (t is drawn in f32 and must not
     # promote x_t to f32)
     tm = t.to(features.dtype)
     xt = features * tm + noise * (1.0 - tm)
     ut = features - noise
-    vt = forward_fm_decoder(model, t, xt, text_condition, speech_condition, padding_mask,
-                            ctx=fm_ctx)
-    loss_mask = speech_condition_mask & ~padding_mask
+    with contextlib.nullcontext() if seq is None else sequence_parallel(seq):
+        vt = forward_fm_decoder(model, t, xt, text_condition, speech_condition, padding_mask,
+                                ctx=fm_ctx)
     w = loss_mask[:, :, None].float()
     se = torch.square((vt - ut).float()) * w
     return torch.sum(se) / torch.clamp(global_sum(torch.sum(w)) * features.shape[-1],
@@ -350,7 +398,8 @@ def sp_sample(
     (``nn/zipformer.sequence_parallel``), gathered once at the end.  T must
     be a multiple of n times the fm_decoder's largest downsampling factor,
     and every rank's frames must cover each stack's convolution halo
-    (``check_sp_frames``).  Eval only, unfused."""
+    (``check_sp_frames``).  Without gradient, unfused; the training step's
+    counterpart is ``compute_fm_loss`` under a data x seq mesh."""
     from zipvoice_tpu_torch.sampling.euler import euler_sample
 
     n, i = mesh.size("seq"), mesh.index["seq"]

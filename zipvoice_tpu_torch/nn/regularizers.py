@@ -13,6 +13,11 @@ Each regularizer takes an explicit boolean ``gate`` (drawn on the host by
 the caller) in place of a ``random.random() < prob`` test.  A closed gate
 returns ``x`` itself, so the backward is the plain identity.  Constraint
 values are Python floats (schedule outputs).
+
+Under sequence parallelism (``seq``: the mesh whose seq group splits the
+frames) the balancer's and the whitening's statistics are summed over the
+seq group, so that its ranks see the statistics of the whole sequence, as
+one process does (``parallel/mesh.seq_sum``); the frames split evenly.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from zipvoice_tpu_torch.parallel.mesh import Mesh, seq_sum
 
 
 def _channel_dims(x: torch.Tensor):
@@ -42,10 +49,24 @@ def _inside(v, lo, hi):
     return ((v > lo) & (v < hi)).to(v.dtype)
 
 
-def _balancer_loss_grad(x32, min_mean, max_mean, min_rms, max_rms):
+def balancer_stats(x32: torch.Tensor, seq: Optional[Mesh] = None):
+    """The balancer's statistics of x32: per channel (the last axis), the
+    mean square and the mean over every other axis, and over the seq
+    group's frames too under ``seq``; with the count n they are taken
+    over."""
+    dims = _channel_dims(x32)
+    n = math.prod(x32.shape[d] for d in dims) * (1 if seq is None else seq.size("seq"))
+    sq, s = torch.sum(x32 * x32, dim=dims, keepdim=True), torch.sum(x32, dim=dims, keepdim=True)
+    if seq is not None:  # one all-reduce for both
+        sq, s = seq_sum(torch.cat([sq, s]), seq).chunk(2)
+    return sq / n, s / n, n
+
+
+def _balancer_loss_grad(x32, min_mean, max_mean, min_rms, max_rms, seq=None):
     """d/dx of sum_c(|m - clip(m)| + |log(clip(rms) / rms)|), with
-    m = mean / stddev over every axis but the last, written out by the
-    rules the JAX package differentiates its balancer penalty with.
+    m = mean / stddev over every axis but the last (over the seq group's
+    frames too under ``seq``), written out by the rules the JAX package
+    differentiates its balancer penalty with.
 
     Where a channel meets both constraints its penalty is exactly 0, but
     |.|'(0) = +1 lets the rms term's two f32 halves (1/rms and
@@ -54,10 +75,7 @@ def _balancer_loss_grad(x32, min_mean, max_mean, min_rms, max_rms):
     per-channel normalization makes it grad_scale-sized.  This is the JAX
     package's behaviour (ROADMAP C); the reference torch Balancer has
     |.|'(0) = 0 and leaves such channels alone."""
-    dims = _channel_dims(x32)
-    n = math.prod(x32.shape[d] for d in dims)
-    uv = torch.sum(x32 * x32, dim=dims, keepdim=True) / n
-    mean = torch.sum(x32, dim=dims, keepdim=True) / n
+    uv, mean, n = balancer_stats(x32, seq)
     var = uv - mean * mean
     stddev = torch.sqrt(torch.clamp(var, min=1.0e-20))
     rms = torch.sqrt(torch.clamp(uv, min=1.0e-20))
@@ -80,22 +98,29 @@ def _balancer_loss_grad(x32, min_mean, max_mean, min_rms, max_rms):
 
 class _Balancer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, min_mean, max_mean, min_rms, max_rms, grad_scale):
+    def forward(ctx, x, min_mean, max_mean, min_rms, max_rms, grad_scale, seq):
         ctx.save_for_backward(x)
         ctx.args = (min_mean, max_mean, min_rms, max_rms, grad_scale)
+        ctx.seq = seq
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         min_mean, max_mean, min_rms, max_rms, grad_scale = ctx.args
-        loss_grad = _balancer_loss_grad(x.float(), min_mean, max_mean, min_rms, max_rms)
+        seq = ctx.seq
+        loss_grad = _balancer_loss_grad(x.float(), min_mean, max_mean, min_rms, max_rms, seq)
         dims = _channel_dims(x)
-        rms = torch.clamp(torch.sqrt(torch.mean(loss_grad * loss_grad, dim=dims,
-                                                keepdim=True)), min=1.0e-20)
+        if seq is None:
+            ms = torch.mean(loss_grad * loss_grad, dim=dims, keepdim=True)
+        else:
+            n = math.prod(x.shape[d] for d in dims) * seq.size("seq")
+            ms = seq_sum(torch.sum(loss_grad * loss_grad, dim=dims, keepdim=True), seq) / n
+        rms = torch.clamp(torch.sqrt(ms), min=1.0e-20)
         loss_grad = loss_grad * (grad_scale / rms)
         g32 = g.float()
-        return (g32 + torch.abs(g32) * loss_grad).to(g.dtype), None, None, None, None, None
+        return ((g32 + torch.abs(g32) * loss_grad).to(g.dtype),
+                None, None, None, None, None, None)
 
 
 def _prop_to_mean(p: float) -> float:
@@ -109,14 +134,16 @@ def _prop_to_mean(p: float) -> float:
 
 def balancer(x: torch.Tensor, gate: bool, min_positive: float = 0.05,
              max_positive: float = 0.95, min_abs: float = 0.2,
-             max_abs: float = 100.0, grad_scale: float = 0.04) -> torch.Tensor:
+             max_abs: float = 100.0, grad_scale: float = 0.04,
+             seq: Optional[Mesh] = None) -> torch.Tensor:
     """Balancer with the reference's unit conversions: abs -> rms via
-    sqrt(pi/2), proportion-positive -> mean/stddev."""
+    sqrt(pi/2), proportion-positive -> mean/stddev; its statistics over the
+    seq group of ``seq`` too (module docstring)."""
     if not gate:
         return x
     c = 1.25331413732
     return _Balancer.apply(x, _prop_to_mean(min_positive), _prop_to_mean(max_positive),
-                           c * float(min_abs), c * float(max_abs), float(grad_scale))
+                           c * float(min_abs), c * float(max_abs), float(grad_scale), _seq(seq))
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +151,29 @@ def balancer(x: torch.Tensor, gate: bool, min_positive: float = 0.05,
 # ---------------------------------------------------------------------------
 
 
-def whitening_metric(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+def _seq(seq: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh if it splits frames, else None."""
+    return seq if seq is not None and seq.size("seq") > 1 else None
+
+
+def whitening_metric(x: torch.Tensor, num_groups: int,
+                     seq: Optional[Mesh] = None) -> torch.Tensor:
     """1.0 iff each group's centered covariance is lambda*I with the same
-    lambda across groups."""
+    lambda across groups.  Under ``seq`` the frames' mean and covariance
+    are summed over the seq group; the mean enters without gradient (its
+    gradient through the centering sums to zero over all the frames)."""
     x = x.reshape(-1, x.shape[-1])
     num_frames, num_channels = x.shape
     cpg = num_channels // num_groups
     xg = x.reshape(num_frames, num_groups, cpg).transpose(0, 1)
-    xg = xg - torch.mean(xg, dim=1, keepdim=True)
-    covar = torch.einsum("gtc,gtd->gcd", xg, xg)
+    if seq is None:
+        xg = xg - torch.mean(xg, dim=1, keepdim=True)
+        covar = torch.einsum("gtc,gtd->gcd", xg, xg)
+    else:
+        n = num_frames * seq.size("seq")
+        mean = seq_sum(torch.sum(xg.detach(), dim=1, keepdim=True), seq) / n
+        xg = xg - mean
+        covar = seq_sum(torch.einsum("gtc,gtd->gcd", xg, xg), seq)
     mean_diag = torch.mean(torch.diagonal(covar, dim1=1, dim2=2))
     covarsq_mean_diag = torch.sum(covar * covar) / (num_groups * cpg)
     return covarsq_mean_diag / (mean_diag**2 + 1.0e-20)
@@ -140,35 +181,42 @@ def whitening_metric(x: torch.Tensor, num_groups: int) -> torch.Tensor:
 
 class _Whiten(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, num_groups, limit, grad_scale):
+    def forward(ctx, x, num_groups, limit, grad_scale, seq):
         ctx.save_for_backward(x)
         ctx.args = (num_groups, limit, grad_scale)
+        ctx.seq = seq
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         num_groups, limit, grad_scale = ctx.args
+        seq = ctx.seq
         with torch.enable_grad():
             xv = x.detach().float().requires_grad_(True)
-            metric = whitening_metric(xv, num_groups)
+            metric = whitening_metric(xv, num_groups, seq)
             (pgrad,) = torch.autograd.grad(metric, xv)
         g32 = g.float()
-        scale = grad_scale * (torch.linalg.vector_norm(g32)
-                              / (torch.linalg.vector_norm(pgrad) + 1.0e-20))
+        if seq is None:
+            norms = torch.linalg.vector_norm(g32), torch.linalg.vector_norm(pgrad)
+        else:  # the whole sequence's norms
+            sq = seq_sum(torch.stack([torch.sum(g32 * g32), torch.sum(pgrad * pgrad)]), seq)
+            norms = torch.sqrt(sq[0]), torch.sqrt(sq[1])
+        scale = grad_scale * (norms[0] / (norms[1] + 1.0e-20))
         # where() rather than a host test of the metric: no device sync
         out = torch.where(metric >= limit, g32 + pgrad * scale, g32)
-        return out.to(g.dtype), None, None, None
+        return out.to(g.dtype), None, None, None, None
 
 
 def whiten(x: torch.Tensor, gate: bool, num_groups: int, whitening_limit: float,
-           grad_scale: float) -> torch.Tensor:
+           grad_scale: float, seq: Optional[Mesh] = None) -> torch.Tensor:
     """Adds the whitening-metric gradient (rescaled to ``grad_scale`` of
     the incoming gradient's norm) when the gate is open and the metric is
-    at or above ``whitening_limit``."""
+    at or above ``whitening_limit``; the metric and the norms over the seq
+    group of ``seq`` too (module docstring)."""
     if not gate:
         return x
-    return _Whiten.apply(x, num_groups, float(whitening_limit), float(grad_scale))
+    return _Whiten.apply(x, num_groups, float(whitening_limit), float(grad_scale), _seq(seq))
 
 
 # ---------------------------------------------------------------------------

@@ -48,14 +48,21 @@ columns and out_proj rows between Megatron's pair of collectives, the
 out_proj bias added once after the sum, its shared dropout mask drawn at
 the full hidden width and sliced.  Everything else stays replicated.
 
-Sequence parallelism (``sequence_parallel``, eval only): every rank runs
-the backbone on its block of frames.  The attention gathers the keys, the
-values and the key mask over the seq group and takes B1 and B2 on its
-query rows against every key, with the window of the global positional
+Sequence parallelism (``sequence_parallel``, in eval and in training):
+every rank runs the backbone on its block of frames.  The attention
+gathers the keys, the values and the key mask over the seq group and takes
+B1 and B2 (in training B1 and the consumers' B3, or B1's backward B4) on
+its query rows against every key, with the window of the global positional
 encoding that its rows touch; each convolution takes its neighbours' edge
 frames (``parallel/mesh.halo``); downsampling stays inside a rank, since
 every rank's first frame is a multiple of every stack's factor
-(``check_sp_frames``).
+(``check_sp_frames``).  The collectives have their adjoints as their
+backwards.  In training the positional encodings' dropout is drawn on the
+whole sequence's encodings before the window is cut, the balancers' and
+whitenings' statistics are summed over the seq group, and the per-row
+draws fold by the data index, so the ranks of a seq group draw what one
+process draws.  A rematerialized layer runs under the mesh it ran under in
+the forward, so its recompute repeats the forward's collectives.
 
 Attention probabilities and normalization statistics are f32 inside;
 everything else follows the input dtype.
@@ -266,13 +273,20 @@ def check_sp_frames(cfg: ZipformerConfig, num_frames: int, n_seq: int) -> None:
 
 @contextlib.contextmanager
 def sequence_parallel(mesh: Mesh):
-    """Run the backbone's eval forwards inside the body on this rank's
-    frames of the ``seq`` axis of ``mesh``.  The fused eval kernels (B6,
-    B7, B9) take square tiles only, so their flags must be off."""
-    global _SEQ
+    """Run the backbone's forwards inside the body (eval, or training under
+    autograd) on this rank's frames of the ``seq`` axis of ``mesh``.  The
+    fused eval kernels (B6, B7, B9) take square tiles only, so their flags
+    must be off."""
     if _FUSED_EVAL or _FUSED_CONV:
         raise ValueError("sequence parallelism runs the unfused eval path: switch "
                          "set_fused_eval / set_fused_conv off")
+    with _under_seq(mesh):
+        yield
+
+
+@contextlib.contextmanager
+def _under_seq(mesh: Optional[Mesh]):
+    global _SEQ
     before, _SEQ = _SEQ, mesh
     try:
         yield
@@ -479,7 +493,7 @@ class TrainCtx:
 def _maybe_balancer(ctx: Optional[TrainCtx], x, prob, **kw):
     if ctx is None:
         return x
-    return reg.balancer(x, ctx.gate(prob), **kw)
+    return reg.balancer(x, ctx.gate(prob), seq=_SEQ, **kw)
 
 
 def _maybe_whiten(ctx: Optional[TrainCtx], x, limit_key: str, grad_scale: float,
@@ -487,7 +501,7 @@ def _maybe_whiten(ctx: Optional[TrainCtx], x, limit_key: str, grad_scale: float,
     if ctx is None:
         return x
     return reg.whiten(x, ctx.gate(max_prob), num_groups=num_groups,
-                      whitening_limit=ctx.s[limit_key], grad_scale=grad_scale)
+                      whitening_limit=ctx.s[limit_key], grad_scale=grad_scale, seq=_SEQ)
 
 
 def _maybe_seq_dropout(ctx: Optional[TrainCtx], x, rate):
@@ -611,6 +625,8 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
     v = _maybe_whiten(ctx, v, "whiten_5", 0.01)
     with _named("nonlin_mid"):
         v = v * torch.tanh(s)
+    if _SEQ is not None:  # every key's values (no fused path runs here)
+        v = gather_frames(v, _SEQ)
     if isinstance(head0, _EvalAttn):
         a = head0
         v = rel_attention_head0_consume(a.q, a.k, a.pq, a.pe, a.mask, v)
@@ -624,8 +640,6 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
                                   a.pe[:, :1], a.mask, probs0, v[:, :, None, :],
                                   const_gate=const_gate)[:, :, 0]
     else:
-        if _SEQ is not None:
-            v = gather_frames(v, _SEQ)
         v = torch.matmul(head0.to(x.dtype), v)
     with _named("nonlin_mid"):
         vy = v * y
@@ -728,8 +742,8 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         q, k, pq, pe, pen = _attention_projections(m.self_attn_weights, cfg, src, pos_emb,
                                                    ctx)
         with torch.no_grad():
-            probs = rel_attention_probs(q, k, pq, pe, key_padding_mask, out_dtype=src.dtype)
-        attn = _SharedAttn(q, k, pq, pe, key_padding_mask, pen, probs)
+            probs = rel_attention_probs(q, k, pq, pe, keys_mask, out_dtype=src.dtype)
+        attn = _SharedAttn(q, k, pq, pe, keys_mask, pen, probs)
     elif _fused(_FUSED_EVAL, ctx):
         q, k, pq, pe, _ = _attention_projections(m.self_attn_weights, cfg, src, pos_emb)
         attn = _EvalAttn(q, k, pq, pe, key_padding_mask)
@@ -825,16 +839,18 @@ def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
         pos_emb = compact_rel_positional_encoding(src.shape[1], cfg.pos_dim,
                                                   device=src.device)
     else:
-        # the stack's global frame count, and the window of its 2T-1
-        # positions that this rank's rows [r0, r0 + t) touch
-        t = src.shape[1]
-        t_all, r0 = t * _SEQ.size("seq"), t * _SEQ.index["seq"]
-        pos_emb = compact_rel_positional_encoding(t_all, cfg.pos_dim, device=src.device)[
-            t_all - r0 - t: 2 * t_all - 1 - r0]
+        t_all = src.shape[1] * _SEQ.size("seq")  # the stack's global frame count
+        pos_emb = compact_rel_positional_encoding(t_all, cfg.pos_dim, device=src.device)
         if key_padding_mask is not None:
             keys_mask = gather_frames(key_padding_mask, _SEQ)
-    if ctx is not None:
+    if ctx is not None:  # the whole sequence's dropout mask
         pos_emb = reg.dropout_shared(pos_emb, ctx.shared_gen, 0.15)
+    if _SEQ is not None:
+        # the window of the 2T-1 positions that this rank's rows [r0, r0 + t)
+        # touch
+        t, t_all = src.shape[1], pos_emb.shape[0] // 2 + 1
+        r0 = t * _SEQ.index["seq"]
+        pos_emb = pos_emb[t_all - r0 - t: 2 * t_all - 1 - r0]
     stack_time_emb = None
     if cfg.use_time_embed:
         if time_emb is None:
@@ -848,9 +864,12 @@ def _encoder_stack(m: Encoder, cfg: ZipformerConfig, src: torch.Tensor,
             # checkpointed call: its recompute redraws the same values
             layer_ctx = (ctx.next_seed(), ctx.s["layerdrop"][stack][i])
 
-        def run(x, pe, te, mask, layer=layer, layer_ctx=layer_ctx):
+        def run(x, pe, te, mask, layer=layer, layer_ctx=layer_ctx, seq=_SEQ):
+            # under the forward's seq mesh in the recompute too, which runs
+            # in the backward, outside sequence_parallel
             lctx = None if layer_ctx is None else ctx.child(*layer_ctx)
-            return _encoder_layer(layer, cfg, x, pe, te, mask, lctx, keys_mask)
+            with _under_seq(seq):
+                return _encoder_layer(layer, cfg, x, pe, te, mask, lctx, keys_mask)
 
         if remat:
             src = checkpoint(run, src, pos_emb, stack_time_emb, key_padding_mask,

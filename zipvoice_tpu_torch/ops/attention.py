@@ -8,12 +8,13 @@ Seven kernels carry the Zipformer attention:
   B4 plus four matmul adjoints.  It also takes a rectangular tile, Tq query
   rows against Tk keys with pe (Tq + Tk - 1, H, pd): a block of rows
   [r0, r0 + Tq) of a square problem is that tile with the window
-  pe[Tk - r0 - Tq : 2 Tk - 1 - r0] of the square pe (the sequence-parallel
-  sampler's; eval only).
+  pe[Tk - r0 - Tq : 2 Tk - 1 - r0] of the square pe (a rank's rows under
+  sequence parallelism, in the sampler and in training).
 * ``rel_attention_ds`` (B4, ``csrc/rel_ds.cu``): the score cotangent
   ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit), with the
   probabilities recomputed from q, k, pq, pe: B1's kernel with an epilogue
-  that reads g behind the scores, its probabilities B1's bit for bit.
+  that reads g behind the scores, its probabilities B1's bit for bit, on
+  B1's tiles, square or rectangular.
 * ``rel_attention_probs_apply`` (B2, ``csrc/probs_apply.cu``): the
   SelfAttention contraction einsum('bhts,bshd->bthd', probs, v), with its
   einsum adjoints as the backward; probs (B, H, Tq, Tk) may be
@@ -21,7 +22,9 @@ Seven kernels carry the Zipformer attention:
 * ``rel_attention_consume_bwd`` (B3, ``csrc/rel_apply_bwd.cu``): the flash
   backward of ``rel_attention_consume``, which contracts a layer's shared
   stop-gradient probabilities with one consumer's values in the forward
-  and recomputes them in the backward to emit dq, dk, dpq, dpe, dv.
+  and recomputes them in the backward to emit dq, dk, dpq, dpe, dv; square
+  or on a rectangular tile (dq, dpq over the Tq rows, dk, dv over the Tk
+  keys, dpe over the Tq + Tk - 1 band rows).
 * ``rel_attention_probs_consume`` (B6, ``csrc/rel_probs_consume.cu``):
   B1's kernel with a fused epilogue on the tensor cores, (probs, rounded
   probs @ v), its probabilities B1's bit for bit; the fused eval path's
@@ -85,14 +88,16 @@ def rel_shift(pos_scores: torch.Tensor, seq_len: int,
 
 
 def unshear(ds: torch.Tensor) -> torch.Tensor:
-    """Adjoint of ``rel_shift``: (B, H, T, T) -> (B, H, T, 2T-1) with
-    out[..., i, (T-1) + j - i] = ds[..., i, j] and zeros elsewhere."""
-    b, h, t, _ = ds.shape
-    if t == 1:
+    """Adjoint of ``rel_shift``: (B, H, Tq, Tk) -> (B, H, Tq, Tq+Tk-1) with
+    out[..., i, (Tq-1) + j - i] = ds[..., i, j] and zeros elsewhere (the
+    square case Tq = Tk = T: (B, H, T, 2T-1))."""
+    b, h, tq, tk = ds.shape
+    if tq == 1:
         return ds
-    rows = torch.nn.functional.pad(ds, (0, t - 2))  # (B, H, T, 2T-2)
-    flat = torch.nn.functional.pad(rows.reshape(b, h, t * (2 * t - 2)), (t - 1, 1))
-    return flat.reshape(b, h, t, 2 * t - 1)
+    w = tq + tk - 1
+    rows = torch.nn.functional.pad(ds, (0, w - 1 - tk))  # (B, H, Tq, w-1)
+    flat = torch.nn.functional.pad(rows.reshape(b, h, tq * (w - 1)), (tq - 1, 1))
+    return flat.reshape(b, h, tq, w)
 
 
 def rel_scores_plain(q, k, pq, pe) -> torch.Tensor:
@@ -141,8 +146,8 @@ def _const_probs(probs: torch.Tensor) -> torch.Tensor:
 def rel_attention_ds_plain(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
                            penalty_limit=25.0) -> torch.Tensor:
     """Plain B4: ds = p * (g - sum(g * p)) + pen * sign(s) * (|s| > limit)
-    with p recomputed in f32 and s the pre-mask score; (B, H, T, T) in
-    q.dtype."""
+    with p recomputed in f32 and s the pre-mask score; (B, H, Tq, Tk) in
+    q.dtype (square: Tq = Tk = T)."""
     s_pre = rel_scores_plain(q, k, pq, pe)
     probs = _softmax_masked(s_pre, key_padding_mask)
     g = g.float()
@@ -154,7 +159,8 @@ def rel_attention_ds_plain(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
 
 def score_adjoints(ds, q, k, pq, pe):
     """The four matmul adjoints of the scores, in f32: (dq, dk, dpq, dpe)
-    from the score cotangent ds (B, H, T, T); dpe is summed over batch."""
+    from the score cotangent ds (B, H, Tq, Tk); dpe (Tq + Tk - 1, H, pd) is
+    summed over batch."""
     ds = ds.float()
     dq = torch.einsum("bhts,bshd->bthd", ds, k.float())
     dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
@@ -171,7 +177,8 @@ def rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
     the gate is open), dv = used^T g, the softmax VJP of dP = g v^T (zero
     through the detached const branch), the penalty on pre-mask scores
     (key columns < penalty_valid_cols, all when None), then the score
-    adjoints.  Returns (dq, dk, dpq, dpe, dv) in f32."""
+    adjoints.  Square or rectangular (Tq rows, Tk keys).  Returns (dq, dk,
+    dpq, dpe, dv) in f32."""
     s_pre = rel_scores_plain(q, k, pq, pe)
     probs = _softmax_masked(s_pre, key_padding_mask)
     g32, v32 = g.float(), v.float()
@@ -267,11 +274,11 @@ _SIGNATURES = {
     "zv_rel_probs": ("rel_probs", [_P] * 6 + [_I] * 8 + [_P]),
     # zv_probs_apply(probs, v, out, B, Tq, Tk, H, VD, bf16, stream)
     "zv_probs_apply": ("probs_apply", [_P] * 3 + [_I] * 6 + [_P]),
-    # zv_rel_ds(q, kt, pq, pe, mask, g, ds, B, T, H, QD, PD, bf16, pen, limit, stream)
-    "zv_rel_ds": ("rel_ds", [_P] * 7 + [_I] * 6 + [_F, _F, _P]),
-    # zv_rel_apply_bwd(q, kt, pq, pe, mask, v, g, stats, dq, dk, dpq, dpe, dv,
-    #                  B, T, H, QD, PD, VD, bf16, const_gate, valid_cols, pen, limit, stream)
-    "zv_rel_apply_bwd": ("rel_apply_bwd", [_P] * 13 + [_I] * 9 + [_F, _F, _P]),
+    # zv_rel_ds(q, kt, pq, pe, mask, g, ds, B, Tq, Tk, H, QD, PD, bf16, pen, limit, stream)
+    "zv_rel_ds": ("rel_ds", [_P] * 7 + [_I] * 7 + [_F, _F, _P]),
+    # zv_rel_apply_bwd(q, kt, pq, pe, mask, v, g, stats, dq, dk, dpq, dpe, dv, B, Tq, Tk,
+    #                  H, QD, PD, VD, bf16, const_gate, valid_cols, pen, limit, stream)
+    "zv_rel_apply_bwd": ("rel_apply_bwd", [_P] * 13 + [_I] * 10 + [_F, _F, _P]),
     # zv_rel_probs_consume(q, kt, pq, pe, mask, v, probs, out,
     #                      B, T, H, QD, PD, VD, bf16, probs_bf16, stream)
     "zv_rel_probs_consume": ("rel_probs_consume", [_P] * 8 + [_I] * 8 + [_P]),
@@ -325,28 +332,30 @@ def _rel_probs_forward(q: torch.Tensor, k: torch.Tensor, pq: torch.Tensor, pe: t
 
 def rel_attention_ds(q, k, pq, pe, key_padding_mask, g, score_penalty=0.0,
                      penalty_limit=25.0) -> torch.Tensor:
-    """B4: the score cotangent (B, H, T, T) in q.dtype from the
+    """B4: the score cotangent (B, H, Tq, Tk) in q.dtype from the
     probabilities' cotangent g (same dtype as q), probabilities recomputed
-    in f32; the penalty acts on the pre-mask scores.  Any T."""
+    in f32; the penalty acts on the pre-mask scores.  Any Tq, Tk: B1's
+    tiles, square or rectangular."""
     if q.device.type == "cpu":
         return rel_attention_ds_plain(q, k, pq, pe, key_padding_mask, g,
                                       score_penalty, penalty_limit)
     _check_cuda("rel_attention_ds", q, k, pq, pe, g)
-    _check_rel_shapes("rel_attention_ds", q, k, pq, pe)
-    b, t, h, qd = q.shape
-    pd = pq.shape[-1]
-    if g.shape != (b, h, t, t):
-        raise ValueError(f"rel_attention_ds: g{tuple(g.shape)} for B={b} H={h} T={t}")
+    _check_rel_shapes("rel_attention_ds", q, k, pq, pe, square=False)
+    b, tq, h, qd = q.shape
+    tk, pd = k.shape[1], pq.shape[-1]
+    if g.shape != (b, h, tq, tk):
+        raise ValueError(f"rel_attention_ds: g{tuple(g.shape)} for B={b} H={h} Tq={tq} "
+                         f"Tk={tk}")
     q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
     g = build.aligned(g.contiguous())  # its rows are staged in 16-byte copies
     kt = k.permute(0, 2, 3, 1).contiguous()
     mask_ptr, _keep = _mask_ptr("rel_attention_ds", key_padding_mask, k)
-    ds = torch.empty((b, h, t, t), dtype=q.dtype, device=q.device)
+    ds = torch.empty((b, h, tq, tk), dtype=q.dtype, device=q.device)
     code = _entry("zv_rel_ds")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
-        g.data_ptr(), ds.data_ptr(), b, t, h, qd, pd, int(q.dtype == torch.bfloat16),
+        g.data_ptr(), ds.data_ptr(), b, tq, tk, h, qd, pd, int(q.dtype == torch.bfloat16),
         float(score_penalty), float(penalty_limit), _stream_ptr(q.device))
-    _raise_on(code, "rel_ds", f"B={b} T={t} H={h} qd={qd} pd={pd}")
+    _raise_on(code, "rel_ds", f"B={b} Tq={tq} Tk={tk} H={h} qd={qd} pd={pd}")
     rel_attention_ds.launches += 1
     return ds
 
@@ -387,9 +396,9 @@ def rel_attention_probs(
     """Attention probabilities (B, H, Tq, Tk) in ``out_dtype`` (default
     q.dtype); scores and softmax in f32.  Any T; square (Tq = Tk = T) on
     the model's paths, rectangular for a block of query rows (module
-    docstring).  Differentiable at Tq = Tk: the backward adds score_penalty
-    * sign(s) * (|s| > penalty_limit) to the pre-mask score cotangent (the
-    attention-score failsafe)."""
+    docstring).  Differentiable on either tile: the backward (B4, then the
+    score adjoints) adds score_penalty * sign(s) * (|s| > penalty_limit) to
+    the pre-mask score cotangent (the attention-score failsafe)."""
     out_dtype = q.dtype if out_dtype is None else out_dtype
     return _RelProbs.apply(q, k, pq, pe, key_padding_mask, out_dtype,
                            float(score_penalty), float(penalty_limit))
@@ -471,38 +480,40 @@ def rel_attention_consume_bwd(q, k, pq, pe, key_padding_mask, v, g,
     """B3: the flash backward of ``rel_attention_consume`` and
     ``rel_attention_apply``.  Returns (dq, dk, dpq, dpe, dv) in f32, dpe
     summed over the batch; the penalty acts on key columns <
-    penalty_valid_cols (every column when None).  Any T; vd <= 384 on the
-    card (the kernel refuses a wider one)."""
+    penalty_valid_cols (every column when None).  Any Tq, Tk: q, pq, g (B,
+    Tq, H, .) against k, v (B, Tk, H, .) and pe (Tq + Tk - 1, H, pd), the
+    square case Tq = Tk; vd <= 384 on the card (the kernel refuses a wider
+    one)."""
     if q.device.type == "cpu":
         return rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
                                                score_penalty, penalty_limit, const_gate,
                                                penalty_valid_cols)
     _check_cuda("rel_attention_consume_bwd", q, k, pq, pe, v, g)
-    _check_rel_shapes("rel_attention_consume_bwd", q, k, pq, pe)
-    b, t, h, qd = q.shape
-    pd, vd = pq.shape[-1], v.shape[-1]
-    valid_cols = t if penalty_valid_cols is None else int(penalty_valid_cols)
-    if v.shape != (b, t, h, vd) or g.shape != v.shape:
+    _check_rel_shapes("rel_attention_consume_bwd", q, k, pq, pe, square=False)
+    b, tq, h, qd = q.shape
+    tk, pd, vd = k.shape[1], pq.shape[-1], v.shape[-1]
+    valid_cols = tk if penalty_valid_cols is None else int(penalty_valid_cols)
+    if v.shape != (b, tk, h, vd) or g.shape != (b, tq, h, vd):
         raise ValueError(f"rel_attention_consume_bwd: v{tuple(v.shape)} "
-                         f"g{tuple(g.shape)}")
+                         f"g{tuple(g.shape)} for Tq={tq} Tk={tk}")
     q, pq, pe = q.contiguous(), pq.contiguous(), pe.contiguous()
     v, g = v.contiguous(), g.contiguous()
     kt = k.permute(0, 2, 3, 1).contiguous()
     mask_ptr, _keep = _mask_ptr("rel_attention_consume_bwd", key_padding_mask, k)
     f32 = dict(dtype=torch.float32, device=q.device)
-    stats = torch.empty((4, b, h, t), **f32)  # per row: max, 1/sum, sum(p dP), count(p > 0)
-    dq = torch.empty((b, t, h, qd), **f32)
-    dk = torch.empty((b, t, h, qd), **f32)
-    dpq = torch.empty((b, t, h, pd), **f32)
-    dpe = torch.zeros((2 * t - 1, h, pd), **f32)  # batch sum by atomics
-    dv = torch.empty((b, t, h, vd), **f32)
+    stats = torch.empty((4, b, h, tq), **f32)  # per row: max, 1/sum, sum(p dP), count(p > 0)
+    dq = torch.empty((b, tq, h, qd), **f32)
+    dk = torch.empty((b, tk, h, qd), **f32)
+    dpq = torch.empty((b, tq, h, pd), **f32)
+    dpe = torch.zeros((tq + tk - 1, h, pd), **f32)  # batch sum by atomics
+    dv = torch.empty((b, tk, h, vd), **f32)
     code = _entry("zv_rel_apply_bwd")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr,
         v.data_ptr(), g.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dpq.data_ptr(), dpe.data_ptr(), dv.data_ptr(), b, t, h, qd, pd, vd,
+        dpq.data_ptr(), dpe.data_ptr(), dv.data_ptr(), b, tq, tk, h, qd, pd, vd,
         int(q.dtype == torch.bfloat16), int(bool(const_gate)), valid_cols,
         float(score_penalty), float(penalty_limit), _stream_ptr(q.device))
-    _raise_on(code, "rel_apply_bwd", f"B={b} T={t} H={h} qd={qd} pd={pd} vd={vd}")
+    _raise_on(code, "rel_apply_bwd", f"B={b} Tq={tq} Tk={tk} H={h} qd={qd} pd={pd} vd={vd}")
     rel_attention_consume_bwd.launches += 1
     return dq, dk, dpq, dpe, dv
 
@@ -511,7 +522,7 @@ rel_attention_consume_bwd.launches = 0
 
 
 def consume_forward(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """probs (B, H, T, T) @ v (B, T, H, vd) -> (B, T, H, vd) in v.dtype:
+    """probs (B, H, Tq, Tk) @ v (B, Tk, H, vd) -> (B, Tq, H, vd) in v.dtype:
     the B2 kernel where it takes vd, torch.matmul otherwise (the head-0
     NonlinAttention consumer, vd = 3D/4)."""
     probs = probs.to(v.dtype)
@@ -537,18 +548,19 @@ class _RelConsume(torch.autograd.Function):
 
 
 def rel_attention_consume(
-    q: torch.Tensor,  # (B, T, H, qd)
-    k: torch.Tensor,
-    pq: torch.Tensor,
-    pe: torch.Tensor,  # (2T-1, H, pd)
-    key_padding_mask: Optional[torch.Tensor],
-    probs: torch.Tensor,  # (B, H, T, T), shared, no gradient
-    v: torch.Tensor,  # (B, T, H, vd)
+    q: torch.Tensor,  # (B, Tq, H, qd)
+    k: torch.Tensor,  # (B, Tk, H, qd)
+    pq: torch.Tensor,  # (B, Tq, H, pd)
+    pe: torch.Tensor,  # (Tq+Tk-1, H, pd)
+    key_padding_mask: Optional[torch.Tensor],  # (B, Tk)
+    probs: torch.Tensor,  # (B, H, Tq, Tk), shared, no gradient
+    v: torch.Tensor,  # (B, Tk, H, vd)
     score_penalty: float = 0.0,
     penalty_limit: float = 25.0,
     const_gate: bool = False,
 ) -> torch.Tensor:
-    """probs @ v with the flash backward (B3); any T.
+    """probs @ v with the flash backward (B3); any Tq, Tk (square on one
+    process, a rank's rows against every key under sequence parallelism).
 
     probs must be the probabilities computed from exactly (q, k, pq, pe,
     mask), or the const-attention replacement of them when const_gate is

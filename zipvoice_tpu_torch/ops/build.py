@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -25,16 +27,20 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("rel_probs", "rel_probs_consume", "probs_apply", "rel_ds", "rel_apply_bwd",
            "log_mel", "rel_consume_fwd", "conv_glu", "rel_apply")
-# further sources of a library, each its own nvcc process: B6's and B5's
-# instantiations for bf16 inputs build beside those for f32 inputs, and B5's
-# wide route beside both
+# further sources of a library, each its own nvcc process: B6's, B3's and
+# B5's instantiations for bf16 inputs build beside those for f32 inputs, and
+# B5's wide route beside both
 EXTRA_SOURCES = {"rel_probs_consume": ("rel_probs_consume_bf16",),
+                 "rel_apply_bwd": ("rel_apply_bwd_bf16",),
                  "rel_apply": ("rel_apply_bf16", "rel_apply_wide")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the seconds of each nvcc process of the last ``build_all``, by source
+# (the links by library name, with a "link " prefix)
+SECONDS: Dict[str, float] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 _entry_points: Dict[Tuple[str, str], object] = {}
 
@@ -73,25 +79,40 @@ def build_all() -> Dict[str, str]:
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
 
-    def run(cmds):
-        """Run the commands side by side: ({key: output}, [failed keys])."""
+    def run(cmds, label):
+        """Run the commands side by side: ({key: output}, [failed keys]);
+        each one's seconds into SECONDS under ``label(key)``."""
+        t0 = time.monotonic()
         procs = {key: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True) for key, cmd in cmds.items()}
-        outs = {key: proc.communicate()[0] for key, proc in procs.items()}
+        # each output read on a thread of its own, so no pipe fills and blocks
+        # its writer while another process is waited for
+        outs = {}
+
+        def collect(key, proc):
+            outs[key] = proc.communicate()[0]
+            SECONDS[label(key)] = time.monotonic() - t0
+
+        threads = [threading.Thread(target=collect, args=item) for item in procs.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
         return outs, [key for key, proc in procs.items() if proc.returncode != 0]
 
     # every source to an object, all at once; then each library linked
     tag = f"{os.getpid()}.tmp"
     objs = {(name, src): BUILD / f"{src}.{tag}.o" for name in todo for src in sources(name)}
+    SECONDS.clear()
     outs, bad = run({key: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / f"{key[1]}.cu")]
-                     for key, obj in objs.items()})
+                     for key, obj in objs.items()}, lambda key: key[1])
     logs = {name: "".join(outs[(name, src)] for src in sources(name)) for name in todo}
     failed = sorted({name for name, _ in bad})
     if not failed:
         tmps = {name: library_path(name).with_suffix(f".{tag}") for name in todo}
         links, failed = run({name: [nvcc, "-shared", "-o", str(tmps[name]),
                                     *(str(objs[(name, src)]) for src in sources(name))]
-                             for name in todo})
+                             for name in todo}, lambda name: f"link {name}")
         for name in todo:
             logs[name] += links[name]
             if name in failed:

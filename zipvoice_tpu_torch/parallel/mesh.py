@@ -22,25 +22,33 @@ written out here.  This module holds the port of
   rank, as ScaledAdam takes it), with scalars riding along (the step's
   loss); under tensor parallelism the replicated parameters' gradients
   are averaged over the model group too, so that its ranks keep equal
-  replicas;
+  replicas; under sequence parallelism the sum runs over data x seq, and
+  the gradients of the parameters that every rank of a seq group runs
+  whole (``seq_replicated``) are averaged over the seq group;
 * ``global_sum``: a scalar summed over the data group (the loss
-  normalizer);
+  normalizer), over data x seq under sequence parallelism;
 * ``make_mesh(n_data, n_model)``: a data x model layout of the ranks, rank
   r at (r // n_model, r % n_model) as JAX's ``reshape(n_data, n_model)``
   places devices, with a process group for each data row (its model
   group) and each model column (its data group); ``make_seq_mesh(n_seq)``:
-  one seq group; ``use_mesh``: the mesh a training step runs under, whose
-  data group the gradient and loss sums and ``fold_rank`` read (without
-  one, the data group is the world, as before);
+  one seq group; ``make_dp_sp_mesh(n_data, n_seq)``: a data x seq layout,
+  rank r at (r // n_seq, r % n_seq), its data row its seq group;
+  ``use_mesh``: the mesh a training step runs under, whose data group the
+  gradient and loss sums and ``fold_rank`` read (without one, the data
+  group is the world, as before);
 * tensor parallelism (``tp_param_shardings``, ``shard_module``,
   ``unshard_state_dict``): the Megatron column/row split of every
   feedforward's hidden dimension over the model group, and its pair of
   collectives (``copy_to_model``: identity forward, all-reduce backward;
   ``reduce_from_model``: all-reduce forward, identity backward);
-* sequence parallelism, inference only (``gather_frames``, ``halo``): the
-  frames of every rank of the seq group, and a rank's neighbours' edge
-  frames for a convolution; both raise under autograd, since they have no
-  backward yet;
+* sequence parallelism (``gather_frames``, ``halo``, ``scatter_frames``):
+  the frames of every rank of the seq group, a rank's neighbours' edge
+  frames for a convolution, and a rank's frames of a tensor that every
+  rank holds whole; each has its adjoint as its backward (an all-reduce
+  and a slice, the edges' cotangents sent back to their owners, an
+  all-gather of the slices' cotangents), so a training step runs through
+  them; ``seq_sum``: a statistic summed over the seq group, its cotangent
+  passed through (the regularizers' statistics);
 * ``barrier`` and ``shutdown``.
 
 The losses are normalized by the valid count summed over the data group
@@ -48,17 +56,21 @@ and the gradients summed, so every rank holds the gradient of the mean
 over the global batch (JAX's), and ScaledAdam, run on equal gradients,
 keeps the parameters bit-identical across the ranks of a data group.
 ``COUNTS`` counts every collective call by kind (all_reduce, all_gather,
-halo), as the kernels count their launches; without a process group, or
-in a group of one, every function is the single-process identity and
-counts nothing.  Every collective here is one that gloo also runs on CUDA
-tensors (all_reduce, all_gather, broadcast), so two gloo ranks can share
-one card where NCCL refuses them.
+halo), as the kernels count their launches, backward calls included;
+without a process group, or in a group of one, every function is the
+single-process identity and counts nothing.  Every collective here is one
+that gloo also runs on CUDA tensors (all_reduce, all_gather, broadcast), so
+two gloo ranks can share one card where NCCL refuses them.  Under autograd
+every rank must run its collectives in the same order; the ranks of a seq
+group run the same layers on the same shapes, so their forwards, their
+rematerialized recomputes and their backwards match call for call.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -187,13 +199,36 @@ def make_seq_mesh(n_seq: Optional[int] = None) -> Mesh:
     return Mesh({"seq": n}, {"seq": rank()}, {"seq": group})
 
 
+def make_dp_sp_mesh(n_data: int, n_seq: int) -> Mesh:
+    """A data x seq layout of the world's ranks for sequence-parallel
+    training: rank r at (r // n_seq, r % n_seq), as JAX's
+    ``reshape(n_data, n_seq)`` places devices.  A rank's seq group is its
+    data row (the ranks that hold the same rows and split their frames),
+    its data group its seq column.  n_data * n_seq must be the world
+    size."""
+    n = world_size()
+    if n_data * n_seq != n:
+        raise ValueError(f"a {n_data} x {n_seq} mesh needs {n_data * n_seq} ranks, "
+                         f"the world has {n}")
+    r = rank()
+    groups = {"data": None, "seq": None}
+    if is_distributed():
+        groups["data"] = _new_groups([[d * n_seq + c for d in range(n_data)]
+                                      for c in range(n_seq)])
+        groups["seq"] = _new_groups([list(range(d * n_seq, (d + 1) * n_seq))
+                                     for d in range(n_data)])
+    return Mesh({"data": n_data, "seq": n_seq}, {"data": r // n_seq, "seq": r % n_seq},
+                groups)
+
+
 _ACTIVE: Optional[Mesh] = None
 
 
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[Mesh]):
     """Run the body under ``mesh``: fold_rank folds by its data index, and
-    global_sum and all_reduce_gradients sum over its data group."""
+    global_sum and all_reduce_gradients sum over its data group (data x seq
+    where it has a seq axis)."""
     global _ACTIVE
     before, _ACTIVE = _ACTIVE, mesh
     try:
@@ -210,9 +245,22 @@ def data_index() -> int:
     return rank()
 
 
+def active_mesh() -> Optional[Mesh]:
+    """The mesh of ``use_mesh``, None outside it."""
+    return _ACTIVE
+
+
+def seq_size() -> int:
+    """The size of the active mesh's seq axis (1 without one)."""
+    return 1 if _ACTIVE is None else _ACTIVE.size("seq")
+
+
 def _data_group():
-    """(group, size) of the sums over the data axis: the active mesh's data
-    group, else the world."""
+    """(group, size) of the sums over the batch: the active mesh's data
+    group, or its data x seq ranks (the world) where it splits frames over
+    a seq axis; else the world."""
+    if _ACTIVE is not None and _ACTIVE.size("seq") > 1:
+        return None, _ACTIVE.size("data") * _ACTIVE.size("seq")
     if _ACTIVE is not None and "data" in _ACTIVE.shape:
         return _ACTIVE.group("data"), _ACTIVE.size("data")
     return None, world_size()
@@ -257,8 +305,9 @@ def _all_gather(x: torch.Tensor, n: int, group) -> List[torch.Tensor]:
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """x summed over the data group (x itself without a process group); no
-    gradient flows through the sum."""
+    """x summed over the data group, over data x seq under sequence
+    parallelism (x itself without a process group); no gradient flows
+    through the sum."""
     group, n = _data_group()
     if not is_distributed() or n == 1:
         return x
@@ -277,7 +326,8 @@ def broadcast_module(module: torch.nn.Module) -> None:
 
 @torch.no_grad()
 def all_reduce_gradients(params: Sequence[torch.nn.Parameter],
-                         extras: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+                         extras: Sequence[torch.Tensor] = (),
+                         seq_replicated: Sequence[torch.nn.Parameter] = ()) -> List[torch.Tensor]:
     """Sum every parameter's .grad over the data group, a missing gradient
     as zeros, and set each .grad to a view of the sum; ``extras`` (scalars)
     ride along and come back summed.  Without a process group (or in a
@@ -289,32 +339,52 @@ def all_reduce_gradients(params: Sequence[torch.nn.Parameter],
     dpe): it is summed over the whole mesh and divided by the model size,
     so that the ranks of a model group keep equal replicas; a split
     parameter's gradient (``tp_shard``) is summed over the data group
-    alone."""
+    alone.
+
+    Under an active mesh with a seq axis every gradient is summed over
+    data x seq: a parameter that runs on a rank's frames (the fm_decoder)
+    holds that rank's share of the sum.  A parameter in ``seq_replicated``
+    runs whole on every rank of its seq group (the text encoder, whose
+    frame-rate output each rank slices; ``models/zipvoice.
+    seq_replicated_params`` names them) and holds the whole sum there: its
+    sum is divided by the seq size, so that it counts once."""
     group, n = _data_group()
     n_model = _ACTIVE.size("model") if _ACTIVE is not None else 1
     if not is_distributed() or n * n_model == 1:
         return list(extras)
     # a named range, so that a profile of the step shows the sync's share
     with torch.profiler.record_function("all_reduce_gradients"):
+        if seq_size() > 1:
+            averaged = {id(p) for p in seq_replicated}
+            return _sum_into_grads(params, extras, group,
+                                   [seq_size() if id(p) in averaged else 1 for p in params])
         split = [p for p in params if hasattr(p, "tp_shard")] if n_model > 1 else []
         whole = [p for p in params if not hasattr(p, "tp_shard")] if n_model > 1 else params
-        out = _sum_into_grads(whole, extras, None if n_model > 1 else group, n_model)
+        out = _sum_into_grads(whole, extras, None if n_model > 1 else group,
+                              [n_model] * len(whole), n_model)
         if split and n > 1:
-            _sum_into_grads(split, (), group, 1)
+            _sum_into_grads(split, (), group, [1] * len(split))
         return out
 
 
-def _sum_into_grads(params, extras, group, divide: int) -> List[torch.Tensor]:
+def _sum_into_grads(params, extras, group, divide: Sequence[int],
+                    divide_extras: int = 1) -> List[torch.Tensor]:
     """One all-reduce over ``group`` of the params' gradients (zeros where
-    missing) and the extras, divided by ``divide``; each .grad set to a
-    view of the result; returns the extras."""
+    missing) and the extras; each param's sum divided by its ``divide``
+    entry, the extras' by ``divide_extras``; each .grad set to a view of
+    the result; returns the extras."""
     flat = torch.cat(
         [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
          for p in params] + [e.detach().reshape(-1).float() for e in extras])
     COUNTS["all_reduce"] += 1
     _all_reduce(flat, group)
-    if divide != 1:
-        flat /= divide
+    sizes = [p.numel() for p in params] + [flat.numel() - sum(p.numel() for p in params)]
+    off = 0
+    for d, run in itertools.groupby(zip([*divide, divide_extras], sizes), key=lambda x: x[0]):
+        n = sum(k for _, k in run)  # one division for each run of equal divisors
+        if d != 1:
+            flat[off:off + n] /= d
+        off += n
     off = 0
     for p in params:
         k = p.numel()
@@ -447,25 +517,125 @@ def unshard_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# Sequence parallelism (inference): the frame axis over the seq group
+# Sequence parallelism: the frame axis over the seq group
 # ---------------------------------------------------------------------------
 
 
-def _no_grad_only(name: str) -> None:
-    if torch.is_grad_enabled():
-        raise RuntimeError(f"{name} has no backward yet: sequence parallelism runs "
-                           "without gradient (torch.no_grad)")
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    COUNTS["all_gather"] += 1
+    return torch.cat(_all_gather(x, mesh.size("seq"), mesh.group("seq")), dim=dim)
+
+
+def _own_frames(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's block of a tensor that holds the whole seq group's
+    frames along ``dim``."""
+    t = x.shape[dim] // mesh.size("seq")
+    return x.narrow(dim, mesh.index["seq"] * t, t)
+
+
+class _GatherFrames(torch.autograd.Function):
+    """Every rank's frames concatenated; the adjoint: the cotangents of
+    every rank's copy summed (an all-reduce: every rank holds the whole
+    sequence's cotangent of its own copy) and this rank's frames kept."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _gather(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["all_reduce"] += 1
+        # an f32 sum, in a contiguous copy (NCCL refuses a strided cotangent)
+        total = _all_reduce(g.to(torch.float32, memory_format=torch.contiguous_format,
+                                 copy=True), ctx.mesh.group("seq"))
+        return _own_frames(total, ctx.mesh, ctx.dim).to(g.dtype), None, None
 
 
 def gather_frames(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
     """Every rank's frames of x concatenated along ``dim`` in rank order:
-    the full sequence on every rank of the seq group."""
-    _no_grad_only("gather_frames")
+    the full sequence on every rank of the seq group.  Differentiable."""
+    if mesh.size("seq") == 1:
+        return x
+    if _differentiable(x):
+        return _GatherFrames.apply(x, mesh, dim)
+    return _gather(x, mesh, dim)
+
+
+class _ScatterFrames(torch.autograd.Function):
+    """This rank's frames of a tensor every rank holds whole; the adjoint:
+    the ranks' cotangents of their frames gathered, so that every rank
+    holds the whole tensor's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _own_frames(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.mesh, ctx.dim), None, None
+
+
+def scatter_frames(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's block of frames along ``dim`` of x, a tensor that every
+    rank of the seq group holds whole (computed replicated, as the text
+    encoder's frame-rate condition is); no collective in the forward, an
+    all-gather of the cotangents in the backward.  The frame count must
+    split evenly."""
     n = mesh.size("seq")
+    if x.shape[dim] % n:
+        raise ValueError(f"scatter_frames: {x.shape[dim]} frames over {n} ranks")
     if n == 1:
         return x
-    COUNTS["all_gather"] += 1
-    return torch.cat(_all_gather(x, n, mesh.group("seq")), dim=dim)
+    if _differentiable(x):
+        return _ScatterFrames.apply(x, mesh, dim)
+    return _own_frames(x, mesh, dim)
+
+
+def _edges(x: torch.Tensor, left: int, right: int, mesh: Mesh):
+    """(the ``left`` frames before this rank's, the ``right`` frames after
+    them), zeros past the sequence's ends: one all-gather of every rank's
+    first ``right`` and last ``left`` frames."""
+    n, i = mesh.size("seq"), mesh.index["seq"]
+    t = x.shape[1]
+    COUNTS["halo"] += 1
+    edges = _all_gather(torch.cat([x[:, :right], x[:, t - left:]], dim=1), n,
+                        mesh.group("seq"))
+    zeros = x.new_zeros
+    before = edges[i - 1][:, right:] if i > 0 else zeros(x.shape[0], left, *x.shape[2:])
+    after = edges[i + 1][:, :right] if i < n - 1 else zeros(x.shape[0], right, *x.shape[2:])
+    return before, after
+
+
+class _Halo(torch.autograd.Function):
+    """The neighbours' edge frames attached; the adjoint: the cotangents of
+    the attached frames sent back to the ranks that own them (one
+    all-gather of every rank's two edge cotangents) and added to theirs."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, mesh):
+        ctx.args = (left, right, mesh)
+        before, after = _edges(x, left, right, mesh)
+        return torch.cat([before, x, after], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        left, right, mesh = ctx.args
+        t = g.shape[1] - left - right
+        # the previous rank's "after" cotangent belongs to this rank's
+        # first `right` frames, the next rank's "before" cotangent to its
+        # last `left` frames: every rank sends both, as _edges sends frames
+        from_prev, from_next = _edges(torch.cat([g[:, :left], g[:, left + t:]], dim=1),
+                                      right, left, mesh)
+        dx = g[:, left:left + t].clone()
+        dx[:, :right] += from_prev
+        dx[:, t - left:] += from_next
+        return dx, None, None, None
 
 
 def halo(x: torch.Tensor, left: int, right: int, mesh: Mesh) -> torch.Tensor:
@@ -473,20 +643,42 @@ def halo(x: torch.Tensor, left: int, right: int, mesh: Mesh) -> torch.Tensor:
     them (the previous rank's last) and the ``right`` frames after them
     (the next rank's first) attached: (B, left + t + right, C), zeros past
     the sequence's ends, as a convolution with that padding sees the full
-    sequence.  The edges travel in one all-gather."""
-    _no_grad_only("halo")
-    n, i = mesh.size("seq"), mesh.index.get("seq", 0)
+    sequence.  The edges travel in one all-gather; differentiable, its
+    backward one all-gather of the edges' cotangents."""
+    n = mesh.size("seq")
     t = x.shape[1]
     if t < max(left, right):
         raise ValueError(f"halo of {left}/{right} frames from ranks of {t} frames: a rank's "
                          "frames must cover the halo")
-    zeros = x.new_zeros
     if n == 1:
+        zeros = x.new_zeros
         return torch.cat([zeros(x.shape[0], left, *x.shape[2:]), x,
                           zeros(x.shape[0], right, *x.shape[2:])], dim=1)
-    COUNTS["halo"] += 1
-    edges = _all_gather(torch.cat([x[:, :right], x[:, t - left:]], dim=1), n,
-                        mesh.group("seq"))
-    before = edges[i - 1][:, right:] if i > 0 else zeros(x.shape[0], left, *x.shape[2:])
-    after = edges[i + 1][:, :right] if i < n - 1 else zeros(x.shape[0], right, *x.shape[2:])
+    if _differentiable(x):
+        return _Halo.apply(x, left, right, mesh)
+    before, after = _edges(x, left, right, mesh)
     return torch.cat([before, x, after], dim=1)
+
+
+class _SeqSum(torch.autograd.Function):
+    """A statistic summed over the seq group; the cotangent passes through
+    (every rank computes the same function of the sum, so each holds the
+    whole cotangent of its own share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        COUNTS["all_reduce"] += 1
+        return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def seq_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """x summed over the seq group of ``mesh`` (x itself without one): the
+    statistics a regularizer takes over the whole sequence.  Under autograd
+    the cotangent passes through to this rank's share."""
+    if mesh is None or mesh.size("seq") == 1:
+        return x
+    return _SeqSum.apply(x, mesh.group("seq"))

@@ -20,11 +20,13 @@ process group of their own: for n >= 4 and even, one bf16 training step
 (the regularizers on) on a data x model mesh of n / 2 x 2
 (``parallel/mesh.make_mesh``, the feedforwards split over the model axis):
 a finite loss, equal on every rank, and each shard bit-identical across the
-data ranks that hold it; for every n, the sequence-parallel sampler
+data ranks that hold it; and one bf16 sequence-parallel training step (the
+regularizers on) on a data x seq mesh of n / 2 x 2
+(``parallel/mesh.make_dp_sp_mesh``, each data row's frames over two ranks):
+a finite loss, equal on every rank, and the parameters bit-identical on
+every rank; for every n, the sequence-parallel sampler
 (``models/zipvoice.sp_sample``) over all n ranks at T = 16 n: the same
 finite output on every rank, within 2e-5 of one process's ``sample``.
-What the JAX package's dry run also rehearses and this one does not yet is
-sequence-parallel training (its ``make_dp_sp_mesh``).
 """
 
 from __future__ import annotations
@@ -214,6 +216,17 @@ def _parallel_rank(out: str):
         res["tp_loss"] = float(step(batch, 1, 1, 0.0, zipvoice_schedules(0.0, cfg))["loss"])
         res["tp_index"] = dict(m.index)
         res["tp_shards"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+        cfg, model = _parallel_model()
+        m = mesh.make_dp_sp_mesh(n // 2, 2)
+        d = m.index["data"]
+        batch = {"tokens": rows["tokens"][d * b:(d + 1) * b],
+                 "tokens_lens": np.full((b,), s - 2), "features_lens": np.full((b,), t - 3),
+                 "features": rows["features"][d * b:(d + 1) * b]}  # whole rows, all T
+        step = make_train_step(model, ScaledAdam(model.named_parameters()),
+                               TrainConfig(compute_dtype="bfloat16"), mesh=m)
+        res["sp_loss"] = float(step(batch, 1, 1, 0.0, zipvoice_schedules(0.0, cfg))["loss"])
+        res["sp_params"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
     _, model = _parallel_model()
     x = {k: torch.from_numpy(v) for k, v in _sp_inputs(n).items()}
     res["sp_out"] = sp_sample(model, mesh.make_seq_mesh(), *(x[k] for k in SP_ORDER), **SP_KW)
@@ -242,6 +255,17 @@ def _check_parallel(out: Path, n: int) -> str:
                                      f"shards than its data rank 0: {diff[:5]}")
         ran.append(f"dp={n // 2} x tp=2 bf16 step, loss {ranks[0]['tp_loss']:.4f}, shards "
                    "bit-identical across the data ranks")
+        losses = {res["sp_loss"] for res in ranks}
+        if len(losses) != 1 or not np.isfinite(ranks[0]["sp_loss"]):
+            raise AssertionError(f"dp x sp step: losses {losses}")
+        for r, res in enumerate(ranks):
+            diff = [k for k, v in res["sp_params"].items()
+                    if not torch.equal(v, ranks[0]["sp_params"][k])]
+            if diff:
+                raise AssertionError(f"dp x sp step: rank {r}'s parameters differ from rank "
+                                     f"0's: {diff[:5]}")
+        ran.append(f"dp={n // 2} x sp=2 bf16 step, loss {ranks[0]['sp_loss']:.4f}, parameters "
+                   "bit-identical on every rank")
     _, model = _parallel_model()
     x = {k: torch.from_numpy(v) for k, v in _sp_inputs(n).items()}
     with torch.no_grad():

@@ -17,6 +17,17 @@ the data index, so the ranks of a model group draw the same rows' values,
 and the loss normalizer and the gradient sum run over the data group
 only.  With n_model > 1 the model must be sharded first
 (``parallel/mesh.shard_module``), and the optimizer built on the shards.
+
+``make_train_step(..., mesh=make_dp_sp_mesh(n_data, n_seq))`` trains
+sequence-parallel, the JAX package's data x seq step: every rank of a seq
+group passes its data row's whole rows (tokens, lengths, features at the
+full T); t and the noise are drawn at the full T from the data index's
+fold, and ``compute_fm_loss`` gives each rank its T / n_seq frames of the
+fm_decoder.  The loss normalizer and the gradients are summed over data x
+seq, the gradients of the token embedding and the text encoder (run whole
+on every rank of a seq group) averaged over the seq group.  The dialog
+losses (``models/dialog.compute_fm_loss_dialog``) split their frames the
+same way.
 """
 
 from __future__ import annotations
@@ -29,7 +40,11 @@ import numpy as np
 import torch
 
 from zipvoice_tpu_torch.models.dialog import compute_fm_loss_dialog
-from zipvoice_tpu_torch.models.zipvoice import ZipVoiceModel, compute_fm_loss
+from zipvoice_tpu_torch.models.zipvoice import (
+    ZipVoiceModel,
+    compute_fm_loss,
+    seq_replicated_params,
+)
 from zipvoice_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_gradients,
@@ -105,7 +120,7 @@ def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfi
 
     batch: tokens (B, S), tokens_lens (B,), features (B, T, F) f32,
     features_lens (B,): this rank's rows (the same on the ranks of a model
-    group).  The metrics are device scalars (loss, the clip diagnostics)
+    group, and of a seq group, whole, at the full T).  The metrics are device scalars (loss, the clip diagnostics)
     and the float lr; reading them is the caller's sync.  mesh: a data x
     model mesh (module docstring), or None for the world as the data
     group."""
@@ -115,6 +130,8 @@ def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfi
             and not any(hasattr(p, "tp_shard") for p in model.parameters())):
         raise ValueError("a mesh with a model axis needs the model sharded over it first "
                          "(parallel/mesh.shard_module)")
+    seq_replicated = (seq_replicated_params(model)
+                      if mesh is not None and mesh.size("seq") > 1 else [])
 
     def step(batch, seed: int, step_idx: int, epoch: float,
              schedules: Optional[Dict] = None) -> Dict:
@@ -132,7 +149,7 @@ def make_train_step(model: ZipVoiceModel, opt: ScaledAdam, train_cfg: TrainConfi
                        schedules=schedules)
         opt.zero_grad()
         loss.backward()
-        (loss,) = all_reduce_gradients(opt.params, [loss.detach()])
+        (loss,) = all_reduce_gradients(opt.params, [loss.detach()], seq_replicated)
         lr = learning_rate(train_cfg, step_idx, epoch)
         diag = opt.step(lr)
         return {"loss": loss, "lr": lr, **diag}
