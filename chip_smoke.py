@@ -231,6 +231,17 @@ Phases (each raises on failure; nothing is caught):
      step (48 of B3's rectangular: the fm_decoder's), each step's wall
      beside one process's.  The build's, phase 18's and the total seconds
      are printed.
+  19. golden acceptance through bin/golden_acceptance.py on the card, three
+     runs of the CLI started together as processes of their own at low
+     priority after phase 12 (a thread's job beside phases 13-18), parity
+     pointed at a path that does not exist: phase 4's and phase 12's
+     full-width dirs as ``--models all`` (every checkpoint tree passes
+     against the port's modules and loads on the card, the tokenizer check
+     passes or is gated only for a named G2P backend mismatch, parity
+     ``gated: no reference``; exit 0), phase 4's base dir as zipvoice_dialog
+     (tree fail, the speaker embedding missing; exit 1) and the dry run of
+     the first (ready); the statuses, tensor counts, EN G2P backend and the
+     phase's seconds are printed.
 
 Order: phases 1-9 run in this process one after another; then three jobs
 start in a thread (``Background``), one after another, each a run of other
@@ -238,8 +249,10 @@ processes: 14a's torchrun, 14b's ranks and phase 18's ranks, beside phases
 10-17 here; after phase 12, phase 13 starts in a process of its own
 (``--phase13-worker``) beside phases 14-17.  Phase 14 checks 14a's and 14b's
 runs when it reaches them, phase 18 its ranks' results, and phase 13's
-output is printed after phase 17.  The times those runs print were taken
-beside other work on the card and the host.
+output is printed after phase 17.  Phase 19's three CLI runs start after
+phase 12 in a thread's job of their own; it reads them after phase 18.  The
+times those runs print were taken beside other work on the card and the
+host.
 
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -3953,21 +3966,23 @@ def _export_worker(root: str, card: str) -> int:
     return 0
 
 
+def _low_priority_child():
+    """``_die_with_parent`` at nice 10: a child that runs beside timed phases."""
+    import os
+
+    _die_with_parent()
+    os.nice(10)
+
+
 def start_export_worker(root: Path, card: str):
     """Starts ``_export_worker`` at low priority beside the phases that
     follow phase 4; returns (Popen, log path)."""
-    import os
-
-    def child():
-        _die_with_parent()
-        os.nice(10)
-
     log = root / "export_worker.log"
     with open(log, "w") as f:
         proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--export-worker", str(root),
              card], cwd=REPO, stdin=subprocess.PIPE, stdout=f,
-            stderr=subprocess.STDOUT, text=True, preexec_fn=child)
+            stderr=subprocess.STDOUT, text=True, preexec_fn=_low_priority_child)
     return proc, log
 
 
@@ -5279,6 +5294,78 @@ def check_sp_training(root: Path, out: Path, card: str, cfg, ranks, one_grads, o
             "step_err": max(step_errs), "stat_errs": stat_errs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: golden acceptance through the port's CLI
+# ---------------------------------------------------------------------------
+
+def _golden_cli(root: Path, tag: str, models: str, dirs, *extra):
+    """The golden acceptance CLI on the card in a process of its own at low
+    priority, parity pointed at a path that does not exist, its GOLDEN.json
+    in ``root``."""
+    cmd = [sys.executable, "-m", "zipvoice_tpu_torch.bin.golden_acceptance",
+           "--models", models, "--model-dirs", ",".join(str(d) for d in dirs),
+           "--reference-path", str(root / "no-reference"),
+           "--output", str(root / f"golden_{tag}.json"), "--device", "cuda", *extra]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=REPO, preexec_fn=_low_priority_child)
+
+
+def run_phase19(root: Path, card: str):
+    """Phase 19: three runs of the golden acceptance CLI, started together:
+    phase 4's and phase 12's full-width dirs as ``--models all`` (every
+    tree passes and loads on the card, the tokenizer passes or is gated only
+    for a named G2P backend mismatch, parity is ``gated: no reference``;
+    exit 0), phase 4's base dir as zipvoice_dialog (tree fail with the
+    speaker embedding missing; exit 1) and the ``--dry-run`` of the first
+    (ready).  A job of its own ``Background`` from phase 12 on, beside
+    phases 13-18; returns the summary."""
+    t0 = time.monotonic()
+    dirs = [root] + [root / name for name in VARIANT_SEEDS]
+    procs = {"all": _golden_cli(root, "all", "all", dirs),
+             "wrong": _golden_cli(root, "wrong", "zipvoice_dialog", [root]),
+             "dry": _golden_cli(root, "dry", "all", dirs, "--dry-run")}
+    want = {"all": 0, "wrong": 1, "dry": 0}
+    stdout = {}
+    for tag, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != want[tag]:
+            raise AssertionError(f"golden CLI ({tag}) exit {proc.returncode}, want "
+                                 f"{want[tag]}:\n{out[-3000:]}\n{err[-3000:]}")
+        stdout[tag] = out
+    rep = json.loads((root / "golden_all.json").read_text())
+    if rep["overall"] != "pass" or [r["model_name"] for r in rep["reports"]] != [
+            "zipvoice", *VARIANT_SEEDS]:
+        raise AssertionError(f"golden acceptance: {stdout['all']}")
+    models = {}
+    for r in rep["reports"]:
+        checks = {c["check"]: c for c in r["checks"]}
+        tree, tok = checks["tree"], checks["tokenizer"]
+        battery = str(tok["sub"]["battery"])
+        backend_gate = (tok["status"] == "gated" and battery.startswith("gated: goldens pinned")
+                        and all(v == "pass" for k, v in tok["sub"].items() if k != "battery"))
+        if (tree["status"] != "pass" or not (tok["status"] == "pass" or backend_gate)
+                or checks["parity"] != {"check": "parity", "status": "gated: no reference"}):
+            raise AssertionError(f"golden acceptance {r['model_name']}: {r}")
+        models[r["model_name"]] = dict(n_tensors=tree["n_tensors"], tokenizer=tok["status"],
+                                       battery=battery, checked=tok["battery_checked"],
+                                       pending=tok["battery_pending"],
+                                       backend=tok["en_g2p_backend"])
+    wrong = json.loads((root / "golden_wrong.json").read_text())
+    wtree = wrong["reports"][0]["checks"][0]
+    if (wrong["overall"] != "fail" or wtree["status"] != "fail"
+            or not any("spk_embed" in k for k in wtree["missing"])):
+        raise AssertionError(f"golden acceptance, base dir as dialog: {wrong}")
+    dry = json.loads(stdout["dry"])
+    if dry["status"] != "ready":
+        raise AssertionError(f"golden dry run: {dry}")
+    return dict(models=models, wrong_missing=wtree["missing"], dry=dry["status"],
+                seconds=time.monotonic() - t0)
+
+
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
     case = results[key][main_key]
     every = results[key].values()
@@ -5390,6 +5477,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"phases 1-12: {time.monotonic() - t_start:.1f} s on {card}", flush=True)
         p13 = start_phase13(root, card)
+        bg19 = Background({"19": lambda: run_phase19(root, card)})
         ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms, bg)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5403,6 +5491,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         bigvgan, recipes, variant_grads = finish_phase13(p13, root)
         p18 = run_phase18(root, card, results, bg)
+        p19 = bg19.result("19")
     finally:
         for proc in (worker and worker[0], p13 and p13[0]):
             if proc is not None and proc.poll() is None:
@@ -5586,6 +5675,14 @@ def main() -> int:
           f"{[round(x['ms'], 1) for x in spt['one_steps']]}; kernel build {build_s:.1f} s, "
           f"phase 18 {p18['seconds']:.1f} s; total {time.monotonic() - t_start:.1f} s on "
           f"{card}", flush=True)
+    print("golden acceptance (phase 19): " + "; ".join(
+        f"{name} tree pass ({v['n_tensors']} tensors), tokenizer {v['tokenizer']} (battery "
+        f"{v['battery']}: {v['checked']} checked, {v['pending']} pending)"
+        for name, v in p19["models"].items())
+        + f"; parity gated: no reference; phase 4's base dir as zipvoice_dialog: exit 1, tree "
+        f"fail, missing {p19['wrong_missing']}; dry run {p19['dry']}; EN G2P "
+        f"{p19['models']['zipvoice']['backend']}; phase 19 {p19['seconds']:.1f} s; total "
+        f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "bin.infer_exported", "utils.flops", "eval.metrics", "ops.native",
                  "bin.prepare_dataset", "bin.prepare_tokens", "bin.make_tokens",
                  "bin.compute_fbank", "eval.models.utmos", "eval.models.ecapa_tdnn_wavlm",
-                 "eval.mos", "eval.sim", "eval.cpsim", "eval.wer"):
+                 "eval.mos", "eval.sim", "eval.cpsim", "eval.wer", "eval.golden",
+                 "bin.golden_acceptance"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

@@ -53,6 +53,19 @@ def _find_checkpoint(model_dir: Path, checkpoint_name: Optional[str]) -> Path:
     raise FileNotFoundError(f"no model.pt/model.safetensors in {model_dir}")
 
 
+def build_model(model_name: str, model_cfg: ZipVoiceConfig) -> torch.nn.Module:
+    """The variant's module on the meta device: names and shapes, no memory
+    and no random draws.  Distill's guidance-scale embedding is switched on
+    here, whether or not ``model_cfg`` has it."""
+    reg = MODEL_REGISTRY[model_name]
+    if reg["distill"]:
+        model_cfg = distill_config(model_cfg)
+    with torch.device("meta"):
+        if reg["variant"] == "zipvoice":
+            return ZipVoiceModel(model_cfg)
+        return ZipVoiceDialogModel(model_cfg, stereo=reg["variant"] == "dialog_stereo")
+
+
 def load_model_dir(
     model_dir: Optional[str],
     model_name: str = "zipvoice",
@@ -78,12 +91,7 @@ def load_model_dir(
     )
     if reg["distill"]:
         model_cfg = distill_config(model_cfg)
-    with torch.device("meta"):
-        if reg["variant"] == "zipvoice":
-            model = ZipVoiceModel(model_cfg)
-        else:
-            model = ZipVoiceDialogModel(model_cfg,
-                                        stereo=reg["variant"] == "dialog_stereo")
+    model = build_model(model_name, model_cfg)
     load_into(model, load_torch_state_dict(_find_checkpoint(model_dir, checkpoint_name)))
     return ModelAssets(model=model.float(), model_cfg=model_cfg, feat_cfg=feat_cfg,
                        tokenizer=tokenizer, defaults=dict(reg))
