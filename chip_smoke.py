@@ -242,6 +242,22 @@ Phases (each raises on failure; nothing is caught):
      (tree fail, the speaker embedding missing; exit 1) and the dry run of
      the first (ready); the statuses, tensor counts, EN G2P backend and the
      phase's seconds are printed.
+  20. the port as an installed package: the wheel built offline from a
+     copy of the checkout's files (``pip wheel --no-deps
+     --no-build-isolation --no-index``), holding all 19 native sources,
+     installed with ``pip install --no-deps --no-index --target`` into a
+     temporary directory outside the repo; from a working directory there
+     with only that directory on PYTHONPATH, the installed package's file,
+     its nine library names (equal to the checkout's: every source and
+     header installed and identical) and its native loader (built by g++
+     in the installed build/); then the installed build/ seeded with eight
+     of the checkout's nine libraries (all but probs_apply, B2) and the
+     installed ``zipvoice-torch-infer`` run on the card on phase 4's model
+     dir with --quantize int8-dynamic, f32, one batch-1 request of 16
+     tokens (prompt transcript and text): it compiles probs_apply alone
+     from the installed sources, exits 0, writes finite PCM16 of the
+     expected length and launches B1 260 and B2 520 times (15a's unfused
+     int8-dynamic pins); the phase's seconds are printed.
 
 Order: phases 1-9 run in this process one after another; then three jobs
 start in a thread (``Background``), one after another, each a run of other
@@ -249,8 +265,9 @@ processes: 14a's torchrun, 14b's ranks and phase 18's ranks, beside phases
 10-17 here; after phase 12, phase 13 starts in a process of its own
 (``--phase13-worker``) beside phases 14-17.  Phase 14 checks 14a's and 14b's
 runs when it reaches them, phase 18 its ranks' results, and phase 13's
-output is printed after phase 17.  Phase 19's three CLI runs start after
-phase 12 in a thread's job of their own; it reads them after phase 18.  The
+output is printed after phase 17.  Phase 19's three CLI runs, then phase
+20, start after phase 12 in a thread's jobs of their own; they are read
+after phase 18.  The
 times those runs print were taken beside other work on the card and the
 host.
 
@@ -1074,7 +1091,7 @@ BASE = "the quick brown fox jumps over the lazy dog, and then it runs away. "
 TEXTS = {"r4s": BASE[:60], "r8s": (BASE * 2)[:120], "r12s": (BASE * 3)[:180]}
 
 
-def expected_samples(text: str, prompt_samples: int) -> int:
+def expected_samples(text: str, prompt_samples: int, prompt_text: str = PROMPT_TEXT) -> int:
     """(gen_len - 1) * hop, with gen_len from the token-ratio duration."""
     import numpy as np
 
@@ -1082,7 +1099,7 @@ def expected_samples(text: str, prompt_samples: int) -> int:
     from zipvoice_tpu_torch.models.zipvoice import predict_features_lens
 
     pf = compute_num_frames(prompt_samples, 256)
-    total = predict_features_lens(np.array([pf]), np.array([len(PROMPT_TEXT)]),
+    total = predict_features_lens(np.array([pf]), np.array([len(prompt_text)]),
                                   np.array([len(text)]))[0]
     return (int(total) - pf - 1) * 256
 
@@ -3485,8 +3502,11 @@ INT8_FUSED_PER_REQUEST = {"B2": LAYERS_PER_REQUEST, "B6": LAYERS_PER_REQUEST,
                           "B7": LAYERS_PER_REQUEST}
 # linear_int8 on the card against its CPU result: (M, K, N) of the full
 # width's serving shapes (CFG batch 2 x 1024 frames through an fm_decoder
-# feed-forward's two linears; 2 x 192 tokens into a text-encoder one)
-INT8_LINEAR_SHAPES = ((2048, 512, 1536), (2048, 1536, 512), (384, 192, 512))
+# feed-forward's two linears; 2 x 192 tokens into a text-encoder one; 16
+# rows into one, fewer than torch._int_mm's card kernel takes), and K and N
+# that are not multiples of 8 (int8_matmul pads all three with zeros)
+INT8_LINEAR_SHAPES = ((2048, 512, 1536), (2048, 1536, 512), (384, 192, 512), (16, 192, 512),
+                      (5, 100, 36))
 # the exported fused sampler's steps: 4 of the recipe's 16, a cut of depth.
 # torch.export has no loop, so the steps unroll (about 4k graph nodes a
 # step), and the trace, save and load of the 16-step program took 7 minutes
@@ -3545,12 +3565,13 @@ def check_linear_int8_against_cpu(card: str):
     CPU result on the same inputs, f32 and bf16, both modes, at
     INT8_LINEAR_SHAPES.  Weight-only f32: within 1e-5 of the largest
     |value| (the sum's order); bf16: each value within one bf16 rounding
-    (2**-7 of it) plus 1e-5 of the largest; dynamic: the int8 rows and
-    their scales equal, the output within 1e-6 of the largest.  Returns
+    (2**-7 of it) plus 1e-5 of the largest; dynamic: the int8 rows, their
+    scales and the int32 products (``int8_matmul``) equal, the output within
+    1e-6 of the largest.  Returns
     the worst error over the largest |value| for each (mode, dtype)."""
     import torch
 
-    from zipvoice_tpu_torch.nn.functional import linear_int8, quantize_rows
+    from zipvoice_tpu_torch.nn.functional import int8_matmul, linear_int8, quantize_rows
     from zipvoice_tpu_torch.ops.quant import quantize_weight
 
     g = torch.Generator().manual_seed(11)
@@ -3570,6 +3591,8 @@ def check_linear_int8_against_cpu(card: str):
                 if dynamic:
                     (qc, sc), (qr, sr) = quantize_rows(x.cuda()), quantize_rows(x)
                     ok = (torch.equal(qc.cpu(), qr) and torch.equal(sc.cpu(), sr)
+                          and torch.equal(int8_matmul(qc, w_q.cuda()).cpu(),
+                                          int8_matmul(qr, w_q))
                           and float(diff.max()) <= 1e-6 * scale)
                 elif dtype == torch.float32:
                     ok = float(diff.max()) <= 1e-5 * scale
@@ -5366,6 +5389,173 @@ def run_phase19(root: Path, card: str):
                 seconds=time.monotonic() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the port as an installed package
+# ---------------------------------------------------------------------------
+
+# 16 tokens of the character tokenizer in all, at most 16 rows into the text
+# encoder's int8 linears before the pipeline's token bucket pads them
+SHORT_PROMPT_TEXT, SHORT_TEXT = "hello", "the red fox"
+# pip with no index, no check for a newer pip and no cache: it contacts no
+# host and writes nothing outside its temporary directories
+PIP_OFFLINE = ("--no-index", "--disable-pip-version-check", "--no-cache-dir")
+# the installed copy, imported from outside the repo: where it lives, the
+# names of its nine libraries, its build directory and its native loader
+_INSTALLED_PROBE = r"""
+import json
+import zipvoice_tpu_torch
+from zipvoice_tpu_torch.ops import build, native
+print(json.dumps({"file": zipvoice_tpu_torch.__file__, "build_dir": str(build.build_dir()),
+                  "names": {n: build.library_path(n).name for n in build.SOURCES},
+                  "native": native.available(), "native_path": str(native.library_path())}))
+"""
+# runs an installed console script (argv[2:]) as its own interpreter would,
+# then writes the kernels' launches and what ops/build.py compiled to argv[1]
+_SCRIPT_LAUNCHER = r"""
+import atexit, json, runpy, sys
+report = sys.argv[1]
+
+
+def dump():
+    from zipvoice_tpu_torch.ops import build
+    from zipvoice_tpu_torch.utils.graphs import launch_counters
+
+    with open(report, "w") as f:
+        json.dump({"launches": {k: c.launches for k, c in launch_counters().items()},
+                   "compiled": sorted(build.SECONDS), "csrc": str(build.CSRC),
+                   "build_dir": str(build.build_dir())}, f)
+
+
+atexit.register(dump)
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def _checked_run(cmd, what: str, timeout: float, **kw):
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, **kw)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def native_sources() -> set:
+    """Every file of the port's csrc/ and its native loader's source, as the
+    wheel names them."""
+    csrc = REPO / "zipvoice_tpu_torch" / "csrc"
+    return {f"zipvoice_tpu_torch/csrc/{f.name}" for f in csrc.iterdir()} | {
+        "zipvoice_tpu_torch/ops/cpp/zipvoice_io.cc"}
+
+
+def build_wheel(out: Path) -> Path:
+    """The wheel, built offline from a copy of the checkout's packages,
+    pyproject.toml and README.md in ``out/src`` (pip writes build/ and an
+    egg-info into the tree it builds; the checkout's build/, egg-info and
+    caches are left out); checks that it holds every file of
+    ``native_sources()`` and returns its path."""
+    import zipfile
+
+    src = out / "src"
+    skip = shutil.ignore_patterns("build", "*.egg-info", "__pycache__", ".pytest_cache")
+    for name in ("zipvoice_tpu", "zipvoice_tpu_torch"):
+        shutil.copytree(REPO / name, src / name, ignore=skip)
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy2(REPO / name, src / name)
+    _checked_run([sys.executable, "-m", "pip", "wheel", ".", "--no-deps", "--no-build-isolation",
+                  *PIP_OFFLINE, "-w", str(out / "dist")], "pip wheel", 300, cwd=src)
+    (wheel,) = (out / "dist").glob("*.whl")
+    with zipfile.ZipFile(wheel) as z:
+        held = set(z.namelist())
+    native = native_sources()
+    if len(native) != 19 or not native <= held:
+        raise AssertionError(f"the wheel lacks {sorted(native - held)}")
+    return wheel
+
+
+def install_wheel(wheel: Path, site: Path) -> dict:
+    """``pip install --target site`` of the wheel, then _INSTALLED_PROBE's
+    report from a working directory outside the repo with only ``site`` on
+    PYTHONPATH."""
+    import os
+
+    _checked_run([sys.executable, "-m", "pip", "install", "--no-deps", *PIP_OFFLINE,
+                  "--target", str(site), str(wheel)], "pip install", 300)
+    out = _checked_run([sys.executable, "-c", _INSTALLED_PROBE], "the installed package", 300,
+                       cwd=site.parent, env={**os.environ, "PYTHONPATH": str(site)})
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def run_phase20(root: Path, card: str):
+    """Phase 20: the wheel built offline from the checkout's files (pip
+    wheel --no-build-isolation), holding every native source; installed
+    with pip --target into a temporary directory outside the repo; there,
+    from a working directory outside the repo, the installed package's
+    file, its nine library names (equal to the checkout's) and its native
+    loader; then its build directory seeded with eight of the checkout's
+    nine libraries (all but probs_apply, B2) and the installed
+    zipvoice-torch-infer run on the card on phase 4's model dir with
+    --quantize int8-dynamic, one batch-1 request of 16 tokens: it compiles
+    probs_apply alone, from the installed sources, exits 0, writes finite
+    PCM16 of the expected length and launches B1 260 and B2 520 times.  A
+    job of ``Background`` after phase 19's; returns the summary."""
+    import os
+
+    import numpy as np
+
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.ops import build
+
+    t0 = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="zipvoice-installed-")).resolve()
+    try:
+        wheel = build_wheel(tmp)
+        wheel_s = time.monotonic() - t0
+        site = tmp / "site"
+        probe = install_wheel(wheel, site)
+        want_names = {n: build.library_path(n).name for n in build.SOURCES}
+        out_build = Path(probe["build_dir"])
+        if (not Path(probe["file"]).is_relative_to(site) or probe["names"] != want_names
+                or len(want_names) != 9 or not out_build.is_relative_to(site)
+                or not probe["native"] or not Path(probe["native_path"]).is_relative_to(site)):
+            raise AssertionError(f"the installed package: {probe}, want the names {want_names}")
+        for name in build.SOURCES:
+            if name != "probs_apply":
+                shutil.copy2(build.library_path(name), out_build / want_names[name])
+
+        lst = tmp / "short.tsv"
+        lst.write_text(f"short\t{SHORT_PROMPT_TEXT}\t{root / 'prompt.wav'}\t{SHORT_TEXT}\n")
+        report = tmp / "launches.json"
+        t1 = time.monotonic()
+        _checked_run([sys.executable, "-c", _SCRIPT_LAUNCHER, str(report),
+                      str(site / "bin" / "zipvoice-torch-infer"),
+                      "--model-dir", str(root), "--vocoder-path", str(root / "vocos.bin"),
+                      "--tokenizer", "simple", "--test-list", str(lst), "--res-dir",
+                      str(tmp / "out"), "--num-step", str(N_STEP), "--guidance-scale", "1.0",
+                      "--dtype", "float32", "--device", "cuda", "--quantize", "int8-dynamic"],
+                     "the installed zipvoice-torch-infer", 600, cwd=tmp,
+                     env={**os.environ, "PYTHONPATH": str(site)},
+                     preexec_fn=_low_priority_child)
+        cli_s = time.monotonic() - t1
+        rep = json.loads(report.read_text())
+        want = {k: UNFUSED_PER_REQUEST.get(k, 0) for k in rep["launches"]}
+        if (rep["launches"] != want or rep["compiled"] != ["link probs_apply", "probs_apply"]
+                or not Path(rep["csrc"]).is_relative_to(site)
+                or Path(rep["build_dir"]) != out_build
+                or not (out_build / want_names["probs_apply"]).exists()):
+            raise AssertionError(f"the installed CLI's run: {rep}, want launches {want} and "
+                                 f"probs_apply alone compiled from {site}")
+        wav, sr = read_wav(tmp / "out" / "short.wav")
+        exp = expected_samples(SHORT_TEXT, 3 * 24000, SHORT_PROMPT_TEXT)
+        if sr != 24000 or wav.shape != (1, exp) or not np.isfinite(wav).all():
+            raise AssertionError(f"the installed CLI's wav {wav.shape} at {sr}, want (1, {exp})")
+        return dict(tokens=len(SHORT_PROMPT_TEXT) + len(SHORT_TEXT), launches=rep["launches"],
+                    compiled=rep["compiled"], samples=exp, wheel_s=wheel_s, cli_s=cli_s,
+                    seconds=time.monotonic() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
     case = results[key][main_key]
     every = results[key].values()
@@ -5425,8 +5615,7 @@ def main() -> int:
     fused_results, apply_launches, apply_grad_err = check_fused_kernels()
     results.update(fused_results)
 
-    build.BUILD.mkdir(parents=True, exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="smoke-", dir=build.BUILD))
+    root = Path(tempfile.mkdtemp(prefix="smoke-", dir=build.build_dir()))
     worker = p13 = None
     try:
         t0 = time.monotonic()
@@ -5477,7 +5666,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"phases 1-12: {time.monotonic() - t_start:.1f} s on {card}", flush=True)
         p13 = start_phase13(root, card)
-        bg19 = Background({"19": lambda: run_phase19(root, card)})
+        bg_cli = Background({"19": lambda: run_phase19(root, card),
+                             "20": lambda: run_phase20(root, card)})
         ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms, bg)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5491,7 +5681,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         bigvgan, recipes, variant_grads = finish_phase13(p13, root)
         p18 = run_phase18(root, card, results, bg)
-        p19 = bg19.result("19")
+        p19 = bg_cli.result("19")
+        p20 = bg_cli.result("20")
     finally:
         for proc in (worker and worker[0], p13 and p13[0]):
             if proc is not None and proc.poll() is None:
@@ -5683,6 +5874,12 @@ def main() -> int:
         f"fail, missing {p19['wrong_missing']}; dry run {p19['dry']}; EN G2P "
         f"{p19['models']['zipvoice']['backend']}; phase 19 {p19['seconds']:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s on {card}", flush=True)
+    print(f"installed package (phase 20): the wheel with every native source in "
+          f"{p20['wheel_s']:.1f} s, the nine library names equal to the checkout's, "
+          f"the native loader available; zipvoice-torch-infer --quantize int8-dynamic on "
+          f"{p20['tokens']} tokens: compiled {p20['compiled']}, launches {p20['launches']}, "
+          f"{p20['samples']} samples, {p20['cli_s']:.1f} s; phase 20 {p20['seconds']:.1f} s; "
+          f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -139,6 +139,10 @@ def _misshaped(sd):
     return sd
 
 
+def _depthwise_2d(sd):
+    return {**sd, DW: sd[DW][:, 0, :]}
+
+
 # (checked as, the dir's variant, state-dict edit, written as, expectation)
 BROKEN = {
     "wrong_variant": ("zipvoice_dialog", "zipvoice", None, {}, "equal"),
@@ -167,9 +171,8 @@ BROKEN = {
                          lambda sd: {**sd, "embed.weight.extra": np.ones((), np.float32)},
                          {}, "raise"),
     # a 2-D (C, K) depthwise weight: JAX's round trip reads it as (C, 1, K)
-    # and passes; the port's strict load refuses it
-    "depthwise_2d": ("zipvoice", "zipvoice", lambda sd: {**sd, DW: sd[DW][:, 0, :]}, {},
-                     "port_raises"),
+    # and passes; so does the port's checkpoint reading
+    "depthwise_2d": ("zipvoice", "zipvoice", _depthwise_2d, {}, "equal"),
 }
 
 
@@ -185,17 +188,12 @@ def test_broken_checkpoint_reports_equal_jax(state_dicts, dirs, tmp_path, case):
             golden.check_tree(name, d, "cpu")
         return
     ref = jgolden.check_tree(name, d)
-    if expect == "port_raises":
-        assert ref["status"] == "pass", ref
-        with pytest.raises(RuntimeError, match="size mismatch"):
-            golden.check_tree(name, d, "cpu")
-        return
     ours = golden.check_tree(name, d, "cpu")
     assert ours == ref
     if case == "wrong_variant":
         assert ours["status"] == "fail"
         assert any("spk_embed" in k for k in ours["missing"]), ours
-    elif case in ("module_prefix", "bare_state_dict", "safetensors"):
+    elif case in ("module_prefix", "bare_state_dict", "safetensors", "depthwise_2d"):
         assert ours["status"] == "pass"
         assert ours["n_tensors"] == len(state_dicts[source])
     else:
@@ -207,6 +205,32 @@ def test_broken_checkpoint_reports_equal_jax(state_dicts, dirs, tmp_path, case):
         assert ours["extra"] == ["scale"]
     if case == "module_duplicate":
         assert ours["shape_mismatch"] == ["embed.weight"]
+
+
+def test_depthwise_2d_loads_and_passes_cli(state_dicts, dirs, tmp_path):
+    """A checkpoint whose depthwise conv weight is 2-D (C, K): the port's
+    ``load_model_dir`` loads it into the weights of the 3-D one, whose
+    depthwise conv computes the same output bit for bit, and the golden CLI
+    writes GOLDEN.json with the tree ``pass`` (exit 0), as JAX's does."""
+    from zipvoice_tpu_torch.io.model_dir import load_model_dir
+
+    d = _write_dir(tmp_path / "dw2d", _depthwise_2d(state_dicts["zipvoice"]))
+    flat = load_model_dir(str(d), tokenizer_name="simple").model
+    ref = load_model_dir(str(dirs["zipvoice"]), tokenizer_name="simple").model
+    for k, v in ref.state_dict().items():
+        assert torch.equal(flat.state_dict()[k], v), k
+    conv = DW.rsplit(".", 1)[0]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, TINY["fm_decoder_dim"], 13)).astype(np.float32))
+    with torch.no_grad():
+        got, want = flat.get_submodule(conv)(x), ref.get_submodule(conv)(x)
+    assert torch.equal(got, want)
+    out = tmp_path / "golden.json"
+    assert tcli.main(["--models", "zipvoice", "--model-dirs", str(d), "--reference-path",
+                      str(tmp_path / "no-reference"), "--output", str(out),
+                      "--device", "cpu"]) == 0
+    tree = json.loads(out.read_text())["reports"][0]["checks"][0]
+    assert tree["check"] == "tree" and tree["status"] == "pass", tree
 
 
 def _patch_en_regression(mp, tok_mod, en_mod):

@@ -146,7 +146,7 @@ def fake_tree(tmp_path, monkeypatch):
                     "print(' '.join(a))\nopen(a[a.index('-o') + 1], 'w').write('x')\n")
     nvcc.chmod(0o755)
     monkeypatch.setattr(build, "CSRC", csrc)
-    monkeypatch.setattr(build, "BUILD", out)
+    monkeypatch.setattr(build, "build_dir", lambda: out)
     monkeypatch.setattr(build, "SOURCES", ("a", "c"))
     monkeypatch.setattr(build, "EXTRA_SOURCES", {"a": ("b",)})
     monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))

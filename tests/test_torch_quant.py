@@ -36,7 +36,7 @@ from zipvoice_tpu_torch.io.model_dir import load_model_dir
 from zipvoice_tpu_torch.models import dialog as tdialog
 from zipvoice_tpu_torch.models import zipvoice as tzv
 from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
-from zipvoice_tpu_torch.nn.functional import linear_int8, quantize_rows
+from zipvoice_tpu_torch.nn.functional import int8_matmul, linear_int8, quantize_rows
 from zipvoice_tpu_torch.ops import quant
 from zipvoice_tpu_torch.text.tokenizer import write_token_file
 from zipvoice_tpu_torch.utils import flops
@@ -181,6 +181,39 @@ def test_int8_linear_matches_jax(dynamic):
     np.testing.assert_array_equal(qx.numpy(), np.asarray(jqx))
     np.testing.assert_array_equal(ts_x.numpy(), np.asarray(s_x))
     np.testing.assert_array_equal(torch._int_mm(qx, q.t()).numpy(), np.asarray(jy))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 17])
+@pytest.mark.parametrize("k,n", [(100, 100), (192, 100), (96, 36)])
+def test_int8_dynamic_every_shape_matches_jax(m, k, n):
+    """int8-dynamic at row counts and widths that torch._int_mm's card
+    kernel refuses (M <= 16, K or N not a multiple of 8; ``int8_matmul``
+    pads them with zeros on every device): the int32 product equals JAX's
+    bit for bit, the output within test_int8_linear_matches_jax's tolerance
+    of JAX's linear."""
+    rng = np.random.default_rng(1000 * m + k + n)
+    w = rng.standard_normal((k, n)).astype(np.float32)  # JAX layout (in, out)
+    b = rng.standard_normal(n).astype(np.float32)
+    x = (rng.standard_normal((m, k)) * 2.0).astype(np.float32)
+    jp = jquant.quantize_linear_int8({"lin": {"weight": w, "bias": b}}, min_elems=1)["lin"]
+    q, scale = quant.quantize_weight(torch.from_numpy(w.T.copy()))
+    jF.set_int8_dynamic(True)
+    try:
+        want = np.asarray(jF.linear(jp, jnp.asarray(x)))
+    finally:
+        jF.set_int8_dynamic(False)
+    got = linear_int8(torch.from_numpy(x), q, scale, torch.from_numpy(b), True).numpy()
+    x32 = jnp.asarray(x)
+    s_x = jnp.maximum(jnp.max(jnp.abs(x32), axis=-1, keepdims=True) / 127.0, 1e-12)
+    jqx = jnp.clip(jnp.round(x32 / s_x), -127, 127).astype(jnp.int8)
+    jy = jax.lax.dot_general(jqx, jp["weight_int8"], (((1,), (0,)), ((), ())),
+                             preferred_element_type=jnp.int32)
+    qx, _ = quantize_rows(torch.from_numpy(x))
+    y = int8_matmul(qx, q)
+    assert y.dtype == torch.int32 and y.shape == (m, n)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    assert got.shape == want.shape == (m, n)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
 
 

@@ -44,8 +44,7 @@ def main() -> int:
     t0 = time.monotonic()
     build.build_all()
     print(f"build {time.monotonic() - t0:.1f} s", flush=True)
-    build.BUILD.mkdir(parents=True, exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="ddp-", dir=build.BUILD))
+    root = Path(tempfile.mkdtemp(prefix="ddp-", dir=build.build_dir()))
     cs.make_assets(root)
     manifest = cs.make_corpus(root, n=32)
     out = root / "ranks"

@@ -217,8 +217,7 @@ def main() -> int:
     t0 = time.monotonic()
     build.build_all()
     print(f"build {time.monotonic() - t0:.1f} s", flush=True)
-    build.BUILD.mkdir(parents=True, exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="parallel-", dir=build.BUILD))
+    root = Path(tempfile.mkdtemp(prefix="parallel-", dir=build.build_dir()))
     cs.make_assets(root)
     out_sp, out_dp = root / "sp_tp", root / "dp"
     out_sp.mkdir()

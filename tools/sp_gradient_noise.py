@@ -207,8 +207,7 @@ def main() -> int:
     t0 = time.monotonic()
     build.build_all()
     print(f"build {time.monotonic() - t0:.1f} s", flush=True)
-    build.BUILD.mkdir(parents=True, exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="sp-noise-", dir=build.BUILD))
+    root = Path(tempfile.mkdtemp(prefix="sp-noise-", dir=build.build_dir()))
     cs.make_assets(root)
     out = root / "out"
     out.mkdir()

@@ -70,7 +70,7 @@ def route_libraries(build):
     the narrow route or the wide one: {route: path}, all compiles at once."""
     import os
 
-    out = build.BUILD / "crossover"
+    out = build.build_dir() / "crossover"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
     srcs = build.sources("rel_apply")
@@ -130,9 +130,8 @@ def main() -> int:
     from zipvoice_tpu_torch.ops import build
 
     if args.full_build:
-        build.BUILD.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=build.BUILD) as tmp:
-            build.BUILD = Path(tmp)
+        with tempfile.TemporaryDirectory(dir=build.build_dir()) as tmp:
+            build.build_dir = lambda: Path(tmp)
             t0 = time.monotonic()
             build.build_all()
             seconds = time.monotonic() - t0

@@ -167,5 +167,14 @@ def main(argv=None):
     return all_metrics
 
 
+
+def cli(argv=None) -> int:
+    """The console script's entry point: ``main``, then exit code 0.
+    ``main`` returns its metrics, which ``sys.exit`` would print and
+    turn into exit code 1; a failure raises."""
+    main(argv)
+    return 0
+
+
 if __name__ == "__main__":
     main()

@@ -183,5 +183,14 @@ def print_diagnostics(model, batch) -> None:
         t=torch.full((b,), 0.5, device=feats.device))))
 
 
+
+def cli(argv=None) -> int:
+    """The console script's entry point: ``main``, then exit code 0.
+    ``main`` returns the trainer and its steps, which ``sys.exit`` would
+    print and turn into exit code 1; a failure raises."""
+    main(argv)
+    return 0
+
+
 if __name__ == "__main__":
     main()

@@ -86,16 +86,14 @@ def _checkpoint_tree(sd: Mapping[str, np.ndarray]) -> Dict[str, Tuple[int, ...]]
     """{name: shape} of a checkpoint as the JAX package reads it back: its
     loader nests the dotted names and flattens them again (a name replaces
     the earlier names it is a prefix of; a leading dot is dropped),
-    and its layout round trip gives a 2-D ``depthwise_conv.weight`` (a, b)
-    the shape (a, 1, b) and refuses a 3-D one whose middle axis is not 1."""
+    and its layout round trip refuses a 3-D ``depthwise_conv.weight`` whose
+    middle axis is not 1 (``load_torch_state_dict`` has given a 2-D one
+    its middle axis, as JAX's reading does)."""
     root: Dict = {}
     for key, arr in sd.items():
         shape = tuple(np.shape(arr))
-        if key.endswith("depthwise_conv.weight"):
-            if len(shape) == 3 and shape[1] != 1:
-                raise ValueError(f"{key}: a depthwise conv weight is (C, 1, K), got {shape}")
-            if len(shape) == 2:
-                shape = (shape[0], 1, shape[1])
+        if key.endswith("depthwise_conv.weight") and len(shape) == 3 and shape[1] != 1:
+            raise ValueError(f"{key}: a depthwise conv weight is (C, 1, K), got {shape}")
         parts = key.split(".")
         node = root
         for part in parts[:-1]:

@@ -4,7 +4,8 @@ The published ZipVoice checkpoints are flat torch state_dicts keyed by
 dotted module paths (a ``.pt`` holds ``{"model": state_dict, ...}`` or a
 bare state_dict; DDP adds a ``module.`` prefix).  The port's modules use
 exactly those names and torch layouts, so loading is a strict
-``load_state_dict``.
+``load_state_dict``; a 2-D (C, K) depthwise conv weight, which the JAX
+package loads, is read as (C, 1, K).
 
 ``from_jax_params`` takes the JAX package's nested parameter tree (as
 numpy arrays) and undoes its two layout changes:
@@ -38,22 +39,29 @@ def _strip_module_prefix(key: str) -> str:
 
 def load_torch_state_dict(path: Union[str, Path]) -> Dict[str, np.ndarray]:
     """Load a torch ``.pt`` / ``.safetensors`` checkpoint into numpy,
-    unwrapping ``{"model": sd}`` and stripping the DDP ``module.`` prefix."""
+    unwrapping ``{"model": sd}``, stripping the DDP ``module.`` prefix and
+    giving a 2-D depthwise conv weight its middle axis."""
     path = Path(path)
     if path.suffix == ".safetensors":
         from safetensors.numpy import load_file
 
-        return {_strip_module_prefix(k): v for k, v in load_file(str(path)).items()}
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(ckpt, dict) and "model" in ckpt and isinstance(ckpt["model"], dict):
-        sd = ckpt["model"]
+        sd = load_file(str(path))
     else:
-        sd = ckpt
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(ckpt, dict) and "model" in ckpt and isinstance(ckpt["model"], dict):
+            sd = ckpt["model"]
+        else:
+            sd = ckpt
     out = {}
     for k, v in sd.items():
         if hasattr(v, "detach"):
             v = v.detach().cpu().numpy()
-        out[_strip_module_prefix(k)] = np.asarray(v)
+        k, v = _strip_module_prefix(k), np.asarray(v)
+        if k.endswith("depthwise_conv.weight") and v.ndim == 2:
+            # (C, K), which the JAX package loads (it reads the tensor as a
+            # linear weight and transposes it into its (K, C) depthwise layout)
+            v = v[:, None, :]
+        out[k] = v
     return out
 
 

@@ -64,6 +64,24 @@ def quantize_rows(x: torch.Tensor):
     return torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8), s_x
 
 
+def int8_matmul(qx: torch.Tensor, weight_int8: torch.Tensor) -> torch.Tensor:
+    """The int32 (M, N) product of (M, K) int8 rows and an (N, K) int8
+    weight through ``torch._int_mm``, at any shape: its card kernel takes
+    more than 16 rows and K and N that are multiples of 8, so the rows are
+    padded to at least 17 and K and N to multiples of 8 with zeros (on
+    every device, no copy where the shape already fits), and the product
+    sliced.  Zeros add nothing to an integer sum: the result is the
+    unpadded product bit for bit."""
+    m, k = qx.shape
+    n = weight_int8.shape[0]
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_m or pad_k:
+        qx = F.pad(qx, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        weight_int8 = F.pad(weight_int8, (0, pad_k, 0, pad_n))
+    return torch._int_mm(qx, weight_int8.t())[:m, :n]
+
+
 def linear_int8(x: torch.Tensor, weight_int8: torch.Tensor, weight_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, dynamic: bool = False) -> torch.Tensor:
     """Dense layer over an int8 (out, in) weight with its f32 per-output-
@@ -73,18 +91,14 @@ def linear_int8(x: torch.Tensor, weight_int8: torch.Tensor, weight_scale: torch.
     times the f32 scale, then rounded to x.dtype once.  Dynamic: x is
     quantized per row (s_x = max(max|x_row| / 127, 1e-12), round half to
     even, clip to +-127), the product runs int8 x int8 -> int32, and the
-    f32 result is (y * s_x) * scale.  On the card the int32 product is
-    ``torch._int_mm``, which takes more than 16 rows and an input and output
-    width that are multiples of 8; another shape raises."""
+    f32 result is (y * s_x) * scale, y from ``int8_matmul`` at every
+    shape."""
     k, n = weight_int8.shape[1], weight_int8.shape[0]
     x2 = x.reshape(-1, k)
     scale = weight_scale.float()
     if dynamic:
         qx, s_x = quantize_rows(x2)
-        if qx.is_cuda and (qx.shape[0] <= 16 or k % 8 or n % 8):
-            raise ValueError(f"linear_int8: torch._int_mm takes M > 16 and K, N "
-                             f"multiples of 8, not M={qx.shape[0]} K={k} N={n}")
-        y = torch._int_mm(qx, weight_int8.t()).float() * s_x * scale
+        y = int8_matmul(qx, weight_int8).float() * s_x * scale
     elif x.is_cuda and x.dtype != torch.float32:
         # half-precision inputs with an f32 accumulator and f32 output
         y = torch.mm(x2, weight_int8.to(x.dtype).t(), out_dtype=torch.float32) * scale

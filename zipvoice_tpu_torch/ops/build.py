@@ -3,20 +3,24 @@
 Each library ``<name>`` is ``csrc/<name>.cu`` (and the sources that
 ``EXTRA_SOURCES`` adds to it), compiled by ``nvcc`` for ``sm_90a`` and
 linked into a shared library with a plain C interface,
-``build/lib<name>-<hash>.so``, loaded through ctypes.  The hash is of the
-library's sources and of the shared headers (``csrc/*.cuh``), so an edited
-kernel is rebuilt and a stale library is never loaded.  Nothing is compiled
-when the module is imported: the first kernel call (or ``build_all``) does
-it, and all sources compile in parallel.
+``lib<name>-<hash>.so`` in ``build_dir()``, loaded through ctypes.  The
+hash is of the library's sources and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
+never loaded.  Nothing is compiled when the module is imported: the first
+kernel call (or ``build_all``) does it, and all sources compile in
+parallel.  The sources ship in the wheel as package data, so an installed
+package builds from its own copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -24,7 +28,6 @@ from typing import Dict, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-BUILD = PKG / "build"
 SOURCES = ("rel_probs", "rel_probs_consume", "probs_apply", "rel_ds", "rel_apply_bwd",
            "log_mel", "rel_consume_fwd", "conv_glu", "rel_apply")
 # further sources of a library, each its own nvcc process: B6's, B3's and
@@ -43,6 +46,24 @@ NVCC_FLAGS = (
 SECONDS: Dict[str, float] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 _entry_points: Dict[Tuple[str, str], object] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def build_dir(preferred: Path = PKG / "build") -> Path:
+    """The directory the port's native libraries are built in and loaded
+    from, created: ``preferred`` (the package's ``build/``, as in a
+    checkout) when it can be created and written, else a per-user cache,
+    ``$XDG_CACHE_HOME/zipvoice_tpu_torch/build`` (``~/.cache`` without
+    ``XDG_CACHE_HOME``), for an installed package whose tree is read-only."""
+    try:
+        preferred.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=preferred):
+            return preferred
+    except OSError:
+        cache = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache")
+        out = cache / "zipvoice_tpu_torch" / "build"
+        out.mkdir(parents=True, exist_ok=True)
+        return out
 
 
 def _nvcc() -> str:
@@ -67,7 +88,7 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build_all() -> Dict[str, str]:
@@ -76,7 +97,8 @@ def build_all() -> Dict[str, str]:
     todo = [n for n in SOURCES if not library_path(n).exists()]
     if not todo:
         return {}
-    BUILD.mkdir(parents=True, exist_ok=True)
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
 
     def run(cmds, label):
@@ -102,7 +124,7 @@ def build_all() -> Dict[str, str]:
 
     # every source to an object, all at once; then each library linked
     tag = f"{os.getpid()}.tmp"
-    objs = {(name, src): BUILD / f"{src}.{tag}.o" for name in todo for src in sources(name)}
+    objs = {(name, src): out / f"{src}.{tag}.o" for name in todo for src in sources(name)}
     SECONDS.clear()
     outs, bad = run({key: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / f"{key[1]}.cu")]
                      for key, obj in objs.items()}, lambda key: key[1])

@@ -4,8 +4,9 @@
 files on a pool of native threads: the host side of the training path,
 whose output feeds the fbank kernel (B8) in every batch.  The library is a
 host library, not a device kernel.  g++ builds it at first use into
-``build/libzipvoice_io-<hash>.so``, the hash being of the source, so an
-edited source is rebuilt and a stale library is never loaded.  The build
+``libzipvoice_io-<hash>.so`` in the kernels' build directory
+(``ops/build.build_dir``), the hash being of the source, so an edited
+source is rebuilt and a stale library is never loaded.  The build
 writes a temporary file and renames it into place, so processes that build
 at the same time never load a half-written library.  Without a compiler
 ``available()`` is false and the callers take the numpy path of
@@ -25,8 +26,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from zipvoice_tpu_torch.ops.build import build_dir
+
 _SRC = Path(__file__).resolve().parent / "cpp" / "zipvoice_io.cc"
-_BUILD = Path(__file__).resolve().parent.parent / "build"
+# the package's build/, where build_dir takes it to be writable
+_PREFERRED = Path(__file__).resolve().parent.parent / "build"
 # no -march=native: the library's output stays the same on every host
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
@@ -40,7 +44,7 @@ class NativeUnavailable(RuntimeError):
 
 def library_path() -> Path:
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    return _BUILD / f"libzipvoice_io-{digest}.so"
+    return build_dir(_PREFERRED) / f"libzipvoice_io-{digest}.so"
 
 
 def _build(lib: Path) -> bool:
@@ -48,7 +52,7 @@ def _build(lib: Path) -> bool:
     rename onto ``lib``."""
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
-        _BUILD.mkdir(parents=True, exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC), "-lpthread"],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, lib)
