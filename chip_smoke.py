@@ -201,14 +201,25 @@ Phases (each raises on failure; nothing is caught):
      and (H=1, vd=384), B4 with the failsafe on and off at H=4: Tq 512 of
      Tk 1024 at r0 0 and 512 (B=8, the SP step's stack-0 halves), Tq 1536
      of 3072 (B=2) and Tq 20 of 40 (B=8), with times and bounds beside
-     phase 3b's square T=1024 times; then two
+     phase 3b's square T=1024 times; B6 and B7 (C 384, 144 at the text
+     tile) on B1's tiles and Tq 512 of 1024 at r0 512, f32 and bf16, with
+     times and bounds beside phase 3c's square ones and whether B6's
+     probabilities equal the square kernel's rows bit for bit; B9 on a
+     rank's 1536 of 3072 rows (r0 0 and 1536) with 15 halo rows a side
+     (C = D = 512, K = 31, B = 2; zeros past the sequence), f32 against
+     f64 and bf16 against its plain version; then two
      gloo ranks sharing the card (NCCL refuses two ranks on one card,
      14b): 18b, models/zipvoice.sp_sample at full width (phase 4's
      weights, f32, TF32 off) on one request of 3072 frames (32.8 s), 16
      steps with CFG, against one process's sample on the card with the
      same noise (relative L2 <= 1e-4), each rank's launches (B1 260, B2
      520) and collectives pinned (gloo runs each on the CUDA tensors
-     itself), the wall of both; 18c, tp = 2:
+     itself), the wall of both; the same request again with both fused
+     eval flags, against one process's fused sample (relative L2 <= 1e-4),
+     each rank's launches pinned (B1 0, B2 260, B6 260, B7 260, B9 520; of
+     them the fm_decoder's B2, B6 and B7, 256 each, on rectangular tiles
+     and its 512 B9 with halo rows) and its collectives as unfused, the
+     wall of both; 18c, tp = 2:
      one f32 step's summed gradient (B=8, T=1024, no regularizers) against
      one process's on the same rows and draws (relative L2 a group <=
      1e-5), then 2 bf16 steps with the regularizers through
@@ -4556,6 +4567,7 @@ def _phase18_extras(p18, key):
         "launches_per_tp_step": p18["ranks"][0]["tp_steps"][-1]["launches"].get(key, 0)}
     if key in ("B1", "B2"):
         out["launches_per_sp_request_rank"] = p18["ranks"][0]["sp"]["launches"][key]
+        out["launches_per_fused_sp_request_rank"] = p18["ranks"][0]["sp_fused"]["launches"][key]
     sp = p18["sp_train"]["ranks"][0]
     out["launches_per_sp_step_rank"] = {
         "f32 no regularizers": sp["grad"]["launches"].get(key, 0),
@@ -4565,6 +4577,29 @@ def _phase18_extras(p18, key):
             "f32 no regularizers": sp["grad"]["rect"][key],
             "bf16 regularizers": sp["steps"][-1]["rect"][key]}
     return out
+
+
+def _phase18_fused_extras(p18, key):
+    """B6's, B7's or B9's phase-18 numbers: each rectangular (B6, B7) or
+    halo (B9) case of 18a (its error, kernel, plain, library and bound ms;
+    B6's probabilities against the square kernel's rows), and the launches
+    of a rank's fused sequence-parallel request (18b), with those of them on
+    a rectangular tile or with a halo."""
+    kind = "halo" if key == "B9" else "rectangular"
+    every = p18["rect_fused"][key]
+    cases = {}
+    for case, r in every.items():
+        name = (f"T={case[0]} of {case[1]} r0={case[2]} halo=15 {case[3]}" if key == "B9"
+                else f"Tq={case[0]} Tk={case[1]} r0={case[2]} {case[3]}")
+        cases[name] = {"max_abs_err": r["abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"]}
+        if "equal_square_rows" in r:
+            cases[name]["equal_square_rows"] = r["equal_square_rows"]
+    fused = p18["ranks"][0]["sp_fused"]
+    return {kind: cases, f"{kind}_max_abs_err": max(r["abs_err"] for r in every.values()),
+            "launches_per_fused_sp_request_rank": fused["launches"][key],
+            f"{kind}_launches_per_fused_sp_request_rank": fused["odd"][key]}
 
 
 def _phase15_launches(p15, key):
@@ -4582,8 +4617,9 @@ def _phase15_launches(p15, key):
 
 
 # ---------------------------------------------------------------------------
-# Phase 18: B1 and B2 on rectangular score tiles (18a), the
-# sequence-parallel sampler (18b) and a tensor-parallel training step (18c)
+# Phase 18: B1-B4, B6 and B7 on rectangular score tiles and B9 with halo
+# rows (18a), the sequence-parallel sampler unfused and fused (18b), a
+# tensor-parallel (18c) and a sequence-parallel training step (18d)
 # ---------------------------------------------------------------------------
 
 # (Tq, Tk, r0, kind): query rows [r0, r0 + Tq) of a T = Tk problem against
@@ -4672,6 +4708,158 @@ def check_rect_kernels(square, card: str):
                 raise AssertionError(f"B2 rectangular disagrees at Tq={tq} Tk={tk} r0={r0} "
                                      f"{dn}: {err2} > {tol2}")
             del q, k, pq, pe, v, out, ref, o, oref, v_hm
+    return results
+
+
+# B6's and B7's rectangular tiles: 18a's B1 and B2 tiles and the 18b
+# request's stack-0 halves at 1024 frames (Tq, Tk, r0, kind); B9's halo
+# rows: a rank's 1536 of 3072 frames with K // 2 = 15 rows of its
+# neighbour's on one side and zeros past the sequence on the other
+# (C = D = 512, K = 31, B = 2: the fm_decoder's stack 0 under 18b)
+RECT_FUSED_CASES = RECT_CASES[:2] + [(512, 1024, 512, "stack-0 second half")] + RECT_CASES[2:]
+HALO_CASES = [(1536, 3072, 0, "first half"), (1536, 3072, 1536, "second half")]
+
+
+def check_rect_fused_kernels(square, card: str):
+    """18a: B6 and B7 on rectangular tiles (RECT_FUSED_CASES, B=2, H=4, vd
+    12, C 384 or 144 at the text tile, one batch row's keys padded) and B9
+    on a rank's rows with their halo (HALO_CASES) against their plain
+    versions on the same inputs, f32 and bf16 (B9 in f32 against an f64
+    plain version, as phase 3c), with times and bounds beside phase 3c's
+    square ones (``square``); records whether B6's rectangular
+    probabilities equal the square kernel's rows [r0, r0 + Tq) bit for
+    bit."""
+    import torch
+
+    from zipvoice_tpu_torch.ops import attention as att
+    from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out, conv_glu_swoosh_out_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(182)
+    b, h, qd, pd, vd = 2, 4, 32, 4, 12
+    results = {"B6": {}, "B7": {}, "B9": {}}
+    for tq, tk, r0, kind in RECT_FUSED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            s = torch.finfo(dtype).bits // 8
+            tol = 2e-5 if dtype == torch.float32 else 8e-3  # phase 3c's
+            q, k, pq, pe, mask, v, _ = _rel_inputs(gen, b, h, tk, vd, dtype)
+            rows = slice(r0, r0 + tq)
+            qr, pqr = q[:, rows].contiguous(), pq[:, rows].contiguous()
+            pw = pe[tk - r0 - tq: 2 * tk - 1 - r0].contiguous()
+            band = s * (b * tq * h * qd + b * tk * h * qd + b * tq * h * pd
+                        + (tq + tk - 1) * h * pd) + b * tk
+
+            probs, out = att.rel_attention_probs_consume(qr, k, pqr, pw, mask, v, out_dtype=dtype)
+            ref_p, ref_o = att.rel_attention_probs_consume_plain(qr, k, pqr, pw, mask, v, dtype)
+            whole = att.rel_attention_probs_consume(q, k, pq, pe, mask, v, out_dtype=dtype)[0]
+            same = torch.equal(probs, whole[:, :, rows])
+            torch.cuda.synchronize()
+            err_p = float((probs.float() - ref_p.float()).abs().max())
+            abs_o, rel_o = _errs(out, ref_o)
+            r = dict(abs_err=max(err_p, abs_o), rel_err=max(err_p, rel_o), tol=tol,
+                     equal_square_rows=same,
+                     ms=time_ms(lambda: att.rel_attention_probs_consume(qr, k, pqr, pw, mask, v)),
+                     plain_ms=time_ms(lambda: att.rel_attention_probs_consume_plain(
+                         qr, k, pqr, pw, mask, v)), library_ms=None)
+            nbytes = band + s * (b * tk * h * vd + b * h * tq * tk + b * tq * h * vd)
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                nbytes, 2 * b * h * tq * tk * (qd + pd + vd), dn)
+            r["contract_bound_ms"] = contract_bound_ms(
+                nbytes, 2 * b * h * tq * tk * vd, 2 * b * h * tq * tk * (qd + pd), dn)
+            results["B6"][(tq, tk, r0, dn)] = r
+            sq = square["B6"][(1024, dn)]["ms"]
+            print(f"18a B6 probs_consume rectangular Tq={tq} of Tk={tk} (r0={r0}, {kind}) {dn}: "
+                  f"probs err {err_p:.3g}, out rel_err {rel_o:.3g} (tol {tol:g}), probs equal "
+                  f"the square kernel's rows: {same}" + _times(r)
+                  + f"; square T=1024 kernel_ms {sq:.4f} (3c) on {card}", flush=True)
+            if not r["rel_err"] <= tol:
+                raise AssertionError(f"B6 rectangular disagrees at Tq={tq} Tk={tk} r0={r0} "
+                                     f"{dn}: {r}")
+            del probs, out, ref_p, ref_o, whole
+
+            c = 144 if kind == "text" else 384
+            v0 = torch.randn((b, tk, c), generator=gen, device="cuda").to(dtype)
+            out = att.rel_attention_head0_consume(qr, k, pqr, pw, mask, v0)
+            ref = att.rel_attention_head0_consume_plain(qr, k, pqr, pw, mask, v0)
+            torch.cuda.synchronize()
+            abs_o, rel_o = _errs(out, ref)
+            r = dict(abs_err=abs_o, rel_err=rel_o, tol=tol,
+                     ms=time_ms(lambda: att.rel_attention_head0_consume(qr, k, pqr, pw, mask, v0)),
+                     plain_ms=time_ms(lambda: att.rel_attention_head0_consume_plain(
+                         qr, k, pqr, pw, mask, v0)), library_ms=None)
+            # head 0 of q, k, pq, pe is what the function reads
+            nbytes = s * (b * tq * qd + b * tk * qd + b * tq * pd + (tq + tk - 1) * pd
+                          + b * tk * c + b * tq * c) + b * tk
+            r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 2 * b * tq * tk * (qd + pd + c), dn)
+            r["contract_bound_ms"] = contract_bound_ms(
+                nbytes, 2 * b * tq * tk * c, 2 * b * tq * tk * (qd + pd), dn)
+            results["B7"][(tq, tk, r0, dn)] = r
+            sq = square["B7"][(1024, 384, dn)]["ms"]
+            print(f"18a B7 head0_consume rectangular Tq={tq} of Tk={tk} C={c} (r0={r0}, {kind}) "
+                  f"{dn}: rel_err {rel_o:.3g} (tol {tol:g}), max_abs_err {abs_o:.3g}"
+                  + _times(r) + f"; square T=1024 C=384 kernel_ms {sq:.4f} (3c) on {card}",
+                  flush=True)
+            if not rel_o <= tol:
+                raise AssertionError(f"B7 rectangular disagrees at Tq={tq} Tk={tk} r0={r0} "
+                                     f"{dn}: {rel_o} > {tol}")
+            del q, k, pq, pe, mask, v, v0, out, ref, qr, pqr, pw
+
+    c, kk = 512, 31
+    hr = kk // 2
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain versions' conv, as in 3c
+    try:
+        for t, t_all, r0, kind in HALO_CASES:
+            w = torch.rand((c, 1, kk), generator=gen, device="cuda") * 2 / kk ** 0.5 - 1 / kk ** 0.5
+            bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            w_out = (torch.rand((c, c), generator=gen, device="cuda") * 2 - 1) / c ** 0.5
+            b_out = 0.01 * torch.randn((c,), generator=gen, device="cuda")
+            lens = torch.tensor([t_all, t_all - t_all // 3 - 1], device="cuda")
+            mask_all = torch.arange(t_all, device="cuda")[None, :] >= lens[:, None]
+            proj_all = torch.randn((b, t_all, 2 * c), generator=gen, device="cuda")
+            # the rank's rows with hr rows a side, zeros past the sequence
+            window = slice(r0, r0 + t + 2 * hr)
+            proj32 = torch.nn.functional.pad(proj_all, (0, 0, hr, hr))[:, window].contiguous()
+            mask = torch.nn.functional.pad(mask_all, (hr, hr), value=False)[:, window].contiguous()
+            args = (w, bias, mask, w_out, b_out, hr)
+            ref64 = conv_glu_swoosh_out_plain(proj32.double(), *args)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                s = torch.finfo(dtype).bits // 8
+                proj = proj32.to(dtype)
+                out = conv_glu_swoosh_out(proj, *args)
+                plain = conv_glu_swoosh_out_plain(proj, *args)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    abs_err, err = _scaled_errs(out, ref64)
+                    plain_err = _scaled_errs(plain, ref64)[1]
+                    tol = 2e-5
+                else:
+                    abs_err, err = _scaled_errs(out, plain)
+                    plain_err = None
+                    tol = 8e-3
+                r = dict(abs_err=abs_err, rel_err=err, plain_rel_err=plain_err, tol=tol,
+                         ms=time_ms(lambda: conv_glu_swoosh_out(proj, *args)),
+                         plain_ms=time_ms(lambda: conv_glu_swoosh_out_plain(proj, *args)),
+                         library_ms=None)
+                rows = t + 2 * hr
+                r["bound_ms"], r["bound_by"] = bound_ms(
+                    s * (b * rows * 2 * c + c * c + b * t * c) + 4 * (c * kk + 2 * c) + b * rows,
+                    2 * b * t * c * (kk + c), dn)
+                results["B9"][(t, t_all, r0, dn)] = r
+                sq = square["B9"][(c, kk, 1024, dn)]["ms"]
+                print(f"18a B9 conv_glu halo C=D={c} K={kk} T={t} of {t_all} with {hr} halo rows "
+                      f"a side (r0={r0}, {kind}) {dn}: rel_err {err:.3g}"
+                      + (f" (f32 plain {plain_err:.3g}) against f64" if plain_err is not None
+                         else " against the bf16 plain version")
+                      + f" (tol {tol:g}), max_abs_err {abs_err:.3g}" + _times(r)
+                      + f"; T=1024 without a halo kernel_ms {sq:.4f} (3c) on {card}", flush=True)
+                if not (err <= tol and (plain_err is None or plain_err <= tol)):
+                    raise AssertionError(f"B9 with a halo disagrees at T={t} r0={r0} {dn}: {r}")
+                del out, plain
+            del proj_all, proj32, ref64
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return results
 
 
@@ -4815,7 +5003,8 @@ def _tp_inputs(cfg, seed: int = 19):
 def _phase18_worker(root: str, out: str):
     """One of two gloo ranks sharing the card: 18b, sp_sample over both
     ranks (f32, TF32 off; a warm call, then a timed one with the launches
-    and collectives counted); 18c, tp = 2 over both ranks: one f32 step's
+    and collectives counted), unfused, then with the fused eval flags
+    (``_sp_fused``); 18c, tp = 2 over both ranks: one f32 step's
     summed gradient without the regularizers (the rows, noise and t given),
     gathered, then TP_STEPS bf16 steps with the regularizers through
     make_train_step(mesh=...), launches and collectives counted a step."""
@@ -4860,6 +5049,9 @@ def _phase18_worker(root: str, out: str):
                  "device": str(y.device)}
     if r == 0:
         torch.save(y.cpu(), out / "sp_out.pt")
+    res["sp_fused"], y = _sp_fused(model, seq, args, counters)
+    if r == 0:
+        torch.save(y, out / "sp_fused_out.pt")
     del model, x, args, y
     torch.cuda.empty_cache()
 
@@ -4915,6 +5107,54 @@ def _phase18_worker(root: str, out: str):
     res["sp_train"] = _sp_training(root, out, dev, counters)
     (out / f"phase18-{r}.json").write_text(json.dumps(res))
     mesh.shutdown()
+
+
+# the kernels' C entry points, and the index of the first of each one's
+# (Tq, Tk) arguments, or of B9's halo count
+FUSED_SP_ENTRIES = {"zv_rel_probs": ("B1", 7), "zv_probs_apply": ("B2", 4),
+                    "zv_rel_probs_consume": ("B6", 9), "zv_rel_head0_consume": ("B7", 8),
+                    "zv_conv_glu": ("B9", 12)}
+
+
+def _sp_fused(model, seq, args, counters):
+    """18b's request again with both fused eval flags on (a warm call, then
+    a timed one): (its wall, launches, collectives, and of the launches the
+    rectangular ones (B1, B2, B6, B7: Tq != Tk) and those with a halo (B9);
+    its output on the host)."""
+    import torch
+
+    from zipvoice_tpu_torch.models import zipvoice as zv
+    from zipvoice_tpu_torch.ops import build
+    from zipvoice_tpu_torch.parallel import mesh
+
+    shapes = []
+    entry = build.entry
+
+    def recording(lib, symbol, argtypes):
+        fn = entry(lib, symbol, argtypes)
+        if symbol not in FUSED_SP_ENTRIES:
+            return fn
+        key, at = FUSED_SP_ENTRIES[symbol]
+        odd = (lambda a: a[at] > 0) if key == "B9" else (lambda a: a[at] != a[at + 1])
+        return lambda *a: shapes.append((key, odd(a))) or fn(*a)
+
+    build.entry = recording
+    try:
+        with _FusedEval():
+            zv.sp_sample(model, seq, *args, num_step=N_STEP)  # warm
+            _zero(counters)
+            mesh.reset_counts()
+            shapes.clear()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            y = zv.sp_sample(model, seq, *args, num_step=N_STEP)
+            torch.cuda.synchronize()
+    finally:
+        build.entry = entry
+    return {"wall_s": time.monotonic() - t0, "launches": _launched(counters),
+            "collectives": dict(mesh.COUNTS),
+            "odd": {k: sum(1 for n, o in shapes if n == k and o)
+                    for k, _ in FUSED_SP_ENTRIES.values()}}, y.cpu()
 
 
 def _sp_training(root: str, out: Path, dev, counters):
@@ -5038,6 +5278,7 @@ def run_phase18(root: Path, card: str, square, bg: Background):
     t_phase = time.monotonic()
     rect = check_rect_kernels(square, card)
     rect_train = check_rect_training_kernels(square, card)
+    rect_fused = check_rect_fused_kernels(square, card)
     rect_s = time.monotonic() - t_phase
     out = root / "phase18"
     workers_s = bg.result("18")
@@ -5084,6 +5325,44 @@ def run_phase18(root: Path, card: str, square, bg: Background):
           f"{ranks[0]['sp']['wall_s']:.2f} s "
           f"(rank 1 {ranks[1]['sp']['wall_s']:.2f} s) against one process's "
           f"{one_s:.2f} s on {card}", flush=True)
+    del ref, y
+
+    # 18b with both fused eval flags: one process's fused sample, same
+    # request and noise
+    with torch.no_grad(), _FusedEval():
+        zv.sample(model, *(x[k] for k in SP_ORDER), num_step=N_STEP)  # warm
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ref = zv.sample(model, *(x[k] for k in SP_ORDER), num_step=N_STEP)
+        torch.cuda.synchronize()
+    one_fused_s = time.monotonic() - t0
+    y = torch.load(out / "sp_fused_out.pt")
+    fused_err = _rel_l2(y, ref.cpu())
+    want = {k: FUSED_PER_REQUEST.get(k, 0) for k in ("B1", "B2", "B6", "B7", "B9")}
+    # the fm_decoder's B2, B6 and B7 a layer on a rank's rows against every
+    # key, its two B9 a layer with their halo rows; the text encoder's square
+    fm_calls = fm_layers * N_STEP
+    want_odd = {"B1": 0, "B2": fm_calls, "B6": fm_calls, "B7": fm_calls, "B9": 2 * fm_calls}
+    for r, res in enumerate(ranks):
+        f = res["sp_fused"]
+        got = {k: f["launches"].get(k, 0) for k in want}
+        if got != want or f["odd"] != want_odd or f["collectives"] != want_coll:
+            raise AssertionError(f"18b fused rank {r}: launches {got} (want {want}), "
+                                 f"rectangular / halo {f['odd']} (want {want_odd}), "
+                                 f"collectives {f['collectives']} (want {want_coll})")
+    if not (torch.isfinite(y).all() and tuple(y.shape) == tuple(ref.shape)
+            and fused_err <= SP_TOL):
+        raise AssertionError(f"18b fused sp_sample vs one process's fused sample: relative L2 "
+                             f"{fused_err} > {SP_TOL} or shape {tuple(y.shape)} / not finite")
+    print(f"18b fused sequence-parallel sampler (set_fused_eval, set_fused_conv; the same "
+          f"request, f32, TF32 off): relative L2 against one process's fused sample "
+          f"{fused_err:.3g} (tol {SP_TOL:g}); launches a rank {ranks[0]['sp_fused']['launches']}"
+          f", of them rectangular (B1, B2, B6, B7) or with a halo (B9) "
+          f"{ranks[0]['sp_fused']['odd']}; collectives a rank "
+          f"{ranks[0]['sp_fused']['collectives']}; wall {ranks[0]['sp_fused']['wall_s']:.2f} s "
+          f"(rank 1 {ranks[1]['sp_fused']['wall_s']:.2f} s; unfused "
+          f"{ranks[0]['sp']['wall_s']:.2f} s) against one process's fused {one_fused_s:.2f} s "
+          f"(unfused {one_s:.2f} s) on {card}", flush=True)
     del model, x, ref, y
 
     # 18c: one process's f32 gradient on the same rows and draws (18d's
@@ -5166,8 +5445,10 @@ def run_phase18(root: Path, card: str, square, bg: Background):
     seconds = time.monotonic() - t_phase
     print(f"phase 18: {seconds:.1f} s (18a {rect_s:.1f} s, workers {workers_s:.1f} s) on {card}",
           flush=True)
-    return {"rect": rect, "rect_train": rect_train, "ranks": ranks, "sp_err": sp_err,
-            "sp_one_s": one_s, "tp_grad_err": worst, "sp_train": sp_train, "seconds": seconds}
+    return {"rect": rect, "rect_train": rect_train, "rect_fused": rect_fused, "ranks": ranks,
+            "sp_err": sp_err, "sp_one_s": one_s, "sp_fused_err": fused_err,
+            "sp_one_fused_s": one_fused_s, "tp_grad_err": worst, "sp_train": sp_train,
+            "seconds": seconds}
 
 
 # 18d's tensors whose gradient cancels by construction: a BiasNorm's 0-d
@@ -5754,12 +6035,14 @@ def main() -> int:
                       "zipvoice_tpu/ops/attention.py:1224", fused_launches["B6"],
                       (1024, "float32"), "B=2 H=4 T=1024 vd=12 f32",
                       launches_per_fused_request=fused_launches["B6"] // n_req,
+                      **_phase18_fused_extras(p18, "B6"),
                       **_phase15_launches(p15, "B6")),
         _kernel_entry(results, "B7", "rel_attention_head0_consume",
                       "zipvoice_tpu_torch/csrc/rel_consume_fwd.cu",
                       "zipvoice_tpu/ops/attention.py:1297", fused_launches["B7"],
                       (1024, 384, "float32"), "B=2 T=1024 C=384 f32",
                       launches_per_fused_request=fused_launches["B7"] // n_req,
+                      **_phase18_fused_extras(p18, "B7"),
                       **_phase15_launches(p15, "B7")),
         _kernel_entry(results, "B8", "fused_log_mel", "zipvoice_tpu_torch/csrc/log_mel.cu",
                       "zipvoice_tpu/ops/melspec.py:122", reg_launches["B8"],
@@ -5774,6 +6057,7 @@ def main() -> int:
                       "zipvoice_tpu/ops/convglu.py:143", fused_launches["B9"],
                       (512, 31, 1024, "float32"), "B=2 T=1024 C=D=512 K=31 f32",
                       launches_per_fused_request=fused_launches["B9"] // n_req,
+                      **_phase18_fused_extras(p18, "B9"),
                       **_phase15_launches(p15, "B9")),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
@@ -5858,7 +6142,9 @@ def main() -> int:
     spt = p18["sp_train"]
     print(f"parallelism: 18b sp_sample over {SP_RANKS} ranks relative L2 {p18['sp_err']:.3g} "
           f"against one process, wall {p18['ranks'][0]['sp']['wall_s']:.2f} s against "
-          f"{p18['sp_one_s']:.2f} s; 18c tp=2 gradient worst relative L2 a group "
+          f"{p18['sp_one_s']:.2f} s; fused relative L2 {p18['sp_fused_err']:.3g}, wall "
+          f"{p18['ranks'][0]['sp_fused']['wall_s']:.2f} s against "
+          f"{p18['sp_one_fused_s']:.2f} s; 18c tp=2 gradient worst relative L2 a group "
           f"{p18['tp_grad_err']:.2e}; 18d sp=2 training gradient largest relative L2 a "
           f"group {spt['group_err']:.3g}, a tensor {spt['grad_err']:.3g} (a cancelling one "
           f"{spt['cancelling_err']:.3g}), bf16 step ms a rank "

@@ -1,5 +1,6 @@
 """The CUDA kernels of zipvoice_tpu_torch.ops (B1-B9) against their plain
-versions on the card.  Marked ``cuda``: without a CUDA card every test
+versions on the card, square and on the rectangular tiles and halo rows of
+sequence parallelism.  Marked ``cuda``: without a CUDA card every test
 skips.  On a machine with one (and nvcc), run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -299,6 +300,86 @@ def test_rel_apply_bwd_kernel_rectangular_matches_plain(gen, tq, tk, r0, h, vd, 
     assert outs[3].shape == (tq + tk - 1, h, 4) and outs[1].shape == (2, tk, h, 32)
     for o, r in zip(outs, refs):
         assert o.shape == r.shape and _rel(o, r) <= 1e-4
+
+
+@pytest.mark.parametrize("tq,tk,r0", _RECT_CASES)
+@pytest.mark.parametrize("dtype,out_dtype", _DTYPE_PAIRS)
+def test_probs_consume_kernel_rectangular_matches_plain(gen, tq, tk, r0, dtype, out_dtype):
+    """B6 on a rectangular tile: its probabilities are B1's on the same
+    tile bit for bit and within the probs dtype's tolerance of plain; its
+    output (B, Tq, H, vd) within the square test's tolerances."""
+    q, k, pq, pe, mask, v, _, _ = _rect(gen, tq, tk, r0, dtype)
+    n = att.rel_attention_probs_consume.launches
+    probs, out = att.rel_attention_probs_consume(q, k, pq, pe, mask, v, out_dtype=out_dtype)
+    ref_p, ref_o = att.rel_attention_probs_consume_plain(q, k, pq, pe, mask, v, out_dtype)
+    torch.cuda.synchronize()
+    assert att.rel_attention_probs_consume.launches == n + 1
+    assert probs.shape == (2, 4, tq, tk) and out.shape == (2, tq, 4, 12)
+    assert torch.equal(probs, att.rel_attention_probs(q, k, pq, pe, mask, out_dtype=out_dtype))
+    assert float((probs.float() - ref_p.float()).abs().max()) <= TOL[out_dtype]
+    assert _rel(out, att.rel_attention_probs_apply_plain(probs, v)) <= TOL[dtype]
+    assert _rel(out, ref_o) <= max(TOL[dtype], TOL[out_dtype])
+
+
+@pytest.mark.parametrize("tq,tk,r0", _RECT_CASES)
+@pytest.mark.parametrize("c", [384, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head0_consume_kernel_rectangular_matches_plain(gen, tq, tk, r0, c, dtype):
+    """B7 on a rectangular tile: (B, Tq, C) from v (B, Tk, C), within the
+    square test's tolerance of its plain version."""
+    q, k, pq, pe, mask, _, _, _ = _rect(gen, tq, tk, r0, dtype)
+    v = torch.randn((2, tk, c), generator=gen, device="cuda").to(dtype)
+    n = att.rel_attention_head0_consume.launches
+    out = att.rel_attention_head0_consume(q, k, pq, pe, mask, v)
+    ref = att.rel_attention_head0_consume_plain(q, k, pq, pe, mask, v)
+    torch.cuda.synchronize()
+    assert att.rel_attention_head0_consume.launches == n + 1
+    assert out.shape == (2, tq, c) and _rel(out, ref) <= TOL[dtype]
+
+
+# B9 on rows [r0, r0 + T) of a T_all-frame sequence with K // 2 halo rows a
+# side (zeros past the sequence): a rank's halves at 1024 frames, a block
+# in the middle, ragged blocks and a single row
+_HALO_CASES = [(512, 1024, 0, 31), (512, 1024, 512, 31), (100, 300, 100, 15),
+               (17, 51, 34, 7), (1, 3, 1, 3)]
+
+
+@pytest.mark.parametrize("t,t_all,r0,kernel", _HALO_CASES)
+def test_conv_glu_kernel_halo_matches_f64(gen, t, t_all, r0, kernel):
+    """B9 with halo rows: f32 within 2e-5 of the f64 plain version on the
+    same rows and of the f64 plain version's rows [r0, r0 + T) on the whole
+    sequence; bf16 within one unit in the last place of the bf16 plain
+    version."""
+    from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out, conv_glu_swoosh_out_plain
+
+    c, h = 512, kernel // 2
+    proj_all = torch.randn((2, t_all, 2 * c), generator=gen, device="cuda")
+    w = 0.2 * torch.randn((c, 1, kernel), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    w_out = 0.05 * torch.randn((c, c), generator=gen, device="cuda")
+    b_out = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    mask_all = torch.arange(t_all, device="cuda")[None, :] >= torch.tensor(
+        [t_all, t_all - t_all // 3 - 1], device="cuda")[:, None]
+    window = slice(r0, r0 + t + 2 * h)
+    proj = torch.nn.functional.pad(proj_all, (0, 0, h, h))[:, window].contiguous()
+    mask = torch.nn.functional.pad(mask_all, (h, h), value=False)[:, window].contiguous()
+    args = (w, b, mask, w_out, b_out, h)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = conv_glu_swoosh_out_plain(proj.double(), *args)
+        whole = conv_glu_swoosh_out_plain(proj_all.double(), w, b, mask_all, w_out, b_out)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    n = conv_glu_swoosh_out.launches
+    out = conv_glu_swoosh_out(proj, *args)
+    out16 = conv_glu_swoosh_out(proj.bfloat16(), *args)
+    ref16 = conv_glu_swoosh_out_plain(proj.bfloat16(), *args)
+    torch.cuda.synchronize()
+    assert conv_glu_swoosh_out.launches == n + 2
+    assert out.shape == (2, t, c)
+    assert _rel(out, ref) <= 2e-5 and _rel(out, whole[:, r0:r0 + t]) <= 2e-5
+    assert _rel(out16, ref16) <= TOL[torch.bfloat16]
 
 
 def _log_mel_input(gen, b, samples, n_fft, zero_rows=0):

@@ -1,6 +1,8 @@
 """The fused eval path of zipvoice_tpu_torch against zipvoice_tpu on the CPU,
 f32: the plain versions of B5, B6, B7 and B9 against the JAX Pallas kernels
-run in interpret mode, one encoder layer with both fused flags on against
+run in interpret mode (B6 and B7 also on rectangular tiles, B9 also on a
+block of rows with its halo, against those rows of the JAX kernels on the
+whole sequence), one encoder layer with both fused flags on against
 the JAX layer with its flags on, and the port's fused forward against its
 unfused one.
 
@@ -9,6 +11,7 @@ T = 200 exercises it.  Tolerances are the JAX package's own: 1e-5 on
 probabilities, 2e-5 on outputs, 1e-4 on gradients (f32 sums over T keys in
 another order), 5e-5 through a whole layer."""
 
+import functools
 import os
 
 import numpy as np
@@ -136,6 +139,75 @@ def test_conv_glu_matches_jax(kernel, t, with_mask, out_bias):
                                   _j(op["weight"]), _j(op.get("bias")), interpret=True)
     assert out.shape == (2, t, d)
     assert np.abs(out.numpy() - np.asarray(ref)).max() < 2e-5
+
+
+# Rectangular tiles: (Tq, Tk, r0), the query rows [r0, r0 + Tq) of a Tk
+# problem against every key (a rank's rows under sequence parallelism):
+# the halves of a 128-frame sequence, and blocks of a 200-frame one (the
+# JAX kernels' pad-and-slice path), one of them at neither end
+RECT_CASES = [(64, 128, 0), (64, 128, 64), (50, 200, 150), (40, 200, 80)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_whole(t, with_mask):
+    """The JAX kernels on the whole sequence: B6's (probs, out) and B7's
+    out (C = 96), in interpret mode, with the inputs."""
+    q, k, pq, pe, v, mask = _rel_inputs(t, with_mask, seed=t + 5)
+    v0 = np.random.default_rng(t + 6).standard_normal((2, t, 96)).astype(np.float32)
+    probs, out = jatt.rel_attention_probs_consume(*map(_j, (q, k, pq, pe, mask, v)),
+                                                  out_dtype=jnp.float32, interpret=True)
+    out0 = jatt.rel_attention_head0_consume(*map(_j, (q, k, pq, pe, mask, v0)), interpret=True)
+    return (q, k, pq, pe, v, v0, mask), tuple(np.asarray(a) for a in (probs, out, out0))
+
+
+@pytest.mark.parametrize("tq,tk,r0", RECT_CASES)
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_rect_consume_matches_jax_rows(tq, tk, r0, with_mask):
+    """B6 and B7 on a rectangular tile (the rows' q and pq, every key, the
+    window of pe the rows touch) against rows [r0, r0 + Tq) of the JAX
+    kernels on the whole sequence: the plain versions the CPU runs, and
+    the shapes the kernels take on the card."""
+    (q, k, pq, pe, v, v0, mask), (jprobs, jout, jout0) = _jax_whole(tk, with_mask)
+    rows = slice(r0, r0 + tq)
+    tile = (q[:, rows], k, pq[:, rows], pe[tk - r0 - tq: 2 * tk - 1 - r0])
+    before = _launches()
+    probs, out = ta.rel_attention_probs_consume(*map(_t, tile + (mask, v)),
+                                                out_dtype=torch.float32)
+    out0 = ta.rel_attention_head0_consume(*map(_t, tile + (mask, v0)))
+    assert _launches() == before
+    assert probs.shape == (2, H, tq, tk) and out.shape == (2, tq, H, VD)
+    assert out0.shape == (2, tq, 96)
+    assert np.abs(probs.numpy() - jprobs[:, :, rows]).max() < 1e-5
+    assert np.abs(out.numpy() - jout[:, rows]).max() < 2e-5
+    assert np.abs(out0.numpy() - jout0[:, rows]).max() < 2e-5
+
+
+@pytest.mark.parametrize("t,tq,r0,kernel", [(40, 20, 0, 7), (40, 20, 20, 7),
+                                            (200, 50, 100, 31), (200, 64, 136, 9)])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_conv_glu_halo_matches_jax_rows(t, tq, r0, kernel, with_mask):
+    """B9 on a rank's rows [r0, r0 + Tq) with K // 2 halo rows of proj and
+    of the mask on each side (zeros past the sequence's ends, as
+    parallel/mesh.halo gives them) against those rows of the JAX kernel on
+    the whole sequence; the mask's second row turns padded inside a halo."""
+    c, d, h = 16, 24, kernel // 2
+    tree, sd = _conv_params(c, d, kernel, seed=t + r0, out_bias=True)
+    r = np.random.default_rng(t + tq + r0)
+    proj = r.standard_normal((2, t, 2 * c)).astype(np.float32)
+    pad_from = r0 + tq + 1 if r0 + tq < t else r0 - 1
+    mask = np.arange(t)[None, :] >= np.array([t, pad_from])[:, None] if with_mask else None
+    window = slice(r0, r0 + tq + 2 * h)  # of the sequence zero-padded by h a side
+    proj_h = np.pad(proj, ((0, 0), (h, h), (0, 0)))[:, window]
+    mask_h = None if mask is None else np.pad(mask, ((0, 0), (h, h)))[:, window]
+    before = _launches()
+    out = conv_glu_swoosh_out(_t(proj_h), sd["depthwise_conv.weight"], sd["depthwise_conv.bias"],
+                              _t(mask_h), sd["out_proj.weight"], sd["out_proj.bias"], halo=h)
+    assert _launches() == before
+    dw, op = tree["depthwise_conv"], tree["out_proj"]
+    ref = jcg.conv_glu_swoosh_out(_j(proj), _j(dw["weight"]), _j(dw["bias"]), _j(mask),
+                                  _j(op["weight"]), _j(op["bias"]), interpret=True)
+    assert out.shape == (2, tq, d)
+    assert np.abs(out.numpy() - np.asarray(ref)[:, r0:r0 + tq]).max() < 2e-5
 
 
 def _apply_jax(q, k, pq, pe, mask, v, gate, pen=None, t=None):

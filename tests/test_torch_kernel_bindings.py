@@ -4,8 +4,10 @@ lives in the library it is mapped to, and its argtypes follow the C
 parameter list (a pointer for each pointer, a 32-bit int for each int, a
 float for each float; a mismatch would pass pointers cut to 32 bits or
 arguments shifted by one, which only a run on the card would show
-otherwise); ``ops/build.py`` compiles every source of a library and links
-them into it, and names the library by all of them."""
+otherwise); B6's and B7's wrappers pass a rectangular tile's Tq and Tk
+where the C entry points take them, and B9's its halo count;
+``ops/build.py`` compiles every source of a library and links them into
+it, and names the library by all of them."""
 
 import ctypes
 import re
@@ -13,23 +15,29 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from zipvoice_tpu_torch.audio.mel import mel_filterbank
 from zipvoice_tpu_torch.ops import attention as att
-from zipvoice_tpu_torch.ops import build, melspec
+from zipvoice_tpu_torch.ops import build, convglu, melspec
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-def _c_params(lib: str, symbol: str):
+def _c_signature(lib: str, symbol: str):
+    """[(kind, name)] of the C entry point's parameters."""
     src = (build.CSRC / f"{lib}.cu").read_text()
     m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
     assert m, f"{symbol} is not defined in csrc/{lib}.cu"
-    kinds = []
+    params = []
     for p in m.group(1).split(","):
-        p = re.sub(r"\bconst\b", "", p).split()
-        kinds.append("void*" if "*" in "".join(p) else p[0])
-    return kinds
+        p = re.sub(r"\bconst\b", "", p)
+        params.append(("void*" if "*" in p else p.split()[0], re.findall(r"\w+", p)[-1]))
+    return params
+
+
+def _c_params(lib: str, symbol: str):
+    return [kind for kind, _ in _c_signature(lib, symbol)]
 
 
 @pytest.mark.parametrize("symbol", sorted(att._SIGNATURES))
@@ -37,6 +45,53 @@ def test_attention_entry_points_match_their_sources(symbol):
     lib, argtypes = att._SIGNATURES[symbol]
     assert lib in build.SOURCES
     assert [_C_TYPES[k] for k in _c_params(lib, symbol)] == argtypes
+
+
+def test_conv_glu_entry_point_matches_its_source():
+    """B9's entry takes the halo count h after D (proj and the mask hold
+    h rows on each side of the T rows)."""
+    assert "conv_glu" in build.SOURCES
+    sig = _c_signature("conv_glu", "zv_conv_glu")
+    assert [_C_TYPES[k] for k, _ in sig] == convglu._ARGTYPES
+    assert [n for _, n in sig[7:]] == ["B", "T", "C", "K", "D", "h", "bf16", "stream"]
+
+
+@pytest.mark.parametrize("symbol", ["zv_rel_probs_consume", "zv_rel_head0_consume"])
+def test_consume_wrappers_pass_a_rectangular_tile(symbol, monkeypatch):
+    """B6's and B7's wrappers on a rectangular tile (meta tensors, so no
+    data), into a stand-in entry point that takes the C parameters by name:
+    the argument count is the bound one, B, Tq, Tk, H, QD and PD land where
+    the source declares them, and the outputs have Tq rows."""
+    lib, argtypes = att._SIGNATURES[symbol]
+    names = [n for _, n in _c_signature(lib, symbol)]
+    got = {}
+
+    def entry(*args):
+        assert len(args) == len(argtypes) == len(names)
+        got.update(zip(names, args))
+        return 0
+
+    wrapper = (att.rel_attention_probs_consume if symbol == "zv_rel_probs_consume"
+               else att.rel_attention_head0_consume)
+    monkeypatch.setattr(att, "_entry", lambda s: entry)
+    monkeypatch.setattr(att, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(att, "_stream_ptr", lambda device: None)
+    monkeypatch.setattr(wrapper, "launches", wrapper.launches)  # restored after
+    b, tq, tk, h, qd, pd = 2, 24, 96, 4, 32, 4
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    q, k, pq, pe = meta(b, tq, h, qd), meta(b, tk, h, qd), meta(b, tq, h, pd), \
+        meta(tq + tk - 1, h, pd)
+    if wrapper is att.rel_attention_probs_consume:
+        probs, out = wrapper(q, k, pq, pe, None, meta(b, tk, h, 12))
+        assert probs.shape == (b, h, tq, tk) and out.shape == (b, tq, h, 12)
+        assert got["VD"] == 12
+    else:
+        out = wrapper(q, k, pq, pe, None, meta(b, tk, 384))
+        assert out.shape == (b, tq, 384) and got["C"] == 384
+    assert [got[n] for n in ("B", "Tq", "Tk", "H", "QD", "PD")] == [b, tq, tk, h, qd, pd]
 
 
 def test_log_mel_entry_point_matches_its_source():

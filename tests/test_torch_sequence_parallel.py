@@ -12,9 +12,15 @@ fm_decoder's frame axis over a seq group of gloo processes,
   NonlinAttention values a layer, of the key mask a stack, and one of the
   output; two halo exchanges a layer; B1's and B2's plain versions entered
   with each rank's Tq = T / n rows against all Tk = T keys;
+* the same with both fused eval flags set, against JAX's sharded sampler
+  with its fused flags (its Pallas kernels in interpret mode) and the
+  port's one-process fused sampler: the same collectives (the halo carries
+  in_proj's 2C-wide output in place of the C-wide gate), B6 and B7 entered
+  on each rank's rectangular tile, B2 once a layer and B9 twice, on the
+  rank's frames with its convolution's halo rows;
 * the refusals: a frame count not divisible by n x the largest
   downsampling factor, a stack whose rank holds fewer frames than its
-  convolution's halo, the fused eval flags;
+  convolution's halo;
 * the collectives' adjoints (gather_frames, halo, scatter_frames) and the
   balancer's and whitening's seq-summed statistics over two gloo ranks
   under autograd, against the whole-sequence ops in one process.
@@ -35,6 +41,7 @@ import torch
 from zipvoice_tpu.config import ZipVoiceConfig as JZipVoiceConfig
 from zipvoice_tpu.io.checkpoint import state_dict_to_params
 from zipvoice_tpu.models import zipvoice as jzv
+from zipvoice_tpu.nn import zipformer as jzf
 from zipvoice_tpu.parallel.mesh import make_seq_mesh as jmake_seq_mesh
 from zipvoice_tpu.parallel.mesh import sp_sample_jit
 from zipvoice_tpu_torch.config import ZipVoiceConfig
@@ -87,10 +94,12 @@ ORDER = ("tokens", "tokens_lens", "prompt_features", "prompt_features_lens", "fe
          "noise")
 
 
-def test_sp_sample_matches_jax_and_one_process(tmp_path):
-    params, model = _weights(0)
+def _sp_ranks(tmp_path, model, x, fused):
+    """sp_sample over 2 and 4 gloo ranks (``tests/torch_sp_worker.py``),
+    each world in a thread; returns a function that waits for both and
+    gives {n: every rank's result}."""
+    tag = "fused" if fused else "sp"
     torch.save(model.state_dict(), tmp_path / "model.pt")
-    x = _inputs()
     np.savez(tmp_path / "inputs.npz", **x)
     cfg = json.dumps({k: list(v) if isinstance(v, tuple) else v for k, v in TINY.items()})
     failure = []
@@ -100,7 +109,8 @@ def test_sp_sample_matches_jax_and_one_process(tmp_path):
             dryrun.spawn("torch_sp_worker:run", n,
                          {"cfg": cfg, "model_path": str(tmp_path / "model.pt"),
                           "inputs_path": str(tmp_path / "inputs.npz"), "out": str(tmp_path),
-                          "tag": f"sp{n}", "kw": KW}, timeout=240, path=[str(TESTS)])
+                          "tag": f"{tag}{n}", "kw": KW, "fused": fused}, timeout=240,
+                         path=[str(TESTS)])
         except Exception as ex:  # noqa: BLE001 - re-raised in the test's thread
             failure.append(ex)
 
@@ -108,26 +118,35 @@ def test_sp_sample_matches_jax_and_one_process(tmp_path):
     for th in threads:
         th.start()
 
-    # JAX's sharded sampler over its 8-device seq mesh, meanwhile
+    def results():
+        for th in threads:
+            th.join(timeout=260)
+            assert not th.is_alive()
+        if failure:
+            raise failure[0]
+        return {n: [torch.load(tmp_path / f"{tag}{n}-{r}.pt") for r in range(n)]
+                for n in (2, 4)}
+
+    return results
+
+
+def _jax_sp_sample(params, x):
+    """JAX's sharded sampler over its 8-device seq mesh."""
     jcfg = JZipVoiceConfig(**TINY)
 
     def run(p, tok, tl, pf, pl, fl, nz):
         return jzv.sample(p, jcfg, tok, tl, pf, pl, fl, nz, **KW)
 
-    ref_jax = np.asarray(sp_sample_jit(run, jmake_seq_mesh(8))(
+    return np.asarray(sp_sample_jit(run, jmake_seq_mesh(8))(
         params, *(jnp.asarray(x[k]) for k in ORDER)), np.float32)
-    with torch.no_grad():
-        ref_one = tzv.sample(model, *(torch.from_numpy(x[k]) for k in ORDER), **KW).numpy()
-    for th in threads:
-        th.join(timeout=260)
-        assert not th.is_alive()
-    if failure:
-        raise failure[0]
 
+
+def _check_outputs(worlds, ref_jax, ref_one):
+    """Every rank's output: within 1e-4 of JAX's, within 2e-5 of one
+    process's, equal on every rank; the collectives a request pinned."""
     layers, stacks = sum(TINY["fm_decoder_num_layers"]), len(TINY["fm_decoder_num_layers"])
     calls = KW["num_step"]  # one 2B CFG batch a step
-    for n in (2, 4):
-        res = [torch.load(tmp_path / f"sp{n}-{r}.pt") for r in range(n)]
+    for res in worlds.values():
         for r in res:
             out = r["out"].numpy()
             assert out.shape == (2, T, 16)
@@ -136,11 +155,81 @@ def test_sp_sample_matches_jax_and_one_process(tmp_path):
             assert np.array_equal(out, res[0]["out"].numpy())
             assert r["counts"] == {"all_reduce": 0, "halo": 2 * layers * calls,
                                    "all_gather": (4 * layers + stacks) * calls + 1}
+
+
+def _rect(entries, n):
+    """The rectangular (Tq, Tk) entries, each checked to be a rank's Tq =
+    Tk / n rows against every key."""
+    rect = [e for e in entries if e[0] != e[1]]
+    assert all(tq * n == tk for tq, tk in rect), entries
+    return rect
+
+
+def test_sp_sample_matches_jax_and_one_process(tmp_path):
+    params, model = _weights(0)
+    x = _inputs()
+    results = _sp_ranks(tmp_path, model, x, fused=False)
+    ref_jax = _jax_sp_sample(params, x)  # meanwhile
+    with torch.no_grad():
+        ref_one = tzv.sample(model, *(torch.from_numpy(x[k]) for k in ORDER), **KW).numpy()
+    worlds = results()
+    _check_outputs(worlds, ref_jax, ref_one)
+    layers, calls = sum(TINY["fm_decoder_num_layers"]), KW["num_step"]
+    for n, res in worlds.items():
+        for r in res:
             # the fm_decoder's B1 and B2 on each rank's rows against all keys
             for kernel, per_layer in (("B1", 1), ("B2", 2)):
-                rect = [e for e in r["entries"][kernel] if e[0] != e[1]]
+                rect = _rect(r["entries"][kernel], n)
                 assert len(rect) == per_layer * layers * calls, (kernel, r["entries"][kernel])
-                assert all(tq * n == tk for tq, tk in rect)
+            assert not (r["entries"]["B6"] or r["entries"]["B7"] or r["entries"]["B9"])
+
+
+def test_sp_fused_sample_matches_jax_and_one_process(tmp_path, monkeypatch):
+    """Both fused eval flags set on both sides: JAX's sampler jitted whole
+    over its seq mesh (GSPMD partitions around its kernels, run in interpret
+    mode), the port's on each rank's frames: B6 and B7 on rectangular
+    tiles, B2 on B6's rectangular probabilities, B9 on in_proj's output with
+    the convolution's halo rows; no B1."""
+    from test_torch_fused_eval import _interp_patch
+
+    params, model = _weights(0)
+    x = _inputs()
+    results = _sp_ranks(tmp_path, model, x, fused=True)
+    _interp_patch(monkeypatch)
+    jzf.set_fused_attention(True)
+    jzf.set_fused_eval(True)
+    jzf.set_fused_conv(True)
+    try:
+        ref_jax = _jax_sp_sample(params, x)  # meanwhile
+    finally:
+        jzf.set_fused_attention(None)
+        jzf.set_fused_eval(False)
+        jzf.set_fused_conv(False)
+    tzf.set_fused_eval(True)
+    tzf.set_fused_conv(True)
+    try:
+        with torch.no_grad():
+            ref_one = tzv.sample(model, *(torch.from_numpy(x[k]) for k in ORDER), **KW).numpy()
+    finally:
+        tzf.set_fused_eval(False)
+        tzf.set_fused_conv(False)
+    worlds = results()
+    _check_outputs(worlds, ref_jax, ref_one)
+    cfg = ZipVoiceConfig(**TINY).fm_decoder_config()
+    calls = KW["num_step"]
+    for n, res in worlds.items():
+        # B9 twice a layer on a rank's frames of the stack with K // 2 halo
+        # rows on each side: (rows given, halo)
+        b9 = sorted((T // (n * ds) + 2 * (k // 2), k // 2)
+                    for ds, k, layers in zip(cfg.downsampling_factor, cfg.cnn_module_kernel,
+                                             cfg.num_encoder_layers)
+                    for _ in range(2 * layers * calls))
+        for r in res:
+            assert not r["entries"]["B1"]
+            for kernel in ("B2", "B6", "B7"):  # the fm_decoder's, once a layer each
+                rect = _rect(r["entries"][kernel], n)
+                assert len(rect) == len(b9) // 2, (kernel, r["entries"][kernel])
+            assert sorted(e for e in r["entries"]["B9"] if e[1]) == b9
 
 
 def _fake_seq_mesh(n):
@@ -164,19 +253,6 @@ def test_sp_refuses_frame_counts(frames, match):
     with pytest.raises(ValueError, match=match):
         tzv.sp_sample(model, _fake_seq_mesh(2), *(torch.from_numpy(x[k]) for k in ORDER),
                       **KW)
-
-
-@pytest.mark.parametrize("flag", ["set_fused_eval", "set_fused_conv"])
-def test_sp_refuses_the_fused_eval_path(flag):
-    _, model = _weights(1)
-    x = _inputs()
-    getattr(tzf, flag)(True)
-    try:
-        with pytest.raises(ValueError, match="unfused"):
-            tzv.sp_sample(model, _fake_seq_mesh(2), *(torch.from_numpy(x[k]) for k in ORDER),
-                          **KW)
-    finally:
-        getattr(tzf, flag)(False)
 
 
 def test_sp_collectives_refuse_autograd(tmp_path):

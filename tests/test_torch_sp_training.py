@@ -22,6 +22,10 @@ tests/test_sequence_parallel.py (T = 64, downsampling (1, 2, 1)):
   thresholds (a balancer channel's limits, the whitening metric's), so a
   sum taken in another order can flip one, as in
   tests/test_torch_tensor_parallel.py;
+* sp = 2 with both fused eval flags set (``nn/zipformer.set_fused_eval``,
+  ``set_fused_conv``): the pinned loss and gradient, and the first
+  regularized step's loss and parameters, bit-identical to those with the
+  flags off (a gradient is taken, so training ignores them, as JAX's does);
 * the text encoder's and the token embedding's gradients under sp = 2,
   with the text encoder's regularizers on and the fm_decoder's left out,
   within 1e-5 relative L2 of one process's: the text encoder runs whole
@@ -150,9 +154,9 @@ def _one_process_pinned(model, g, schedules=None):
 
 def _one_process_loss(params, batch, i):
     """The loss of one process's regularized f32 step i (seed 5 + i) from
-    ``params``."""
+    ``params`` (copied: the step updates its model in place)."""
     cfg = ZipVoiceConfig(**TINY)
-    model = load_into(tzv.ZipVoiceModel(cfg), params)
+    model = load_into(tzv.ZipVoiceModel(cfg), {k: v.clone() for k, v in params.items()})
     step = make_train_step(model, ScaledAdam(model.named_parameters()),
                            TrainConfig(compute_dtype="float32"))
     return float(step(batch, 5 + i, i + 1, 0.0, zipvoice_schedules(1000.0, cfg))["loss"])
@@ -246,6 +250,24 @@ def test_sp_regularized_steps_match_one_process(worlds):
             assert res["steps"][i]["loss"] == pytest.approx(loss, rel=1e-5), i
     for name, v in ranks[0]["trained"].items():
         assert torch.equal(v, ranks[1]["trained"][name]), name
+
+
+def test_sp_training_ignores_the_fused_eval_flags(worlds):
+    """Both fused eval flags set: sequence_parallel accepts them and a
+    training forward, which takes a gradient, runs the unfused path, so the
+    pinned loss and gradient and a regularized step's loss and parameters
+    equal those with the flags off, bit for bit."""
+    for res in worlds["two"]:
+        on = res["fused_flags"]
+        assert on["pinned"]["loss"] == res["pinned"]["loss"]
+        assert on["pinned"]["counts"] == res["pinned"]["counts"]
+        assert on["pinned"]["grads"].keys() == res["pinned"]["grads"].keys()
+        for name, grad in res["pinned"]["grads"].items():
+            assert torch.equal(on["pinned"]["grads"][name], grad), name
+        loss, params = on["step"]
+        assert loss == res["steps"][0]["loss"]
+        for name, v in res["steps"][1]["params"].items():
+            assert torch.equal(params[name], v), name
 
 
 def test_sp_text_encoder_gradient_is_averaged_over_the_seq_group(worlds):

@@ -8,7 +8,9 @@ regularizers), the gradients synced; the same with the text encoder's
 regularizers on and the fm_decoder's off; the stereo dialog loss with its
 energy penalty, pinned the same way (``dialog_model``'s weights); 3
 regularized f32 steps through
-``make_train_step(mesh=make_dp_sp_mesh(1, 2))``; then one f32 step
+``make_train_step(mesh=make_dp_sp_mesh(1, 2))``; the pinned gradient and
+the first regularized step again with both fused eval flags set, which
+training ignores (``fused_flags``); then one f32 step
 without the regularizers on a dp = 2 mesh (``make_dp_sp_mesh(2, 1)``), each
 data rank on its half of the rows.
 
@@ -140,11 +142,27 @@ def two(cfg: str, model_path: str, batch_path: str, out: str):
         res["steps"].append({"params": before,
                              "loss": float(step(batch, 5 + i, i + 1, 0.0, scheds)["loss"])})
     res["trained"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    res["fused_flags"] = fused_flags(fresh, g, sp, batch, scheds)
 
     dp = mesh.make_dp_sp_mesh(2, 1)
     res["dp_loss"], res["dp_params"] = _step(fresh(), dp, _rows(g, dp), 9)
     torch.save(res, Path(out) / f"two-{mesh.rank()}.pt")
     mesh.shutdown()
+
+
+def fused_flags(fresh, g, sp, batch, scheds):
+    """``two``'s pinned gradient and its first regularized step (seed 5)
+    with set_fused_eval and set_fused_conv on: (pinned, (loss, parameters
+    after the step))."""
+    from zipvoice_tpu_torch.nn import zipformer as tzf
+
+    tzf.set_fused_eval(True)
+    tzf.set_fused_conv(True)
+    try:
+        return {"pinned": _pinned(fresh(), g, sp), "step": _step(fresh(), sp, batch, 5, scheds)}
+    finally:
+        tzf.set_fused_eval(False)
+        tzf.set_fused_conv(False)
 
 
 def four(cfg: str, model_path: str, batch_path: str, out: str):

@@ -1,8 +1,10 @@
 """One rank of tests/test_torch_sequence_parallel.py, started by
 ``zipvoice_tpu_torch.train.dryrun.spawn`` (imports torch and the port
 only): ``sp_sample`` over a seq mesh of every rank on the full inputs,
-with the collectives counted and the (Tq, Tk) of every entry into B1's and
-B2's plain versions recorded; rank 0 saves the output."""
+unfused or with both fused eval flags set, with the collectives counted
+and the (Tq, Tk) of every entry into the plain versions of B1, B2, B6 and
+B7 and the (rows, halo) of every entry into B9's recorded; each rank saves
+its output."""
 
 import json
 from pathlib import Path
@@ -11,11 +13,14 @@ import numpy as np
 import torch
 
 
-def run(cfg: str, model_path: str, inputs_path: str, out: str, tag: str, kw: dict):
+def run(cfg: str, model_path: str, inputs_path: str, out: str, tag: str, kw: dict,
+        fused: bool = False):
     from zipvoice_tpu_torch.config import ZipVoiceConfig
     from zipvoice_tpu_torch.io.checkpoint import load_into
     from zipvoice_tpu_torch.models import zipvoice as tzv
+    from zipvoice_tpu_torch.nn import zipformer as tzf
     from zipvoice_tpu_torch.ops import attention as ta
+    from zipvoice_tpu_torch.ops import convglu
     from zipvoice_tpu_torch.parallel import mesh
 
     torch.set_num_threads(1)
@@ -26,18 +31,34 @@ def run(cfg: str, model_path: str, inputs_path: str, out: str, tag: str, kw: dic
         model = tzv.ZipVoiceModel(cfg)
     model = load_into(model, torch.load(model_path))
     x = {k: torch.from_numpy(v) for k, v in np.load(inputs_path).items()}
-    entries = {"B1": [], "B2": []}
-    probs_plain, apply_plain = ta.rel_attention_probs_plain, ta.rel_attention_probs_apply_plain
+    entries = {"B1": [], "B2": [], "B6": [], "B7": [], "B9": []}
+    in_b6 = [0]  # B6's plain version takes B1's and B2's: not their entries
 
-    def b1(q, k, *a, **kw_):
-        entries["B1"].append((q.shape[1], k.shape[1]))
-        return probs_plain(q, k, *a, **kw_)
+    def recorded(mod, name, key, shape):
+        real = getattr(mod, name)
 
-    def b2(probs, v):
-        entries["B2"].append(tuple(probs.shape[2:]))
-        return apply_plain(probs, v)
+        def fn(*a, **kw_):
+            if not in_b6[0]:
+                entries[key].append(shape(*a, **kw_))
+            in_b6[0] += key == "B6"
+            try:
+                return real(*a, **kw_)
+            finally:
+                in_b6[0] -= key == "B6"
 
-    ta.rel_attention_probs_plain, ta.rel_attention_probs_apply_plain = b1, b2
+        setattr(mod, name, fn)
+
+    def tiles(q, k, *_, **__):
+        return q.shape[1], k.shape[1]
+
+    recorded(ta, "rel_attention_probs_plain", "B1", tiles)
+    recorded(ta, "rel_attention_probs_apply_plain", "B2", lambda probs, v: tuple(probs.shape[2:]))
+    recorded(ta, "rel_attention_probs_consume_plain", "B6", tiles)
+    recorded(ta, "rel_attention_head0_consume_plain", "B7", tiles)
+    recorded(convglu, "conv_glu_swoosh_out_plain", "B9",
+             lambda proj, *a, **__: (proj.shape[1], a[5] if len(a) > 5 else 0))
+    tzf.set_fused_eval(fused)
+    tzf.set_fused_conv(fused)
     seq = mesh.make_seq_mesh()
     mesh.reset_counts()
     y = tzv.sp_sample(model, seq, x["tokens"], x["tokens_lens"], x["prompt_features"],

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Device times of the port's rel-position attention kernels (B1-B7) and of
-the log-mel kernel (B8) on one NVIDIA card, at the shapes
+"""Device times of the port's rel-position attention kernels (B1-B7), of
+the log-mel kernel (B8) and of the fused conv module (B9) on one NVIDIA card, at the shapes
 and with the timing of chip_smoke.py, for comparing two checkouts of this
 repository on one card in one run.
 
-    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B2,B3,B4,B5,B6,B7,B8]
+    python3 tools/time_rel_attention.py [--tree DIR] [--kernels B1,B2,B3,B4,B5,B6,B7,B8,B9]
                                         [--tag NAME] [--ptxas FILE] [--sass FILE]
     python3 tools/time_rel_attention.py [--tree DIR] --full-build
     python3 tools/time_rel_attention.py [--tree DIR] --crossover
@@ -21,7 +21,8 @@ at the same shapes beside it, B3 without the penalty and the const gate at
 every one of phase 3b's training cases (H=4 with vd 12; H=1 with vd 384
 at T=1024 and 144 at T=120); f32 and bf16 each; B8 at phase 3b's
 LOG_MEL_CASES (B=8, f32), with its plain version and the same function
-through torch.stft beside it.  --ptxas writes the
+through torch.stft beside it; B9 at phase 3c's CONV_CASES (B=2, f32 and
+bf16).  --ptxas writes the
 -Xptxas -v lines of the libraries it built to FILE, and --sass their
 machine code (cuobjdump -sass), so that two checkouts' compiled code can be
 compared.  --full-build times the build of every
@@ -59,7 +60,7 @@ SYMBOLS = {"B1": "zv_rel_probs", "B2": "zv_probs_apply", "B3": "zv_rel_apply_bwd
            "B5": "zv_rel_apply",
            "B6": "zv_rel_probs_consume", "B7": "zv_rel_head0_consume"}
 # the library of each other kernel
-LIBRARIES = {"B8": "log_mel"}
+LIBRARIES = {"B8": "log_mel", "B9": "conv_glu"}
 # B5's (B, H, T, vd) at which --crossover times its two routes
 CROSSOVER_CASES = [(8, 4, 1024, vd) for vd in (16, 32, 48, 64, 96, 128)] + [
     (8, 1, 1024, vd) for vd in (32, 64, 96, 128)]
@@ -256,6 +257,21 @@ def main() -> int:
             record(f"B8 {label}", lambda: melspec.fused_log_mel(wp))
             record(f"B8 plain {label}", lambda: melspec.fused_log_mel_plain(wp))
             record(f"B8 cufft {label}", lambda: cs.log_mel_cufft(wp, fb, hann))
+    if "B9" in kernels:
+        from zipvoice_tpu_torch.ops.convglu import conv_glu_swoosh_out
+
+        for c, kk, t in cs.CONV_CASES:
+            w = 0.2 * torch.randn((c, 1, kk), generator=gen, device="cuda")
+            bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            w_out = (torch.rand((c, c), generator=gen, device="cuda") * 2 - 1) / c ** 0.5
+            b_out = 0.01 * torch.randn((c,), generator=gen, device="cuda")
+            mask = torch.arange(t, device="cuda")[None, :] >= torch.tensor(
+                [t, t - t // 3 - 1], device="cuda")[:, None]
+            proj32 = torch.randn((2, t, 2 * c), generator=gen, device="cuda")
+            for dtype in dtypes:
+                proj = proj32.to(dtype)
+                record(f"B9 C={c} K={kk} T={t} {str(dtype)[6:]}",
+                       lambda: conv_glu_swoosh_out(proj, w, bias, mask, w_out, b_out))
     print(json.dumps({"tag": args.tag, "card": card, "ms": ms}), flush=True)
     return 0
 

@@ -3,15 +3,19 @@
 // Replaces the TPU kernel zipvoice_tpu/ops/convglu.py `conv_glu_swoosh_out`
 // (body `_conv_glu_kernel`):
 //
-//   g[t,c]   = proj[t,c] * sigmoid(proj[t,C+c]) * keep[t]    (f32; 0 outside [0,T))
+//   g[t,c]   = proj[t,c] * sigmoid(proj[t,C+c]) * keep[t]    (f32; 0 outside [-h,T+h))
 //   y[t,c]   = SwooshR(sum_k w[c,k] g[t+k-K/2, c] + b[c])     (f32)
 //   out[t,d] = sum_c round(y[t,c]) w_out[d,c] + b_out[d]       (f32 sums)
 //
-// with round() to proj's dtype.  proj (B,T,2C), w_out (D,C) (the nn.Linear
-// layout) and out (B,T,D) are all f32 or all bf16; w (C,K) (nn.Conv1d's
-// (C,1,K)), b (C) and b_out (D, or null) are f32; keep[t] = 0 where the
-// (B,T) uint8 padding mask (or null) is set, so padded rows are zeroed
-// before the conv, as in `_conv_glu_kernel`.
+// for the T rows t = 0 .. T-1, with round() to proj's dtype.  proj and the
+// mask carry h halo rows on each side of the T rows (h = 0: a whole
+// sequence; under sequence parallelism a rank's frames with its neighbours'
+// edge frames, zeros past the sequence's ends): proj (B,T+2h,2C), its row
+// h + t being time t.  proj, w_out (D,C) (the nn.Linear layout) and out
+// (B,T,D) are all f32 or all bf16; w (C,K) (nn.Conv1d's (C,1,K)), b (C) and
+// b_out (D, or null) are f32; keep[t] = 0 where the (B,T+2h) uint8 padding
+// mask (or null) is set, so padded rows, halo rows too, are zeroed before
+// the conv, as in `_conv_glu_kernel`.
 //
 // What bounds it on an H100: the out-projection, 2*T*C*D operations a batch
 // row (operations in f32; in bf16 the bytes of proj in and out), and the
@@ -23,7 +27,7 @@
 //     four channels a thread with several rows' loads in flight.
 //     The TPU kernel reads the neighbouring time tiles through three
 //     BlockSpecs and zeroes them at the sequence edges; here the halo is just
-//     more rows, zero outside [0, T);
+//     more rows, read from the given rows and zero outside them;
 //   * the depthwise conv: one thread a channel (two for C > 512), the 16
 //     rows' sums in registers, each tap read once; bias, SwooshR and the
 //     rounding follow, and once every thread has read the gate rows, y goes
@@ -77,6 +81,7 @@ struct Args {
   const float* b_out;
   void* out;
   int T, C, K, D, B;
+  int halo;  // rows proj and the mask carry before and after the T rows
   Split split;  // the blocks' (time tile, batch row) units and blocks of d
   int cols;    // the most output columns a block takes, a multiple of 16
   int sa;      // row stride of the A tile (elements): 4 mod 32 (f32), 8 mod 32 (bf16)
@@ -127,7 +132,8 @@ __global__ void __launch_bounds__(kThreads, 1) conv_glu_kernel(Args a) {
   const int t0 = tile * kRows;
   const int pad = K / 2;
   const int nrows = min(kRows, T - t0);
-  const Tin* pb = static_cast<const Tin*>(a.proj) + (size_t)b * T * 2 * C;
+  const int rows = T + 2 * a.halo;  // proj's and the mask's rows a batch row
+  const Tin* pb = static_cast<const Tin*>(a.proj) + (size_t)b * rows * 2 * C;
   const uint8_t* mask = a.mask;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
@@ -183,8 +189,8 @@ __global__ void __launch_bounds__(kThreads, 1) conv_glu_kernel(Args a) {
     }
   };
 
-  // gate row gr is time t0 - pad + gr; four channels a thread, kGateBatch
-  // rows of loads in flight
+  // gate row gr is time t0 - pad + gr, proj row t0 - pad + gr + halo; four
+  // channels a thread, kGateBatch rows of loads in flight
   const int C4 = C / 4, n4 = (kRows + K - 1) * C4;
   for (int base4 = threadIdx.x; base4 < n4; base4 += kGateBatch * kThreads) {
     float4 vv[kGateBatch], ss[kGateBatch];
@@ -192,13 +198,13 @@ __global__ void __launch_bounds__(kThreads, 1) conv_glu_kernel(Args a) {
 #pragma unroll
     for (int u = 0; u < kGateBatch; ++u) {
       const int idx = base4 + u * kThreads, gr = idx / C4, c4 = idx - gr * C4;
-      const int t = t0 - pad + gr;
-      const bool in = idx < n4 && t >= 0 && t < T;
+      const int t = t0 - pad + gr + a.halo;  // the row of proj
+      const bool in = idx < n4 && t >= 0 && t < rows;
       const Tin* row = pb + (size_t)(in ? t : 0) * 2 * C + 4 * c4;
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       vv[u] = in ? load4(row) : zero;
       ss[u] = in ? load4(row + C) : zero;
-      keep[u] = (in && !(mask != nullptr && mask[(size_t)b * T + t])) ? 1.f : 0.f;
+      keep[u] = (in && !(mask != nullptr && mask[(size_t)b * rows + t])) ? 1.f : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kGateBatch; ++u) {
@@ -401,12 +407,15 @@ int launch_typed(Args a, cudaStream_t stream) {
 
 // Plain C entry point (loaded through ctypes).  Returns a cudaError_t code:
 // 0 on a clean launch; cudaErrorInvalidValue for a shape the kernel does not
-// take (C not a multiple of 4 or above 1024, the halo rows too large for
-// shared memory).  bf16: proj, w_out and out are bf16 (else f32).
+// take (C not a multiple of 4 or above 1024, the conv's K - 1 rows around a
+// tile too large for shared memory, a negative halo).  proj (B,T+2h,2C) and
+// mask (B,T+2h) hold h halo rows on each side of the T rows that out
+// (B,T,D) gets.  bf16: proj, w_out and out are bf16 (else f32).
 extern "C" int zv_conv_glu(const void* proj, const void* mask, const void* w, const void* b,
                            const void* w_out, const void* b_out, void* out, int B, int T, int C,
-                           int K, int D, int bf16, void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || C > kMaxChan * kThreads || K <= 0 || D <= 0)
+                           int K, int D, int h, int bf16, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || C % 4 != 0 || C > kMaxChan * kThreads || K <= 0 || D <= 0 ||
+      h < 0)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.proj = proj;
@@ -421,6 +430,7 @@ extern "C" int zv_conv_glu(const void* proj, const void* mask, const void* w, co
   a.K = K;
   a.D = D;
   a.B = B;
+  a.halo = h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_typed<__nv_bfloat16>(a, s);
   return launch_typed<float>(a, s);

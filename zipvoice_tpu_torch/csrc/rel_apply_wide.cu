@@ -16,7 +16,8 @@ int rel_apply_wide(const void* q, const void* kt, const void* pq, const void* pe
   a.v = v;
   a.mask = static_cast<const uint8_t*>(mask);
   a.out = out;
-  a.T = T;
+  a.Tq = T;  // the square: B5 keeps Tq = Tk
+  a.Tk = T;
   a.H = H;
   a.C = VD;
   a.B = B;

@@ -3,17 +3,20 @@
 // wide route (rel_wide_consume.cuh); B9 (conv_glu.cu) takes its type and
 // copy helpers.
 // The score of
-// query row i against key j is
+// query row i of Tq against key j of Tk is
 //
-//   s[i,j] = q_i . k_j + pq_i . pe[j - i + T - 1]
+//   s[i,j] = q_i . k_j + pq_i . pe[j - i + Tq - 1]
 //
-// computed in f32.  A "row tile" is `rows` consecutive query rows of one
-// (b, h) against every key: the block stages the rows' q and pq and the pe
-// band they touch in shared memory, and each lane owns one key at a time
-// with its k column in registers (k is read from the transpose kt, shape
-// (B, H, QD, T), so lanes on neighbouring keys read neighbouring
-// addresses).  The TPU kernels' band product + strided-rotate shear becomes
-// a direct read of pe row j - i + T - 1 from the staged band.
+// computed in f32, pe of Tq + Tk - 1 rows (the square case Tq = Tk = T: a
+// whole sequence; a rectangular tile: a block of query rows against every
+// key, pe the window of the square pe those rows touch).  A "row tile" is
+// `rows` consecutive query rows of one (b, h) against every key: the block
+// stages the rows' q and pq and the pe band they touch in shared memory,
+// and each lane owns one key at a time with its k column in registers (k is
+// read from the transpose kt, shape (B, H, QD, Tk), so lanes on
+// neighbouring keys read neighbouring addresses).  The TPU kernels' band
+// product + strided-rotate shear becomes a direct read of pe row j - i +
+// Tq - 1 from the staged band.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,63 +81,64 @@ __device__ __forceinline__ void staged_copy(int count, Load load, Store store) {
   }
 }
 
-// Floats of a row tile's staged inputs: q[rows*QD] | pq[rows*4] |
-// band[(T+rows-1)*4]; every region stays 16-byte aligned (QD % 4 == 0).
-__host__ __device__ inline size_t row_tile_floats(int T, int rows, int QD) {
-  return (size_t)rows * QD + (size_t)rows * kPD + (size_t)(T + rows - 1) * kPD;
+// Floats of a row tile's staged inputs against Tk keys: q[rows*QD] |
+// pq[rows*4] | band[(Tk+rows-1)*4]; every region stays 16-byte aligned
+// (QD % 4 == 0).
+__host__ __device__ inline size_t row_tile_floats(int Tk, int rows, int QD) {
+  return (size_t)rows * QD + (size_t)rows * kPD + (size_t)(Tk + rows - 1) * kPD;
 }
 
-// Stage the q and pq rows i0 .. i0+rows-1 of (b, h) (rows past T are zero)
-// and the pe band: pe row n = j - (i0 + r) + T - 1 lives at band index
-// j - r + rows - 1.
+// Stage the q and pq rows i0 .. i0+rows-1 of (b, h) (rows past Tq are
+// zero) and the pe band against Tk keys: pe row n = j - (i0 + r) + Tq - 1
+// lives at band index j - r + rows - 1.
 template <int QD, typename Tin>
 __device__ __forceinline__ void stage_row_tile(const Tin* __restrict__ q,
                                                const Tin* __restrict__ pq,
                                                const Tin* __restrict__ pe, float* qs,
                                                float* pqs, float* band, int b, int h,
-                                               int T, int H, int i0, int rows) {
-  const int nrows = min(rows, T - i0);
+                                               int Tq, int Tk, int H, int i0, int rows) {
+  const int nrows = min(rows, Tq - i0);
   staged_copy<4>(
       rows * QD,
       [&](int idx) {
         const int r = idx / QD, d = idx % QD;
-        return r < nrows ? to_f32(q[((size_t)(b * T + i0 + r) * H + h) * QD + d]) : 0.f;
+        return r < nrows ? to_f32(q[((size_t)(b * Tq + i0 + r) * H + h) * QD + d]) : 0.f;
       },
       [&](int idx, float x) { qs[idx] = x; });
   staged_copy<1>(
       rows * kPD,
       [&](int idx) {
         const int r = idx / kPD, d = idx % kPD;
-        return r < nrows ? to_f32(pq[((size_t)(b * T + i0 + r) * H + h) * kPD + d]) : 0.f;
+        return r < nrows ? to_f32(pq[((size_t)(b * Tq + i0 + r) * H + h) * kPD + d]) : 0.f;
       },
       [&](int idx, float x) { pqs[idx] = x; });
-  const int n0 = T - 1 - i0 - (rows - 1);
+  const int n0 = Tq - 1 - i0 - (rows - 1);
   staged_copy<8>(
-      (T + rows - 1) * kPD,
+      (Tk + rows - 1) * kPD,
       [&](int idx) {
         const int n = n0 + idx / kPD, d = idx % kPD;
-        return (n >= 0 && n < 2 * T - 1) ? to_f32(pe[((size_t)n * H + h) * kPD + d]) : 0.f;
+        return (n >= 0 && n < Tq + Tk - 1) ? to_f32(pe[((size_t)n * H + h) * kPD + d]) : 0.f;
       },
       [&](int idx, float x) { band[idx] = x; });
 }
 
-// scores[r*T + j] = s[i0 + r, j] + the key's mask bias for r < nrows and
-// every key j: lane = key, k column in registers, q rows as shared-memory
-// float4 broadcasts.  ktb is kt of this (b, h).
+// scores[r*Tk + j] = s[i0 + r, j] + the key's mask bias for r < nrows and
+// every key j < Tk: lane = key, k column in registers, q rows as
+// shared-memory float4 broadcasts.  ktb is kt of this (b, h).
 template <int QD, typename Tin>
 __device__ __forceinline__ void row_tile_scores(const Tin* __restrict__ ktb,
                                                 const uint8_t* __restrict__ mask,
                                                 const float* qs, const float* pqs,
                                                 const float* band, float* scores, int b,
-                                                int T, int rows, int nrows) {
+                                                int Tk, int rows, int nrows) {
   const float4* q4 = reinterpret_cast<const float4*>(qs);
   const float4* pq4 = reinterpret_cast<const float4*>(pqs);
   const float4* band4 = reinterpret_cast<const float4*>(band);
-  for (int j = threadIdx.x; j < T; j += blockDim.x) {
+  for (int j = threadIdx.x; j < Tk; j += blockDim.x) {
     float kr[QD];
 #pragma unroll
-    for (int d = 0; d < QD; ++d) kr[d] = to_f32(ktb[(size_t)d * T + j]);
-    const float bias = mask_bias(mask, b, T, j);
+    for (int d = 0; d < QD; ++d) kr[d] = to_f32(ktb[(size_t)d * Tk + j]);
+    const float bias = mask_bias(mask, b, Tk, j);
     for (int r = 0; r < nrows; ++r) {
       float s = 0.f;
 #pragma unroll
@@ -151,7 +155,7 @@ __device__ __forceinline__ void row_tile_scores(const Tin* __restrict__ ktb,
       s = fmaf(pv.y, ev.y, s);
       s = fmaf(pv.z, ev.z, s);
       s = fmaf(pv.w, ev.w, s);
-      scores[(size_t)r * T + j] = s + bias;
+      scores[(size_t)r * Tk + j] = s + bias;
     }
   }
 }

@@ -10,13 +10,14 @@
 
 // Plain C entry point (loaded through ctypes).  Returns a cudaError_t code:
 // 0 on a clean launch; cudaErrorInvalidValue for a shape the kernel does
-// not take (QD not instantiated, PD != 4, C not a multiple of 4, T too long
-// for shared memory).  q, pq: (B,T,H,QD/PD); kt0 (B,QD,T), head 0's keys;
-// pe: (2T-1,H,PD); mask: (B,T) uint8 or null; v (B,T,C) and out (B,T,C),
-// all f32, or all bf16 if bf16.
+// not take (QD not instantiated, PD != 4, C not a multiple of 4, Tk too
+// long for shared memory).  Tq query rows against Tk keys, as B1's tiles:
+// q, pq: (B,Tq,H,QD/PD); kt0 (B,QD,Tk), head 0's keys; pe: (Tq+Tk-1,H,PD);
+// mask: (B,Tk) uint8 or null; v (B,Tk,C) and out (B,Tq,C), all f32, or all
+// bf16 if bf16.
 extern "C" int zv_rel_head0_consume(const void* q, const void* kt0, const void* pq,
                                     const void* pe, const void* mask, const void* v, void* out,
-                                    int B, int T, int H, int QD, int PD, int C, int bf16,
+                                    int B, int Tq, int Tk, int H, int QD, int PD, int C, int bf16,
                                     void* stream) {
   WideArgs a{};
   a.q = q;
@@ -26,7 +27,8 @@ extern "C" int zv_rel_head0_consume(const void* q, const void* kt0, const void* 
   a.v = v;
   a.mask = static_cast<const uint8_t*>(mask);
   a.out = out;
-  a.T = T;
+  a.Tq = Tq;
+  a.Tk = Tk;
   a.H = H;
   a.C = C;
   a.B = B;

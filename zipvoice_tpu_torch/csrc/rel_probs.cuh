@@ -18,13 +18,14 @@
 // the square case Tq = T is the model's; a rectangular tile (Tq < T) is a
 // block of query rows against every key, its pe the window of the square
 // pe that those rows touch (the sequence-parallel sampler's), so the kernel
-// needs no row offset.  B4 takes the same tiles (the sequence-parallel
-// training step's); B6 runs at Tq = T.
+// needs no row offset.  B4 and B6 take the same tiles (the sequence-parallel
+// training step's, and the fused sequence-parallel sampler's).  B5 runs at
+// Tq = T.
 //
 // B6 replaces `rel_attention_probs_consume` (body `_probs_consume_kernel`):
 // it writes the same probabilities and contracts them, as rounded to the
-// probs dtype, with v (B,T,H,VD): out = round(p) @ v with f32 sums, out
-// (B,T,H,VD) in v's dtype.  It is B1's kernel body with an epilogue
+// probs dtype, with v (B,T,H,VD) (T keys): out = round(p) @ v with f32
+// sums, out (B,Tq,H,VD) in v's dtype.  It is B1's kernel body with an epilogue
 // (`rel_probs_consume_kernel`), so its probabilities are B1's by
 // construction; see "B6's epilogue" below.
 //
@@ -464,11 +465,12 @@ __device__ __forceinline__ void write_row(float* srow, float inv, Tout* __restri
 // B6's epilogue: round(p) @ v on the tensor cores
 // ---------------------------------------------------------------------------
 
-// v (B,T,H,VD) in the input type and out (B,T,H,VD) (B6: the input type;
-// B5: its output type); all: v is staged whole once a block (kc = keys16(T)
-// keys), else streamed in chunks of kc = min(keys16(T), kChunkKeys) keys
-// and 16 columns (kc is passed, not worked out in the kernel: that register
-// is the one the f32-input, 16-row kernels do not have)
+// v (B,T,H,VD) over the T keys in the input type and out (B,Tq,H,VD) over
+// the query rows (B6: the input type; B5: its output type); all: v is
+// staged whole once a block (kc = keys16(T) keys), else streamed in chunks
+// of kc = min(keys16(T), kChunkKeys) keys and 16 columns (kc is passed, not
+// worked out in the kernel: that register is the one the f32-input, 16-row
+// kernels do not have)
 struct ConsumeArgs {
   const void* v;
   void* out;
@@ -1214,5 +1216,6 @@ int launch_in(const void* q, const void* kt, const void* pq, const void* pe, con
 // B6 for bf16 inputs (rel_probs_consume_bf16.cu, linked beside
 // rel_probs_consume.cu): zv_rel_probs_consume's arguments after bf16.
 int rel_probs_consume_bf16(const void* q, const void* kt, const void* pq, const void* pe,
-                           const void* mask, const void* v, void* probs, void* out, int B, int T,
-                           int H, int QD, int PD, int VD, int probs_bf16, void* stream);
+                           const void* mask, const void* v, void* probs, void* out, int B,
+                           int Tq, int Tk, int H, int QD, int PD, int VD, int probs_bf16,
+                           void* stream);

@@ -3,8 +3,8 @@
 // tensor cores.  Two entry points build it:
 //
 //   B7 (rel_consume_fwd.cu) `rel_attention_head0_consume` (TPU body
-//      `_head0_consume_kernel`): head 0 only, v (B,T,C) (C = 384 fm_decoder,
-//      144 text encoder), out in v's dtype;
+//      `_head0_consume_kernel`): head 0 only, v (B,Tk,C) (C = 384 fm_decoder,
+//      144 text encoder), out (B,Tq,C) in v's dtype;
 //   B5's wide route (rel_apply_wide.cu) `_pallas_rel_apply` (TPU body
 //      `_apply_kernel`, probabilities `_apply_probs`) for VD > 64: every
 //      (b, h), v (B,T,H,VD), used = const_gate ? (p > 0) / count(p > 0) : p,
@@ -13,11 +13,14 @@
 // B7 is the case nh = 1, h = 0 of the same code (same bits), with that
 // case's constants folded in (kHeads = false: same code).  The row tile
 // is rel_common's (scores and softmax as B1's, so the support p > 0 under
-// the const gate is the one B3 recomputes).  Any T: the ragged row tile is
-// masked, nothing is padded.  C (VD) must be a multiple of 4.
+// the const gate is the one B3 recomputes).  Tq query rows against Tk keys
+// with pe (Tq+Tk-1,H,PD), as B1's tiles (rel_common.cuh): B7 takes a
+// rectangular tile (a rank's rows under sequence parallelism), B5 the square
+// Tq = Tk.  Any Tq, Tk: the ragged row tile is masked, nothing is padded.
+// C (VD) must be a multiple of 4.
 //
-// The contraction P (16 x T) @ v (T x C) is 2*16*T*C operations a block
-// against 16*T*36 for the scores, so it runs on the tensor cores
+// The contraction P (16 x Tk) @ v (Tk x C) is 2*16*Tk*C operations a block
+// against 16*Tk*36 for the scores, so it runs on the tensor cores
 // (tensor_core.cuh), 512 threads a block:
 //   * the softmax leaves P, rounded to v's dtype, in its own shared-memory
 //     tile with a padded row stride (conflict-free fragment loads) and zero
@@ -25,7 +28,7 @@
 //   * v streams through 3 (or, where they do not fit, 2) stages of 64 (bf16)
 //     or 32 (f32) keys x up to 384 columns, filled by coalesced 16-byte
 //     `cp.async` (8-byte in bf16 when C is not a multiple of 8) whose
-//     offsets a thread works out once a pass, keys past T zero-filled;
+//     offsets a thread works out once a pass, keys past Tk zero-filled;
 //     the stages take the row tile's memory once the softmax is done;
 //   * warp = (key group, column warp): a column warp owns three pairs of n8
 //     tiles and keeps their sums in registers; the two key groups take the
@@ -37,11 +40,11 @@
 //     version);
 //   * f32: 3xTF32 (`mma.sync.m16n8k8` on operands split by masking), which
 //     keeps the f32 tolerance where one TF32 product does not;
-//   * the grid is (row tiles x B x nh, column blocks): at short T a block
+//   * the grid is (row tiles x B x nh, column blocks): at short Tq a block
 //     takes a slice of C (a multiple of 16 columns, chosen on the host from
 //     the units, C and the SM count) so that the card has up to a block an
-//     SM, and recomputes its 16 rows' scores and softmax (16*T*36 MACs
-//     against 16*T*C / split for its share of the contraction).
+//     SM, and recomputes its 16 rows' scores and softmax (16*Tk*36 MACs
+//     against 16*Tk*C / split for its share of the contraction).
 // What bounds it on an H100: in f32 the three TF32 products and the v tiles
 // every row block reads again from L2; in bf16 the scores and the per-stage
 // waits (PERF.md).
@@ -72,7 +75,7 @@ struct WideArgs {
   const void *q, *kt, *pq, *pe, *v;
   const uint8_t* mask;
   void* out;
-  int T, H, C, B, rows;
+  int Tq, Tk, H, C, B, rows;
   Split split;  // the blocks' (row tile, b * nh + h) units and column blocks
   int cols;    // the most columns a block takes, a multiple of 16
   int sv;      // row stride of a v stage (elements), 8 mod 32
@@ -93,9 +96,9 @@ __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m *
 // take the key groups' partial sums at the end of a pass.
 inline void wide_layout(WideArgs& a, int QD, int elem) {
   a.sv = round_up(a.cols < kWideChunk ? a.cols : kWideChunk, 32) + 8;
-  a.ps = round_up(a.T, wide_keys(elem)) + (elem == 4 ? 4 : 8);  // keys up to Kp
-  const size_t scores = ((size_t)a.rows * a.T + 3) & ~(size_t)3;
-  const int tile = (int)((row_tile_floats(a.T, a.rows, QD) + scores) * sizeof(float));
+  a.ps = round_up(a.Tk, wide_keys(elem)) + (elem == 4 ? 4 : 8);  // keys up to Kp
+  const size_t scores = ((size_t)a.rows * a.Tk + 3) & ~(size_t)3;
+  const int tile = (int)((row_tile_floats(a.Tk, a.rows, QD) + scores) * sizeof(float));
   const int stages = a.stages * wide_keys(elem) * a.sv * elem;
   a.p_off = round_up(tile > stages ? tile : stages, 128);
   a.bytes = a.p_off + (a.rows < 16 ? a.rows + 1 : 16) * a.ps * elem;
@@ -111,33 +114,33 @@ __global__ void __launch_bounds__(kWideThreads, 1) rel_wide_consume_kernel(WideA
   const int nst = a.stages;
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
-  const int T = a.T, rows = a.rows, C = a.C, nh = kHeads ? a.nh : 1;
+  const int Tq = a.Tq, Tk = a.Tk, rows = a.rows, C = a.C, nh = kHeads ? a.nh : 1;
   int unit, c_lo, c_hi;
   split_block(a.split, blockIdx.x, C, unit, c_lo, c_hi);
   const int BH = a.B * nh;
-  const int tiles = (T + rows - 1) / rows, tile = unit / BH, bh = unit - tile * BH;
+  const int tiles = (Tq + rows - 1) / rows, tile = unit / BH, bh = unit - tile * BH;
   const int b = bh / nh, h = bh - b * nh;
   float* qs = reinterpret_cast<float*>(base);
   float* pqs = qs + rows * QD;
   float* band = pqs + rows * kPD;
-  float* S = band + (size_t)(T + rows - 1) * kPD;
+  float* S = band + (size_t)(Tk + rows - 1) * kPD;
   Tin* stg = reinterpret_cast<Tin*>(base);  // over the row tile, after the softmax
   Tin* P = reinterpret_cast<Tin*>(base + a.p_off);
   const int i0 = tile * rows;
-  const int nrows = min(rows, T - i0);
+  const int nrows = min(rows, Tq - i0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Kp = round_up(T, kKeys), ns = Kp / kKeys, sv = a.sv, ps = a.ps;
+  const int Kp = round_up(Tk, kKeys), ns = Kp / kKeys, sv = a.sv, ps = a.ps;
   // each row tile starts its walk over the keys at its own stage, so that
   // the tiles of one (b, h) do not all read the same rows of v at once
   const int rot = (int)((long long)tile * ns / tiles);
-  // key j of (b, h): v row (b * T + j) * nh + h
+  // key j of (b, h): v row (b * Tk + j) * nh + h
   const int vstride = nh * C;
-  const Tin* vb = static_cast<const Tin*>(a.v) + ((size_t)b * T * nh + h) * C;
+  const Tin* vb = static_cast<const Tin*>(a.v) + ((size_t)b * Tk * nh + h) * C;
   // 16-byte copies, or 8-byte ones where a bf16 row of v is 8-byte aligned only
   const bool wide = !kBf16 || C % 8 == 0;
   const int per = wide ? 16 / kElem : 4;  // elements a copy moves
 
-  // stage s of a pass goes to buffer s % nst; keys past T are zero.
+  // stage s of a pass goes to buffer s % nst; keys past Tk are zero.
   // A thread's 16-byte copies are the same (key, column) slots in every
   // stage: their offsets are worked out once a pass.
   constexpr int kMaxU = 6;  // 16-byte copies a thread issues a stage: 64 x 48 / 512 (bf16)
@@ -162,14 +165,14 @@ __global__ void __launch_bounds__(kWideThreads, 1) rel_wide_consume_kernel(WideA
 #pragma unroll
       for (int i = 0; i < kMaxU; ++i) {
         if (u_key[i] < kKeys) {
-          const bool valid = k0 + u_key[i] < T;
+          const bool valid = k0 + u_key[i] < Tk;
           cp_async16(dst + u_smem[i], valid ? src + u_glob[i] : vb, valid);
         }
       }
     } else {
       for (int u = threadIdx.x; u < kKeys * upr; u += kWideThreads) {
         const int kk = u / upr, cu = u - kk * upr;
-        const bool valid = k0 + kk < T;
+        const bool valid = k0 + kk < Tk;
         cp_async8(dst + kk * sv + cu * per,
                   valid ? src + (size_t)kk * vstride + pass_c0 + cu * per : vb, valid);
       }
@@ -194,26 +197,27 @@ __global__ void __launch_bounds__(kWideThreads, 1) rel_wide_consume_kernel(WideA
   };
 
   stage_row_tile<QD>(static_cast<const Tin*>(a.q), static_cast<const Tin*>(a.pq),
-                     static_cast<const Tin*>(a.pe), qs, pqs, band, b, h, T, a.H, i0, rows);
+                     static_cast<const Tin*>(a.pe), qs, pqs, band, b, h, Tq, Tk, a.H, i0,
+                     rows);
   __syncthreads();
-  row_tile_scores<QD, Tin>(static_cast<const Tin*>(a.kt) + (size_t)bh * QD * T, a.mask, qs, pqs,
-                           band, S, b, T, rows, nrows);
+  row_tile_scores<QD, Tin>(static_cast<const Tin*>(a.kt) + (size_t)bh * QD * Tk, a.mask, qs,
+                           pqs, band, S, b, Tk, rows, nrows);
   __syncthreads();
 
   // softmax, one warp a row (B1's operations), into the P tile rounded to
   // v's dtype (with the const gate: round(1 / count(p > 0)) on the support
-  // p > 0); keys T .. Kp-1 and the rows past the tile are zero
+  // p > 0); keys Tk .. Kp-1 and the rows past the tile are zero
   const int prows = rows < 16 ? rows + 1 : 16;
   for (int r = warp; r < prows; r += kWideWarps) {
     Tin* prow_out = P + (size_t)r * ps;
     int j0 = 0;
     if (r < nrows) {
-      float* prow = S + (size_t)r * T;
+      float* prow = S + (size_t)r * Tk;
       float mx = -INFINITY;
-      for (int j = lane; j < T; j += 32) mx = fmaxf(mx, prow[j]);
+      for (int j = lane; j < Tk; j += 32) mx = fmaxf(mx, prow[j]);
       mx = warp_max(mx);
       float sum = 0.f;
-      for (int j = lane; j < T; j += 32) {
+      for (int j = lane; j < Tk; j += 32) {
         const float e = expf(prow[j] - mx);
         prow[j] = e;
         sum += e;
@@ -221,14 +225,14 @@ __global__ void __launch_bounds__(kWideThreads, 1) rel_wide_consume_kernel(WideA
       const float inv = 1.f / warp_sum(sum);
       if (kHeads && a.gate) {
         float cnt = 0.f;
-        for (int j = lane; j < T; j += 32) cnt += prow[j] * inv > 0.f ? 1.f : 0.f;
+        for (int j = lane; j < Tk; j += 32) cnt += prow[j] * inv > 0.f ? 1.f : 0.f;
         const Tin used = from_f32<Tin>(1.f / fmaxf(warp_sum(cnt), 1e-20f));
-        for (int j = lane; j < T; j += 32)
+        for (int j = lane; j < Tk; j += 32)
           prow_out[j] = prow[j] * inv > 0.f ? used : from_f32<Tin>(0.f);
       } else {
-        for (int j = lane; j < T; j += 32) prow_out[j] = from_f32<Tin>(prow[j] * inv);
+        for (int j = lane; j < Tk; j += 32) prow_out[j] = from_f32<Tin>(prow[j] * inv);
       }
-      j0 = T;
+      j0 = Tk;
     }
     for (int j = j0 + lane; j < Kp; j += 32) prow_out[j] = from_f32<Tin>(0.f);
   }
@@ -337,7 +341,8 @@ __global__ void __launch_bounds__(kWideThreads, 1) rel_wide_consume_kernel(WideA
     }
     __syncthreads();
     if (kg == 0) {
-      Tout* out = static_cast<Tout*>(a.out) + ((size_t)b * T + i0) * vstride + (size_t)h * C + c0;
+      Tout* out =
+          static_cast<Tout*>(a.out) + ((size_t)b * Tq + i0) * vstride + (size_t)h * C + c0;
 #pragma unroll
       for (int i = 0; i < kWidePairs; ++i)
 #pragma unroll
@@ -376,13 +381,13 @@ int launch_wide_typed(WideArgs a, cudaStream_t stream) {
     WideArgs x = a;
     x.rows = rows;
     x.stages = stages;
-    x.split = plan_split(bh * ((a.T + rows - 1) / rows), a.C, 16, sms);
+    x.split = plan_split(bh * ((a.Tq + rows - 1) / rows), a.C, 16, sms);
     x.cols = x.split.w_main > x.split.w_tail ? x.split.w_main : x.split.w_tail;
     wide_layout(x, QD, elem);
     return x;
   };
   // 16 rows (the mma's m) with three stages, else two; fewer rows only
-  // where a long T's score rows do not fit even so
+  // where a long Tk's score rows do not fit even so
   a = layout(kWideRows, 3);
   if (a.bytes > max_smem) {
     a = layout(fit_rows(kWideRows, max_smem,
@@ -393,7 +398,7 @@ int launch_wide_typed(WideArgs a, cudaStream_t stream) {
   auto kern = rel_wide_consume_kernel<QD, Tin, Tout, kHeads>;
   const cudaError_t e = allow_smem(kern, a.bytes);
   if (e != cudaSuccess) return (int)e;
-  const int units = bh * ((a.T + a.rows - 1) / a.rows);
+  const int units = bh * ((a.Tq + a.rows - 1) / a.rows);
   kern<<<split_blocks(a.split, units), kWideThreads, a.bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -402,7 +407,7 @@ int launch_wide_typed(WideArgs a, cudaStream_t stream) {
 // B7's head 0
 template <typename Tin, typename Tout, bool kHeads>
 int launch_wide(const WideArgs& a, int QD, int PD, void* stream) {
-  if (PD != kPD || a.T <= 0 || a.H <= 0 || a.B <= 0 || a.C <= 0 || a.C % 4 != 0 ||
+  if (PD != kPD || a.Tq <= 0 || a.Tk <= 0 || a.H <= 0 || a.B <= 0 || a.C <= 0 || a.C % 4 != 0 ||
       (kHeads && a.nh <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -398,8 +398,12 @@ def sp_sample(
     (``nn/zipformer.sequence_parallel``), gathered once at the end.  T must
     be a multiple of n times the fm_decoder's largest downsampling factor,
     and every rank's frames must cover each stack's convolution halo
-    (``check_sp_frames``).  Without gradient, unfused; the training step's
-    counterpart is ``compute_fm_loss`` under a data x seq mesh."""
+    (``check_sp_frames``).  Without gradient; with the fused eval flags
+    set (``nn/zipformer.set_fused_eval``, ``set_fused_conv``) the fused eval
+    path runs on each rank's frames, B6 and B7 on rectangular tiles and B9
+    on the frames with their convolution halo.  The training step's
+    counterpart is ``compute_fm_loss`` under a data x seq mesh, which
+    ignores the flags (a gradient is taken)."""
     from zipvoice_tpu_torch.sampling.euler import euler_sample
 
     n, i = mesh.size("seq"), mesh.index["seq"]

@@ -51,10 +51,12 @@ the full hidden width and sliced.  Everything else stays replicated.
 Sequence parallelism (``sequence_parallel``, in eval and in training):
 every rank runs the backbone on its block of frames.  The attention
 gathers the keys, the values and the key mask over the seq group and takes
-B1 and B2 (in training B1 and the consumers' B3, or B1's backward B4) on
-its query rows against every key, with the window of the global positional
-encoding that its rows touch; each convolution takes its neighbours' edge
-frames (``parallel/mesh.halo``); downsampling stays inside a rank, since
+B1 and B2 (in training B1 and the consumers' B3, or B1's backward B4; on
+the fused eval path B6, B7 and B2) on its query rows against every key,
+with the window of the global positional encoding that its rows touch;
+each convolution takes its neighbours' edge frames (``parallel/mesh.halo``;
+on the fused eval path B9 takes in_proj's output with those edge rows, and
+the key mask's rows beside them); downsampling stays inside a rank, since
 every rank's first frame is a multiple of every stack's factor
 (``check_sp_frames``).  The collectives have their adjoints as their
 backwards.  In training the positional encodings' dropout is drawn on the
@@ -274,12 +276,9 @@ def check_sp_frames(cfg: ZipformerConfig, num_frames: int, n_seq: int) -> None:
 @contextlib.contextmanager
 def sequence_parallel(mesh: Mesh):
     """Run the backbone's forwards inside the body (eval, or training under
-    autograd) on this rank's frames of the ``seq`` axis of ``mesh``.  The
-    fused eval kernels (B6, B7, B9) take square tiles only, so their flags
-    must be off."""
-    if _FUSED_EVAL or _FUSED_CONV:
-        raise ValueError("sequence parallelism runs the unfused eval path: switch "
-                         "set_fused_eval / set_fused_conv off")
+    autograd) on this rank's frames of the ``seq`` axis of ``mesh``.  An
+    eval forward takes the fused eval path where its flags are set, as in
+    one process; training ignores them."""
     with _under_seq(mesh):
         yield
 
@@ -625,7 +624,7 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
     v = _maybe_whiten(ctx, v, "whiten_5", 0.01)
     with _named("nonlin_mid"):
         v = v * torch.tanh(s)
-    if _SEQ is not None:  # every key's values (no fused path runs here)
+    if _SEQ is not None:  # every key's values
         v = gather_frames(v, _SEQ)
     if isinstance(head0, _EvalAttn):
         a = head0
@@ -648,17 +647,31 @@ def _nonlin_attention(m: _InOut, x: torch.Tensor, head0,
 
 def _conv_module(m: ConvModule, x: torch.Tensor,
                  key_padding_mask: Optional[torch.Tensor],
-                 ctx: Optional[TrainCtx] = None) -> torch.Tensor:
+                 ctx: Optional[TrainCtx] = None,
+                 keys_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GLU gate -> key mask -> depthwise conv over time (SAME) -> SwooshR
     -> out linear; with the fused conv path, everything after in_proj is
     one kernel (B9), unless the out-projection is int8 (B9 takes a float
-    weight)."""
+    weight).  keys_mask: under sequence parallelism the whole sequence's
+    mask (B9 reads the halo rows' part of it)."""
     with _named("conv_mid"):
         proj = _lin(m.in_proj, x)
     if _fused(_FUSED_CONV, ctx) and not isinstance(m.out_proj, QuantizedLinear):
         conv = m.depthwise_conv
-        return conv_glu_swoosh_out(proj, conv.weight, conv.bias, key_padding_mask,
-                                   m.out_proj.weight, m.out_proj.bias)
+        mask, pad = key_padding_mask, 0
+        if _SEQ is not None:
+            # in_proj's output with the neighbours' edge rows (2C wide: B9
+            # computes the gate of every row it reads), and the mask's rows
+            # beside them
+            pad = conv.padding[0]
+            t = proj.shape[1]
+            proj = halo(proj, pad, pad, _SEQ)
+            if keys_mask is not None:
+                r0 = t * _SEQ.index["seq"]
+                mask = torch.nn.functional.pad(keys_mask, (pad, pad), value=False)[
+                    :, r0:r0 + t + 2 * pad]
+        return conv_glu_swoosh_out(proj, conv.weight, conv.bias, mask, m.out_proj.weight,
+                                   m.out_proj.bias, halo=pad)
     v, s = proj.chunk(2, dim=-1)
     if ctx is not None:
         s = _maybe_balancer(ctx, s, ctx.s["balancer_prob"],
@@ -746,7 +759,7 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
         attn = _SharedAttn(q, k, pq, pe, keys_mask, pen, probs)
     elif _fused(_FUSED_EVAL, ctx):
         q, k, pq, pe, _ = _attention_projections(m.self_attn_weights, cfg, src, pos_emb)
-        attn = _EvalAttn(q, k, pq, pe, key_padding_mask)
+        attn = _EvalAttn(q, k, pq, pe, keys_mask)
     else:
         attn = _attention_weights(m.self_attn_weights, cfg, src, pos_emb, keys_mask)
     if isinstance(attn, torch.Tensor):
@@ -785,7 +798,7 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
     if cfg.use_conv:
         if te is not None:
             src = src + te
-        cv = _conv_module(m.conv_module1, src, key_padding_mask, ctx)
+        cv = _conv_module(m.conv_module1, src, key_padding_mask, ctx, keys_mask)
         if ctx is not None:
             cv = _maybe_seq_dropout(ctx, cv, ctx.s["conv_skip_rate"])
         _tap("conv_module1", cv)
@@ -804,7 +817,7 @@ def _encoder_layer(m: EncoderLayer, cfg: ZipformerConfig, src: torch.Tensor,
     if cfg.use_conv:
         if te is not None:
             src = src + te
-        cv = _conv_module(m.conv_module2, src, key_padding_mask, ctx)
+        cv = _conv_module(m.conv_module2, src, key_padding_mask, ctx, keys_mask)
         if ctx is not None:
             cv = _maybe_seq_dropout(ctx, cv, ctx.s["conv_skip_rate"])
         _tap("conv_module2", cv)

@@ -28,16 +28,19 @@ Seven kernels carry the Zipformer attention:
 * ``rel_attention_probs_consume`` (B6, ``csrc/rel_probs_consume.cu``):
   B1's kernel with a fused epilogue on the tensor cores, (probs, rounded
   probs @ v), its probabilities B1's bit for bit; the fused eval path's
-  SelfAttention-1, which hands the probabilities to SelfAttention-2.
+  SelfAttention-1, which hands the probabilities to SelfAttention-2.  On
+  B1's tiles, square or rectangular (a rank's rows in the fused
+  sequence-parallel sampler).
 * ``rel_attention_head0_consume`` (B7, ``csrc/rel_consume_fwd.cu``, its
   kernel in ``csrc/rel_wide_consume.cuh``): head 0's probabilities,
   recomputed and never written, @ the wide NonlinAttention value stream
-  (B, T, C); the fused eval path's NonlinAttention.
+  (B, Tk, C); the fused eval path's NonlinAttention.  Square or
+  rectangular, as B6.
 * ``rel_attention_apply`` (B5, ``csrc/rel_apply.cu``): softmax(scores) @ v
   with the const-attention gate, differentiable through B3; B6's kernel
   without the probabilities' store for vd <= 64, B7's kernel on every head
   for a wider v.  No model path calls it; it is the op the JAX package
-  exposes as ``rel_attention_apply``.
+  exposes as ``rel_attention_apply``.  Square tiles only.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version beside it only for CPU tensors.  ``launches`` on each
@@ -197,14 +200,15 @@ def rel_attention_consume_bwd_plain(q, k, pq, pe, key_padding_mask, v, g,
 
 def rel_attention_probs_consume_plain(q, k, pq, pe, key_padding_mask, v, out_dtype=None):
     """Plain B6: (B1's probabilities in out_dtype, those rounded
-    probabilities @ v accumulated in f32, in v.dtype)."""
+    probabilities @ v accumulated in f32, in v.dtype); square or
+    rectangular (Tq rows of q against the Tk keys of k and v)."""
     probs = rel_attention_probs_plain(q, k, pq, pe, key_padding_mask, out_dtype)
     return probs, rel_attention_probs_apply_plain(probs, v)
 
 
 def rel_attention_head0_consume_plain(q, k, pq, pe, key_padding_mask, v):
-    """Plain B7: head 0's f32 probabilities rounded to v.dtype, @ v (B, T, C)
-    accumulated in f32, in v.dtype."""
+    """Plain B7: head 0's f32 probabilities rounded to v.dtype, @ v (B, Tk,
+    C) accumulated in f32, in v.dtype, (B, Tq, C); square or rectangular."""
     s0 = rel_scores_plain(q[:, :, :1], k[:, :, :1], pq[:, :, :1], pe[:, :1])
     p0 = _softmax_masked(s0, key_padding_mask)[:, 0].to(v.dtype)
     return torch.einsum("bts,bsc->btc", p0.float(), v.float()).to(v.dtype)
@@ -240,7 +244,7 @@ def _check_cuda(name: str, *tensors):
 
 def _check_rel_shapes(name, q, k, pq, pe, square: bool = True):
     """q, pq (B, Tq, H, .), k (B, Tk, H, qd), pe (Tq + Tk - 1, H, pd);
-    Tq = Tk unless the kernel takes rectangular tiles (B1)."""
+    Tq = Tk unless the kernel takes rectangular tiles (all but B5)."""
     b, tq, h, qd = q.shape
     tk, pd = k.shape[1], pq.shape[-1]
     if (k.shape != (b, tk, h, qd) or (square and tk != tq) or pq.shape[:3] != (b, tq, h)
@@ -280,10 +284,11 @@ _SIGNATURES = {
     #                  H, QD, PD, VD, bf16, const_gate, valid_cols, pen, limit, stream)
     "zv_rel_apply_bwd": ("rel_apply_bwd", [_P] * 13 + [_I] * 10 + [_F, _F, _P]),
     # zv_rel_probs_consume(q, kt, pq, pe, mask, v, probs, out,
-    #                      B, T, H, QD, PD, VD, bf16, probs_bf16, stream)
-    "zv_rel_probs_consume": ("rel_probs_consume", [_P] * 8 + [_I] * 8 + [_P]),
-    # zv_rel_head0_consume(q, kt0, pq, pe, mask, v, out, B, T, H, QD, PD, C, bf16, stream)
-    "zv_rel_head0_consume": ("rel_consume_fwd", [_P] * 7 + [_I] * 7 + [_P]),
+    #                      B, Tq, Tk, H, QD, PD, VD, bf16, probs_bf16, stream)
+    "zv_rel_probs_consume": ("rel_probs_consume", [_P] * 8 + [_I] * 9 + [_P]),
+    # zv_rel_head0_consume(q, kt0, pq, pe, mask, v, out, B, Tq, Tk, H, QD, PD, C, bf16,
+    #                      stream)
+    "zv_rel_head0_consume": ("rel_consume_fwd", [_P] * 7 + [_I] * 8 + [_P]),
     # zv_rel_apply(q, kt, pq, pe, mask, v, out, B, T, H, QD, PD, VD, bf16, out_bf16,
     #              const_gate, stream)
     "zv_rel_apply": ("rel_apply", [_P] * 7 + [_I] * 9 + [_P]),
@@ -577,11 +582,12 @@ def rel_attention_consume(
 # ---------------------------------------------------------------------------
 
 
-def _consume_inputs(name, q, k, pq, pe, key_padding_mask, v, v_shape):
+def _consume_inputs(name, q, k, pq, pe, key_padding_mask, v, v_shape, square=False):
     """Checks and device layouts shared by B5-B7: (q, pq, pe, v, mask
-    pointer, mask keep-alive)."""
+    pointer, mask keep-alive); B6 and B7 take rectangular tiles, B5 square
+    ones only."""
     _check_cuda(name, q, k, pq, pe, v)
-    _check_rel_shapes(name, q, k, pq, pe)
+    _check_rel_shapes(name, q, k, pq, pe, square=square)
     if v.shape != v_shape or v.shape[-1] % 4 != 0:
         raise ValueError(f"{name}: v{tuple(v.shape)}, want {v_shape} with a width "
                          "that is a multiple of 4")
@@ -591,30 +597,33 @@ def _consume_inputs(name, q, k, pq, pe, key_padding_mask, v, v_shape):
 
 
 def rel_attention_probs_consume(q, k, pq, pe, key_padding_mask, v, out_dtype=None):
-    """B6: (probs (B, H, T, T) in out_dtype (default q.dtype), probs @ v
-    (B, T, H, vd) in v.dtype); the contraction takes the probabilities as
-    rounded to out_dtype, with f32 sums.  q, k, pq, pe, v share a dtype;
-    vd a multiple of 4; any T.  Eval only (no backward)."""
+    """B6: (probs (B, H, Tq, Tk) in out_dtype (default q.dtype), probs @
+    v (B, Tq, H, vd) in v.dtype); the contraction takes the probabilities
+    as rounded to out_dtype, with f32 sums.  q, pq (B, Tq, H, .), k (B, Tk,
+    H, qd), pe (Tq + Tk - 1, H, pd), v (B, Tk, H, vd) share a dtype; vd a
+    multiple of 4; any Tq, Tk, as B1 (module docstring).  Eval only (no
+    backward)."""
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if q.device.type == "cpu":
         return rel_attention_probs_consume_plain(q, k, pq, pe, key_padding_mask, v,
                                                  out_dtype)
     name = "rel_attention_probs_consume"
-    b, t, h, qd = q.shape
-    pd, vd = pq.shape[-1], v.shape[-1]
+    b, tq, h, qd = q.shape
+    tk, pd, vd = k.shape[1], pq.shape[-1], v.shape[-1]
     if out_dtype not in _DTYPES:
         raise ValueError(f"{name}: out_dtype {out_dtype}")
     q, pq, pe, v, mask_ptr, _keep = _consume_inputs(name, q, k, pq, pe, key_padding_mask,
-                                                    v, (b, t, h, vd))
+                                                    v, (b, tk, h, vd))
     kt = k.permute(0, 2, 3, 1).contiguous()
-    probs = torch.empty((b, h, t, t), dtype=out_dtype, device=q.device)
-    out = torch.empty((b, t, h, vd), dtype=v.dtype, device=q.device)
+    probs = torch.empty((b, h, tq, tk), dtype=out_dtype, device=q.device)
+    out = torch.empty((b, tq, h, vd), dtype=v.dtype, device=q.device)
     code = _entry("zv_rel_probs_consume")(
         q.data_ptr(), kt.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr, v.data_ptr(),
-        probs.data_ptr(), out.data_ptr(), b, t, h, qd, pd, vd,
+        probs.data_ptr(), out.data_ptr(), b, tq, tk, h, qd, pd, vd,
         int(q.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         _stream_ptr(q.device))
-    _raise_on(code, "rel_probs_consume", f"B={b} T={t} H={h} qd={qd} pd={pd} vd={vd}")
+    _raise_on(code, "rel_probs_consume", f"B={b} Tq={tq} Tk={tk} H={h} qd={qd} pd={pd} "
+              f"vd={vd}")
     rel_attention_probs_consume.launches += 1
     return probs, out
 
@@ -624,23 +633,24 @@ rel_attention_probs_consume.launches = 0
 
 def rel_attention_head0_consume(q, k, pq, pe, key_padding_mask, v):
     """B7: head 0's probabilities (recomputed, never written), rounded to
-    v.dtype, @ v (B, T, C) with f32 sums, in v.dtype.  q, k, pq (B, T, H,
-    .) and pe (2T-1, H, pd) carry every head; only head 0 is read.  C a
-    multiple of 4; any T.  Eval only (no backward)."""
+    v.dtype, @ v (B, Tk, C) with f32 sums: (B, Tq, C) in v.dtype.  q, pq
+    (B, Tq, H, .), k (B, Tk, H, qd) and pe (Tq + Tk - 1, H, pd) carry every
+    head; only head 0 is read.  C a multiple of 4; any Tq, Tk, as B1
+    (module docstring).  Eval only (no backward)."""
     if q.device.type == "cpu":
         return rel_attention_head0_consume_plain(q, k, pq, pe, key_padding_mask, v)
     name = "rel_attention_head0_consume"
-    b, t, h, qd = q.shape
-    pd, c = pq.shape[-1], v.shape[-1]
+    b, tq, h, qd = q.shape
+    tk, pd, c = k.shape[1], pq.shape[-1], v.shape[-1]
     q, pq, pe, v, mask_ptr, _keep = _consume_inputs(name, q, k, pq, pe, key_padding_mask,
-                                                    v, (b, t, c))
-    kt0 = k[:, :, 0].permute(0, 2, 1).contiguous()  # (B, qd, T): head 0's keys
-    out = torch.empty((b, t, c), dtype=v.dtype, device=q.device)
+                                                    v, (b, tk, c))
+    kt0 = k[:, :, 0].permute(0, 2, 1).contiguous()  # (B, qd, Tk): head 0's keys
+    out = torch.empty((b, tq, c), dtype=v.dtype, device=q.device)
     code = _entry("zv_rel_head0_consume")(
         q.data_ptr(), kt0.data_ptr(), pq.data_ptr(), pe.data_ptr(), mask_ptr, v.data_ptr(),
-        out.data_ptr(), b, t, h, qd, pd, c, int(q.dtype == torch.bfloat16),
+        out.data_ptr(), b, tq, tk, h, qd, pd, c, int(q.dtype == torch.bfloat16),
         _stream_ptr(q.device))
-    _raise_on(code, "rel_head0_consume", f"B={b} T={t} H={h} qd={qd} pd={pd} C={c}")
+    _raise_on(code, "rel_head0_consume", f"B={b} Tq={tq} Tk={tk} H={h} qd={qd} pd={pd} C={c}")
     rel_attention_head0_consume.launches += 1
     return out
 
@@ -658,7 +668,7 @@ def _rel_apply_forward(q, k, pq, pe, key_padding_mask, v, out_dtype, const_gate)
     if out_dtype not in _DTYPES:
         raise ValueError(f"{name}: out_dtype {out_dtype}")
     q, pq, pe, v, mask_ptr, _keep = _consume_inputs(name, q, k, pq, pe, key_padding_mask,
-                                                    v, (b, t, h, vd))
+                                                    v, (b, t, h, vd), square=True)
     kt = k.permute(0, 2, 3, 1).contiguous()
     out = torch.empty((b, t, h, vd), dtype=out_dtype, device=q.device)
     code = _entry("zv_rel_apply")(
