@@ -269,6 +269,26 @@ Phases (each raises on failure; nothing is caught):
      from the installed sources, exits 0, writes finite PCM16 of the
      expected length and launches B1 260 and B2 520 times (15a's unfused
      int8-dynamic pins); the phase's seconds are printed.
+  21. models and vocoders through the Hugging Face Hub's cache, and mel
+     parity: 21a, where huggingface_hub imports, an offline hub cache in a
+     temporary directory holding phase 4's model dir as k2-fsa/ZipVoice's
+     zipvoice/ and its random full-width Vocos as
+     charactr/vocos-mel-24khz's pytorch_model.bin, and the infer CLI on
+     the card with neither --model-dir nor --vocoder-path (HF_HUB_OFFLINE,
+     every lookup of another host refused): one f32 request, finite PCM16
+     of the expected length, B1 260 and B2 520 launches; where it does not,
+     the same CLI exits non-zero naming the package; 21b, in a process of
+     its own, eval/parity.run_parity on the card for phase 4's and phase
+     12's full-width dirs at each variant's registry steps, guidance and
+     t_shift, f32 and bf16, against the reference stand-in
+     (tests/torch_reference_standin, the port's modules on the CPU in f32):
+     each mel MSE within its budget (1e-3, 1e-2), bf16 above f32, B1 / B2
+     launched 260 / 520 a 16-step run and 132 / 264 in distill's 8; 21c,
+     the golden acceptance CLI on phase 12's distill dir with the stand-in
+     as its reference (parity pass in f32 and bf16) and its dry run (ready, the
+     reference ok).  Parity's 5 s is cut to 1.5 s (PARITY_SECONDS): the
+     stand-in runs the full-width model on the host's CPU.  The phase's
+     seconds are printed.
 
 Order: phases 1-9 run in this process one after another; then three jobs
 start in a thread (``Background``), one after another, each a run of other
@@ -277,8 +297,8 @@ processes: 14a's torchrun, 14b's ranks and phase 18's ranks, beside phases
 (``--phase13-worker``) beside phases 14-17.  Phase 14 checks 14a's and 14b's
 runs when it reaches them, phase 18 its ranks' results, and phase 13's
 output is printed after phase 17.  Phase 19's three CLI runs, then phase
-20, start after phase 12 in a thread's jobs of their own; they are read
-after phase 18.  The
+20, start after phase 12 in a thread's jobs of their own, and phase 21 in
+another thread beside them; they are read after phase 18.  The
 times those runs print were taken beside other work on the card and the
 host.
 
@@ -5602,13 +5622,13 @@ def check_sp_training(root: Path, out: Path, card: str, cfg, ranks, one_grads, o
 # Phase 19: golden acceptance through the port's CLI
 # ---------------------------------------------------------------------------
 
-def _golden_cli(root: Path, tag: str, models: str, dirs, *extra):
+def _golden_cli(root: Path, tag: str, models: str, dirs, *extra, reference: Path = None):
     """The golden acceptance CLI on the card in a process of its own at low
-    priority, parity pointed at a path that does not exist, its GOLDEN.json
-    in ``root``."""
+    priority, parity pointed at ``reference`` (by default a path that does
+    not exist), its GOLDEN.json in ``root``."""
     cmd = [sys.executable, "-m", "zipvoice_tpu_torch.bin.golden_acceptance",
            "--models", models, "--model-dirs", ",".join(str(d) for d in dirs),
-           "--reference-path", str(root / "no-reference"),
+           "--reference-path", str(reference or root / "no-reference"),
            "--output", str(root / f"golden_{tag}.json"), "--device", "cuda", *extra]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=REPO, preexec_fn=_low_priority_child)
@@ -5837,6 +5857,222 @@ def run_phase20(root: Path, card: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: models and vocoders through the hub's cache; mel parity
+# ---------------------------------------------------------------------------
+
+# the reference stand-in (torch only, the port's modules on the CPU in f32)
+STANDIN = REPO / "tests" / "torch_reference_standin"
+# parity's 5 s cut to 1.5 s (140 frames, the prompt 0.6 s): the reference
+# side runs a full-width model on the host's CPU, twice a variant (at 2 s
+# phase 21 alone took 182.8 s on an NVIDIA H100 80GB HBM3 at 700 W, its host
+# 8 cores)
+PARITY_SECONDS = 1.5
+HUB_REV = "0123456789abcdef0123456789abcdef01234567"  # the cache's snapshot
+# runs a module's CLI (argv[2:]) as ``python -m`` would, with every lookup
+# of a host other than this machine refused; then writes the kernels'
+# launches to argv[1]
+_HUB_LAUNCHER = r"""
+import atexit, json, runpy, socket, sys
+report = sys.argv[1]
+_lookup = socket.getaddrinfo
+
+
+def _local_only(host, *args, **kw):
+    if host not in ("localhost", "127.0.0.1", "::1"):
+        raise OSError(f"this run contacts no host: {host}")
+    return _lookup(host, *args, **kw)
+
+
+def dump():
+    from zipvoice_tpu_torch.utils.graphs import launch_counters
+
+    with open(report, "w") as f:
+        json.dump({k: c.launches for k, c in launch_counters().items()}, f)
+
+
+socket.getaddrinfo = _local_only
+atexit.register(dump)
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def _hub_put(cache: Path, repo_id: str, filename: str, src: Path):
+    """``src`` as ``repo_id``'s ``filename`` in a hub cache at HUB_REV (a
+    link, as the cache's snapshots link their blobs)."""
+    repo = cache / ("models--" + repo_id.replace("/", "--"))
+    (repo / "refs").mkdir(parents=True, exist_ok=True)
+    (repo / "refs" / "main").write_text(HUB_REV)
+    dst = repo / "snapshots" / HUB_REV / filename
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    dst.symlink_to(Path(src).resolve())
+
+
+def run_hub_request(root: Path, tmp: Path):
+    """21a: where huggingface_hub imports, an offline hub cache holding
+    phase 4's model dir as k2-fsa/ZipVoice's zipvoice/ and its random
+    full-width Vocos as charactr/vocos-mel-24khz's pytorch_model.bin; the
+    infer CLI with neither --model-dir nor --vocoder-path on the card, one
+    f32 request: finite PCM16 of the expected length, B1 260 and B2 520
+    launches.  Where it does not, the same CLI exits non-zero naming the
+    package.  Returns the summary."""
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    from zipvoice_tpu_torch.audio.wav import read_wav
+    from zipvoice_tpu_torch.bin.infer_zipvoice import VOCODER_HUB
+    from zipvoice_tpu_torch.io.model_dir import HF_REPO, MODEL_FILES
+
+    cache = tmp / "hub"
+    for f in MODEL_FILES:
+        _hub_put(cache, HF_REPO, f"zipvoice/{f}", root / f)
+    _hub_put(cache, *VOCODER_HUB["vocos"], root / "vocos.bin")
+    lst = tmp / "hub.tsv"
+    lst.write_text(f"hub\t{PROMPT_TEXT}\t{root / 'prompt.wav'}\t{TEXTS['r4s']}\n")
+    report = tmp / "hub_launches.json"
+    env = {**os.environ, "HF_HUB_OFFLINE": "1", "HF_HUB_CACHE": str(cache),
+           "HF_HOME": str(tmp / "hf_home")}
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", _HUB_LAUNCHER, str(report), "zipvoice_tpu_torch.bin.infer_zipvoice",
+         "--tokenizer", "simple", "--test-list", str(lst), "--res-dir", str(tmp / "hub_out"),
+         "--num-step", str(N_STEP), "--guidance-scale", "1.0", "--dtype", "float32",
+         "--device", "cuda"],
+        capture_output=True, text=True, timeout=600, cwd=REPO, env=env,
+        preexec_fn=_low_priority_child)
+    seconds = time.monotonic() - t0
+    if importlib.util.find_spec("huggingface_hub") is None:
+        if proc.returncode == 0 or "huggingface_hub" not in proc.stderr:
+            raise AssertionError(f"the infer CLI without paths and without huggingface_hub: "
+                                 f"exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        return dict(hub="absent", exit=proc.returncode, seconds=seconds)
+    if proc.returncode != 0:
+        raise AssertionError(f"the infer CLI through the hub cache: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    launches = json.loads(report.read_text())
+    want = {k: UNFUSED_PER_REQUEST.get(k, 0) for k in launches}
+    wav, sr = read_wav(tmp / "hub_out" / "hub.wav")
+    exp = expected_samples(TEXTS["r4s"], 3 * 24000)
+    if launches != want or sr != 24000 or wav.shape != (1, exp) or not np.isfinite(wav).all():
+        raise AssertionError(f"the infer CLI through the hub cache: launches {launches} (want "
+                             f"{want}), wav {wav.shape} at {sr} (want (1, {exp}))")
+    return dict(hub="importable", launches=launches, samples=exp, seconds=seconds)
+
+
+def _phase21_worker(root: str, out: str) -> int:
+    """21b in a process of its own (``--phase21-worker``): eval/parity's
+    run_parity on the card for each variant's full-width dir (phase 4's
+    base and phase 12's three) at its registry steps, guidance and t_shift,
+    f32 and bf16, against the stand-in on the CPU in f32; each run's mel
+    MSE, budget, launches and seconds into ``out``."""
+    sys.path.insert(0, str(REPO))
+    from zipvoice_tpu_torch.eval.parity import BUDGETS, run_parity
+    from zipvoice_tpu_torch.io.model_dir import MODEL_REGISTRY
+
+    root = Path(root)
+    counters = _counters()
+    runs = []
+    for name, d in [("zipvoice", root)] + [(n, root / n) for n in VARIANT_SEEDS]:
+        reg = MODEL_REGISTRY[name]
+        for dtype, budget in BUDGETS.items():
+            _zero(counters)
+            t0 = time.monotonic()
+            mse = run_parity(str(d), STANDIN, num_step=reg["num_step"],
+                             guidance_scale=reg["guidance_scale"], t_shift=reg["t_shift"],
+                             seconds=PARITY_SECONDS, prompt_seconds=0.4 * PARITY_SECONDS,
+                             dtype=dtype, model_name=name, device="cuda")
+            runs.append(dict(model=name, dtype=dtype, mel_mse=mse, budget=budget,
+                             launches=_launched(counters), seconds=time.monotonic() - t0))
+    Path(out).write_text(json.dumps(runs))
+    return 0
+
+
+def run_phase21(root: Path, card: str):
+    """Phase 21: 21b, ``_phase21_worker`` as a process, and beside it 21a
+    (``run_hub_request``): every variant's f32 mel MSE < 1e-3 and bf16 <
+    1e-2 and above the f32 one, each run launching B1 and B2 at its
+    variant's pins (260 / 520 a 16-step CFG request, 132 / 264 distill's 8
+    steps); then 21c, the golden acceptance CLI on phase 12's distill dir
+    (the cheapest variant to sample) with the stand-in as its reference
+    (parity ``pass`` in f32 and bf16) and its dry run (``ready``, the
+    reference ``ok``).  A ``Background`` of its own, beside phases 19 and
+    20; returns the summary."""
+    t0 = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="zipvoice-hub-")).resolve()
+    out, log = tmp / "parity.json", tmp / "parity.log"
+    with open(log, "w") as f:
+        worker = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--phase21-worker", str(root), str(out)], cwd=REPO,
+                                  stdout=f, stderr=subprocess.STDOUT,
+                                  preexec_fn=_low_priority_child)
+    try:
+        hub = run_hub_request(root, tmp)
+        worker.wait(timeout=900)
+        parity_s = time.monotonic() - t0
+        if worker.returncode != 0:
+            raise AssertionError(f"the parity worker: exit {worker.returncode}\n"
+                                 f"{log.read_text()[-3000:]}")
+        runs = json.loads(out.read_text())
+        mse = {(r["model"], r["dtype"]): r["mel_mse"] for r in runs}
+        for r in runs:
+            # B1 a layer (4 text-encoder layers, 16 fm_decoder layers a
+            # step), B2 in both SelfAttention modules
+            steps = 8 if r["model"] == "zipvoice_distill" else N_STEP
+            want = {k: 0 for k in r["launches"]}
+            want.update(B1=4 + steps * 16, B2=2 * (4 + steps * 16))
+            if (not r["mel_mse"] < r["budget"] or r["launches"] != want
+                    or (r["dtype"] == "bfloat16"
+                        and not r["mel_mse"] > mse[(r["model"], "float32")])):
+                raise AssertionError(f"parity {r['model']} {r['dtype']}: {r}, want launches "
+                                     f"{want} and the MSE within its budget")
+        t2 = time.monotonic()
+        distill = root / "zipvoice_distill"
+        golden = _golden_cli(tmp, "parity", "zipvoice_distill", [distill], "--seconds",
+                             str(PARITY_SECONDS), reference=STANDIN)
+        dry = _golden_cli(tmp, "parity_dry", "zipvoice_distill", [distill], "--dry-run",
+                          reference=STANDIN)
+        outs = {}
+        for tag, proc in (("golden", golden), ("dry", dry)):
+            try:
+                outs[tag] = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs[tag] = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"golden CLI with the stand-in ({tag}): exit "
+                                     f"{proc.returncode}\n{outs[tag][0][-3000:]}\n"
+                                     f"{outs[tag][1][-3000:]}")
+        rep = json.loads((tmp / "golden_parity.json").read_text())["reports"][0]
+        par = rep["checks"][-1]
+        dry_rep = json.loads(outs["dry"][0])
+        if (par["check"] != "parity" or par["status"] != "pass"
+                or any(par["sub"][dt]["status"] != "pass" for dt in ("float32", "bfloat16"))
+                or dry_rep["status"] != "ready" or dry_rep["reference"] != "ok"):
+            raise AssertionError(f"golden acceptance with the stand-in: {par}; dry run "
+                                 f"{dry_rep}")
+        return dict(hub=hub, runs=runs, parity_s=parity_s, golden=par["sub"],
+                    golden_s=time.monotonic() - t2, dry=dry_rep["status"],
+                    seconds=time.monotonic() - t0)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase21_extras(p21, key):
+    """B1's or B2's launches in phase 21: a request through the hub cache
+    (where huggingface_hub imports) and a 16-step parity run's port side."""
+    base = next(r for r in p21["runs"] if r["model"] == "zipvoice")
+    extra = {"launches_per_parity_run": base["launches"][key]}
+    if p21["hub"]["hub"] == "importable":
+        extra["launches_hub_request"] = p21["hub"]["launches"][key]
+    return extra
+
+
 def _kernel_entry(results, key, name, src, replaces, launches, main_key, shape, **extra):
     case = results[key][main_key]
     every = results[key].values()
@@ -5949,6 +6185,7 @@ def main() -> int:
         p13 = start_phase13(root, card)
         bg_cli = Background({"19": lambda: run_phase19(root, card),
                              "20": lambda: run_phase20(root, card)})
+        bg_hub = Background({"21": lambda: run_phase21(root, card)})
         ddp, two_ranks, policies, _ = run_phase14(root, manifest, card, reg_ms, bg)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5964,6 +6201,7 @@ def main() -> int:
         p18 = run_phase18(root, card, results, bg)
         p19 = bg_cli.result("19")
         p20 = bg_cli.result("20")
+        p21 = bg_hub.result("21")
     finally:
         for proc in (worker and worker[0], p13 and p13[0]):
             if proc is not None and proc.poll() is None:
@@ -5986,6 +6224,7 @@ def main() -> int:
                       **_phase18_extras(p18, "B1"),
                       **_phase14_launches(ddp, two_ranks, policies, "B1"),
                       **_phase15_launches(p15, "B1"),
+                      **_phase21_extras(p21, "B1"),
                       **_variant_extras(results, variants, "B1")),
         _kernel_entry(results, "B2", "rel_attention_probs_apply",
                       "zipvoice_tpu_torch/csrc/probs_apply.cu",
@@ -6002,6 +6241,7 @@ def main() -> int:
                       **_phase18_extras(p18, "B2"),
                       **_phase14_launches(ddp, two_ranks, policies, "B2"),
                       **_phase15_launches(p15, "B2"),
+                      **_phase21_extras(p21, "B2"),
                       **_variant_extras(results, variants, "B2")),
         _kernel_entry(results, "B3", "rel_attention_consume_bwd",
                       "zipvoice_tpu_torch/csrc/rel_apply_bwd.cu",
@@ -6166,6 +6406,21 @@ def main() -> int:
           f"{p20['tokens']} tokens: compiled {p20['compiled']}, launches {p20['launches']}, "
           f"{p20['samples']} samples, {p20['cli_s']:.1f} s; phase 20 {p20['seconds']:.1f} s; "
           f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
+    hub = p21["hub"]
+    print("hub and parity (phase 21): 21a "
+          + (f"huggingface_hub importable, the infer CLI with neither path through an offline "
+             f"hub cache: launches {hub['launches']}, {hub['samples']} samples"
+             if hub["hub"] == "importable" else
+             f"huggingface_hub: absent, the infer CLI without paths exit {hub['exit']} naming "
+             f"it") + f", {hub['seconds']:.1f} s; 21b mel MSE against the stand-in (CPU, f32) "
+          f"at {PARITY_SECONDS} s: "
+          + "; ".join(f"{r['model']} {r['dtype']} {r['mel_mse']:.3e} (budget {r['budget']:g}, "
+                      f"B1 {r['launches']['B1']} B2 {r['launches']['B2']}, "
+                      f"{r['seconds']:.1f} s)" for r in p21["runs"])
+          + f", {p21['parity_s']:.1f} s; 21c golden parity (zipvoice_distill) "
+          + ", ".join(f"{dt} {v['mel_mse']:.3e} {v['status']}" for dt, v in p21["golden"].items())
+          + f", dry run {p21['dry']}, {p21['golden_s']:.1f} s; phase 21 {p21['seconds']:.1f} s; "
+          f"total {time.monotonic() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6180,4 +6435,6 @@ if __name__ == "__main__":
         sys.exit(_export_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase13-worker"]:  # phase 13, started by main
         sys.exit(_phase13_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase21-worker"]:  # 21b, started by phase 21
+        sys.exit(_phase21_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -4,7 +4,8 @@ loaders (the published weight-normed layout, and the JAX tree through
 ``from_jax_params``), the BigVGAN log-mel and ``extract_features``, the
 prompt fbank's replicated last frame, and a tiny ``synthesize`` with
 ``vocoder="bigvgan"`` (sampled mel within 1e-4, PCM16 within 2 counts)
-plus the infer CLI on a ``generator.``-prefixed checkpoint."""
+plus the infer CLI on a ``generator.``-prefixed checkpoint, and without
+one, through the hub's cache."""
 
 import functools
 import json
@@ -211,7 +212,15 @@ def test_synthesize_bigvgan_matches_jax(assets, monkeypatch, tmp_path):
                            device="cpu", vocoder="bigvgan").synthesize(**args).wav
     assert wav.shape == (1, ref.shape[0])
     assert np.abs(np.round(wav[0] * 32767) - np.round(ref * 32767)).max() <= 1
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # no --vocoder-path: BigVGAN's checkpoint from the Hugging Face Hub's
+    # cache, which (offline and empty here) raises its own error
+    from huggingface_hub.errors import LocalEntryNotFoundError
+
+    from tests import torch_hub_cache
+
+    torch_hub_cache.offline(monkeypatch, tmp_path / "empty-hub")
+    with pytest.raises(LocalEntryNotFoundError) as e:
         main(["--model-dir", str(d), "--tokenizer", "simple", "--prompt-wav",
               str(d / "prompt.wav"), "--prompt-text", "hi", "--text", "hello",
               "--device", "cpu"])
+    assert torch_hub_cache.offline_miss(e.value, "nvidia/bigvgan_v2_24khz_100band_256x")

@@ -2,8 +2,9 @@
 against the JAX package's on the CPU: on tiny model dirs written by the JAX
 package (its init and ``params_to_state_dict``), the tree and tokenizer
 reports of all four variants equal JAX's key for key, and so do the reports
-on broken checkpoints, the battery's red cases, the parity gate, GOLDEN.json
-and the dry run.  At full width (``ZipVoiceConfig()``, 123M) the port's
+on broken checkpoints, the battery's red cases, the parity gate (a model
+with no dir fetched through an offline, empty hub cache), GOLDEN.json and
+the dry run.  At full width (``ZipVoiceConfig()``, 123M) the port's
 meta-device module tree equals JAX's parameter tree, name and shape, for
 every variant."""
 
@@ -305,9 +306,15 @@ def test_battery_red_cases_equal_jax(dirs, tmp_path, monkeypatch, case):
         assert ours["battery_failed"]
 
 
-def test_golden_acceptance_parity_gate(dirs, tmp_path):
-    """No reference: JAX's report, parity gated.  A reference present:
-    parity is not ported, so it raises instead of reporting."""
+def test_golden_acceptance_parity_gate(dirs, tmp_path, monkeypatch):
+    """No reference: JAX's report, parity gated.  A reference path present
+    without the reference package: both raise on its import.  No model dir:
+    both ask the Hugging Face Hub's cache (offline and empty here), which
+    raises its own error."""
+    from huggingface_hub.errors import LocalEntryNotFoundError
+
+    from tests import torch_hub_cache
+
     d = str(dirs["zipvoice_dialog"])
     absent = str(tmp_path / "no-reference")
     ours = golden.golden_acceptance("zipvoice_dialog", d, absent, device="cpu")
@@ -317,10 +324,16 @@ def test_golden_acceptance_parity_gate(dirs, tmp_path):
     assert ours["status"] == "gated"
     present = tmp_path / "reference"
     present.mkdir()
-    with pytest.raises(NotImplementedError, match="parity"):
-        golden.golden_acceptance("zipvoice_dialog", d, str(present), device="cpu")
-    with pytest.raises(NotImplementedError, match="local model dir"):
-        golden.golden_acceptance("zipvoice", None, absent, device="cpu")
+    for fn, kw in ((golden.golden_acceptance, {"device": "cpu"}),
+                   (jgolden.golden_acceptance, {})):
+        with pytest.raises(ModuleNotFoundError, match="zipvoice"):
+            fn("zipvoice_dialog", d, str(present), **kw)
+    torch_hub_cache.offline(monkeypatch, tmp_path / "empty-hub")
+    for fn, kw in ((golden.golden_acceptance, {"device": "cpu"}),
+                   (jgolden.golden_acceptance, {})):
+        with pytest.raises(LocalEntryNotFoundError) as e:
+            fn("zipvoice", None, absent, **kw)
+        assert torch_hub_cache.offline_miss(e.value, "k2-fsa/ZipVoice")
     if not torch.cuda.is_available():  # the card by default: without one it raises
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             golden.golden_acceptance("zipvoice", d, absent)
@@ -352,9 +365,10 @@ def test_cli_golden_json_equals_jax(dirs, tmp_path, monkeypatch, name, code):
 
 @pytest.mark.parametrize("case", ["ready", "missing_file", "not_given", "reference_present"])
 def test_cli_dry_run(dirs, tmp_path, monkeypatch, capsys, case):
-    """ready for complete dirs (equal to JAX's report but its invocation);
-    not-ready for a missing file, a model with no dir (the port does not
-    download) or a reference present (parity is not ported)."""
+    """ready for complete dirs, a model with no dir (fetched from the hub:
+    its hf:// source, the hub importable) and a reference present;
+    not-ready for a missing file.  Each equal to JAX's report but its
+    invocation."""
     d = {name: str(p) for name, p in dirs.items()}
     if case == "missing_file":
         broken = tmp_path / "broken"
@@ -370,16 +384,20 @@ def test_cli_dry_run(dirs, tmp_path, monkeypatch, capsys, case):
             "--reference-path", str(ref_path), "--dry-run"]
     code = tcli.main(args)
     ours = json.loads(capsys.readouterr().out)
-    assert code == (0 if case == "ready" else 1)
-    assert ours["status"] == ("ready" if case == "ready" else "not-ready")
+    assert code == (1 if case == "missing_file" else 0)
+    assert ours["status"] == ("not-ready" if case == "missing_file" else "ready")
     assert "zipvoice_tpu_torch.bin.golden_acceptance" in ours["invocation"]
+    assert _jax_cli(monkeypatch, args) == code
+    ref = json.loads(capsys.readouterr().out)
+    for key in ("mode", "models", "fixture", "reference", "status"):
+        assert ours[key] == ref[key], key
     if case == "not_given":
-        assert "does not download" in ours["models"]["zipvoice_dialog"]["source"]
-    if case in ("ready", "missing_file"):
-        assert _jax_cli(monkeypatch, args) == code
-        ref = json.loads(capsys.readouterr().out)
-        for key in ("mode", "models", "fixture", "reference", "status"):
-            assert ours[key] == ref[key], key
+        assert ours["models"]["zipvoice_dialog"] == {
+            "files": {}, "hf_hub": "importable",
+            "source": "hf://k2-fsa/ZipVoice/zipvoice_dialog/{model.pt,model.json,tokens.txt}"}
+        assert "--model-dirs " + ",".join(d[n] for n in VARIANTS) in ours["invocation"]
+    if case == "reference_present":
+        assert ours["reference"] == "ok"
     if case == "missing_file":
         assert ours["models"]["zipvoice_distill"]["files"] == {
             "model.json": "ok", "tokens.txt": "MISSING", "model.pt|model.safetensors": "MISSING"}

@@ -53,7 +53,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "bin.prepare_dataset", "bin.prepare_tokens", "bin.make_tokens",
                  "bin.compute_fbank", "eval.models.utmos", "eval.models.ecapa_tdnn_wavlm",
                  "eval.mos", "eval.sim", "eval.cpsim", "eval.wer", "eval.golden",
-                 "bin.golden_acceptance"):
+                 "bin.golden_acceptance", "io.model_dir", "eval.parity"):
         assert f"zipvoice_tpu_torch.{name}" in res["imported"]
     assert res["leaked"] == []
 

@@ -147,29 +147,46 @@ def test_cli_main_cpu(assets, tmp_path):
         assert np.isfinite(wav).all()
 
 
-def test_cli_refuses_what_is_not_ported(assets, tmp_path):
+def test_cli_refuses_what_is_not_ported(assets, tmp_path, monkeypatch):
+    """Without --model-dir or --vocoder-path the CLI asks the Hugging Face
+    Hub's cache (offline and empty here), which raises its own error."""
+    from huggingface_hub.errors import LocalEntryNotFoundError
+
+    from tests import torch_hub_cache
     from zipvoice_tpu_torch.bin.infer_zipvoice import main
 
     d, _ = assets
+    torch_hub_cache.offline(monkeypatch, tmp_path / "empty-hub")
     base = ["--vocoder-path", str(d / "vocos.bin"), "--tokenizer", "simple",
             "--device", "cpu", "--prompt-wav", str(d / "prompt.wav"),
             "--prompt-text", "hi", "--text", "yo"]
-    for argv in (base,  # no --model-dir
-                 base[2:] + ["--model-dir", str(d)]):  # no --vocoder-path
-        with pytest.raises(SystemExit, match="not yet ported"):
+    for argv, repo in ((base, "k2-fsa/ZipVoice"),  # no --model-dir
+                       (base[2:] + ["--model-dir", str(d)],  # no --vocoder-path
+                        "charactr/vocos-mel-24khz")):
+        with pytest.raises(LocalEntryNotFoundError) as e:
             main(argv)
+        assert torch_hub_cache.offline_miss(e.value, repo)
 
 
-def test_serve_cli_refuses_what_is_not_ported(assets):
+def test_serve_cli_refuses_what_is_not_ported(assets, tmp_path, monkeypatch):
+    """Without --vocoder-path or --model-dir the serve CLI asks the Hugging
+    Face Hub's cache (offline and empty here), which raises its own error;
+    an unknown quantize mode is refused."""
+    from huggingface_hub.errors import LocalEntryNotFoundError
+
+    from tests import torch_hub_cache
     from zipvoice_tpu_torch.bin.serve import main
 
     d, _ = assets
+    torch_hub_cache.offline(monkeypatch, tmp_path / "empty-hub")
     base = ["--model-dir", str(d), "--vocoder-path", str(d / "vocos.bin"),
             "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not yet ported"):  # no --vocoder-path
+    with pytest.raises(LocalEntryNotFoundError) as e:  # no --vocoder-path
         main(base[:2] + ["--tokenizer", "simple", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not yet ported"):
+    assert torch_hub_cache.offline_miss(e.value, "charactr/vocos-mel-24khz")
+    with pytest.raises(LocalEntryNotFoundError) as e:
         main(["--tokenizer", "simple", "--device", "cpu"])  # no --model-dir
+    assert torch_hub_cache.offline_miss(e.value, "k2-fsa/ZipVoice")
     ta = load_model_dir(str(d), tokenizer_name="simple")
     with pytest.raises(ValueError, match="unknown quantize mode"):
         ZipVoicePipeline(model=ta.model, model_cfg=ta.model_cfg, feat_cfg=ta.feat_cfg,

@@ -1,15 +1,18 @@
-"""Golden acceptance CLI: hold local model dirs to the port's module tree
-and the pinned token goldens.
+"""Golden acceptance CLI: certify the port against released checkpoints.
 
 Writes GOLDEN.json (the JAX package's schema, ``docs/parity.md``) with, per
 variant: the checkpoint tree against the port's modules (then loaded on
-``--device``), the tokenizer contract and golden token strings, and mel
-parity, which is reported ``gated: no reference`` until the reference
-``zipvoice`` package's source is in the repository (with it present the run
-reports an error: parity is not ported).  The port never downloads: give
-every model a dir ({model.pt | model.safetensors, model.json, tokens.txt}).
+``--device``), the tokenizer contract and golden token strings, and f32 and
+bf16 mel parity against the reference ``zipvoice`` package
+(``eval/parity.py``), reported ``gated: no reference`` while its source is
+absent at --reference-path.
 
 Usage:
+  # fetch every model from the Hugging Face Hub's cache (huggingface_hub):
+  python -m zipvoice_tpu_torch.bin.golden_acceptance --models all --output GOLDEN.json
+
+  # or with local model dirs ({model.pt | model.safetensors, model.json,
+  # tokens.txt} each):
   python -m zipvoice_tpu_torch.bin.golden_acceptance \\
       --models zipvoice,zipvoice_distill \\
       --model-dirs /ckpt/zipvoice,/ckpt/zipvoice_distill --device cuda
@@ -27,7 +30,7 @@ import logging
 from pathlib import Path
 
 from zipvoice_tpu_torch.eval.golden import DEFAULT_FIXTURE, DEFAULT_REFERENCE, golden_acceptance
-from zipvoice_tpu_torch.io.model_dir import MODEL_REGISTRY
+from zipvoice_tpu_torch.io.model_dir import HF_REPO, MODEL_FILES, MODEL_REGISTRY
 from zipvoice_tpu_torch.utils.device import resolve_device
 
 
@@ -37,8 +40,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--models", type=str, default="all",
                    help="comma list of variants, or 'all'")
     p.add_argument("--model-dirs", type=str, default=None,
-                   help="comma list of local model dirs aligned with --models "
-                        "(an empty entry: none given)")
+                   help="comma list of local model dirs aligned with --models; "
+                        "omit (or leave an entry empty) to fetch from the hub")
     p.add_argument("--reference-path", type=str, default=str(DEFAULT_REFERENCE))
     p.add_argument("--seconds", type=float, default=5.0)
     p.add_argument("--fixture", type=str, default=str(DEFAULT_FIXTURE),
@@ -62,9 +65,15 @@ def _dry_run(names, dirs, args) -> int:
             entry["source"] = f"UNKNOWN model '{name}' (known: {', '.join(MODEL_REGISTRY)})"
             ok = False
         elif d is None:
-            entry["source"] = ("not given: zipvoice_tpu_torch does not download; "
-                               "pass its dir in --model-dirs")
-            ok = False
+            sub = MODEL_REGISTRY[name]["hf_dir"]
+            entry["source"] = f"hf://{HF_REPO}/{sub}/{{{','.join(MODEL_FILES)}}}"
+            try:
+                import huggingface_hub  # noqa: F401
+
+                entry["hf_hub"] = "importable"
+            except ImportError:
+                entry["hf_hub"] = "MISSING (pass --model-dirs or install)"
+                ok = False
         else:
             entry["source"] = str(Path(d).resolve())
             for f in ("model.json", "tokens.txt"):
@@ -75,12 +84,9 @@ def _dry_run(names, dirs, args) -> int:
         report["models"][name] = entry
     report["fixture"] = "ok" if Path(args.fixture).exists() else f"MISSING: {args.fixture}"
     ok = ok and Path(args.fixture).exists()
-    if Path(args.reference_path).exists():
-        report["reference"] = (f"present: {args.reference_path} (mel parity is not ported: "
-                               "every model would report error)")
-        ok = False
-    else:
-        report["reference"] = f"absent: {args.reference_path} (parity will report gated)"
+    report["reference"] = (
+        "ok" if Path(args.reference_path).exists()
+        else f"absent: {args.reference_path} (parity will report gated)")
     dirs_arg = (" --model-dirs " + ",".join("" if d is None else str(d) for d in dirs)
                 if any(d is not None for d in dirs) else "")
     report["invocation"] = (
@@ -102,8 +108,8 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     names = list(MODEL_REGISTRY) if args.models == "all" else args.models.split(",")
-    # an empty entry means "none given", so a mixed list round-trips through
-    # the dry run's printed invocation
+    # an empty entry means "fetch from the hub", so a mixed list round-trips
+    # through the dry run's printed invocation
     dirs = ([d or None for d in args.model_dirs.split(",")]
             if args.model_dirs else [None] * len(names))
     if len(dirs) != len(names):

@@ -72,7 +72,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-dir", type=str, required=True,
                    help="for tokens.txt / model.json (tokenizer + dims)")
     p.add_argument("--tokenizer", type=str, default="emilia")
-    p.add_argument("--vocoder-path", type=str, default=None)
+    p.add_argument("--vocoder-path", type=str, default=None,
+                   help="Vocos checkpoint; omitted: charactr/vocos-mel-24khz through "
+                        "the Hugging Face Hub's cache")
     p.add_argument("--mode", type=str, default="fused", choices=["fused", "host-loop"])
     p.add_argument("--num-step", type=int, default=16,
                    help="host-loop mode only (fused bakes its own)")

@@ -11,7 +11,11 @@ steps, guidance 3.0 embedded, no CFG batch, by default).  The tokenizer
 defaults to ``emilia`` (espeak IPA for English through piper, the espeak-ng
 binary or the offline G2P; pinyin for Chinese).  The model's feature type
 picks the vocoder: a ``"type": "bigvgan"`` model dir takes a BigVGAN
-generator checkpoint (``bigvgan_generator.pt``) as --vocoder-path.
+generator checkpoint (``bigvgan_generator.pt``) as --vocoder-path.  Without
+--model-dir the model's files come from ``k2-fsa/ZipVoice`` on the Hugging
+Face Hub, without --vocoder-path the vocoder's from
+``charactr/vocos-mel-24khz`` or ``nvidia/bigvgan_v2_24khz_100band_256x``,
+each through the hub's cache (``huggingface_hub`` must be installed).
 
 Batch mode reads a TSV (``name\\tprompt_text\\tprompt_wav\\ttext`` per line)
 with --test-list and writes ``<res-dir>/<name>.wav``.  ``--long-form``
@@ -28,10 +32,13 @@ import dataclasses
 import logging
 import os
 from pathlib import Path
+from typing import Optional
 
 import torch
 
-_NOT_PORTED = "is not yet ported to zipvoice_tpu_torch"
+# the vocoders' published checkpoints (hub repo, file)
+VOCODER_HUB = {"vocos": ("charactr/vocos-mel-24khz", "pytorch_model.bin"),
+               "bigvgan": ("nvidia/bigvgan_v2_24khz_100band_256x", "bigvgan_generator.pt")}
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -95,12 +102,17 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def load_vocoder_params(path: str, kind: str = "vocos"):
+def load_vocoder_params(path: Optional[str] = None, kind: str = "vocos"):
     """The vocoder weights at ``path`` in the port's layout: Vocos, or the
     BigVGAN generator (a ``generator.`` key prefix stripped, weight norm
-    fused)."""
+    fused).  ``path=None`` takes the published checkpoint of ``kind``
+    (``VOCODER_HUB``) through the Hugging Face Hub's cache."""
     from zipvoice_tpu_torch.io.checkpoint import load_torch_state_dict
 
+    if path is None:
+        from huggingface_hub import hf_hub_download  # optional dependency
+
+        path = hf_hub_download(*VOCODER_HUB[kind])
     sd = load_torch_state_dict(path)
     if kind == "bigvgan":
         from zipvoice_tpu_torch.audio.bigvgan import load_bigvgan_params
@@ -120,8 +132,6 @@ def build_pipeline(args):
     from zipvoice_tpu_torch.io.model_dir import load_model_dir
     from zipvoice_tpu_torch.models.pipeline import ZipVoicePipeline
 
-    if args.vocoder_path is None:
-        raise SystemExit(f"downloading the vocoder {_NOT_PORTED}: pass --vocoder-path")
     assets = load_model_dir(model_dir=args.model_dir, model_name=args.model_name,
                             checkpoint_name=args.checkpoint_name,
                             tokenizer_name=args.tokenizer, lang=args.lang)
@@ -154,8 +164,6 @@ def build_pipeline(args):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    if args.model_dir is None:
-        raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
 
     from zipvoice_tpu_torch.audio.wav import read_wav, write_wav
 

@@ -17,7 +17,9 @@ Example:
 Batch mode reads a TSV with --test-list: ``name\\tprompt_text\\tprompt_wav\\t
 text`` (merged prompt) or ``name\\tprompt_text_1\\tprompt_wav_1\\t
 prompt_text_2\\tprompt_wav_2\\ttext`` (split prompts) a line, and writes
-``<res-dir>/<name>.wav``.  ``--device cpu`` runs on the CPU.
+``<res-dir>/<name>.wav``.  ``--device cpu`` runs on the CPU.  Without
+--model-dir or --vocoder-path the files come through the Hugging Face Hub's
+cache, as in ``infer_zipvoice``.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ import os
 from pathlib import Path
 
 import numpy as np
-
-from zipvoice_tpu_torch.bin.infer_zipvoice import _NOT_PORTED
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -113,8 +113,6 @@ def load_merged_prompt(args, sampling_rate: int, stereo: bool):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    if args.model_dir is None:
-        raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
 
     from zipvoice_tpu_torch.audio.wav import write_wav
     from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline

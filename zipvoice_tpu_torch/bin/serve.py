@@ -10,7 +10,8 @@ Usage:
 
 ``--warmup`` captures the serving graphs (one request and a batch of
 ``--max-batch``) before the listener opens.  ``--device cpu`` serves from
-the CPU, eagerly.
+the CPU, eagerly.  Without --model-dir or --vocoder-path the files come
+through the Hugging Face Hub's cache, as in ``infer_zipvoice``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,6 @@ from __future__ import annotations
 import argparse
 import logging
 import time
-
-from zipvoice_tpu_torch.bin.infer_zipvoice import _NOT_PORTED
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -70,8 +69,6 @@ def main(argv=None):
 def build_server(args):
     """The TTSServer the parsed arguments describe, its pipeline warmed
     when ``--warmup`` is given; not yet serving."""
-    if args.model_dir is None:
-        raise SystemExit(f"downloading a model {_NOT_PORTED}: pass --model-dir")
 
     from zipvoice_tpu_torch.bin.infer_zipvoice import build_pipeline
     from zipvoice_tpu_torch.serve.server import TTSServer

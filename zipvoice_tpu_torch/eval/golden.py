@@ -13,13 +13,16 @@ One harness per model variant that runs, in order:
    tokens are present, and a sentence battery reproduces the pinned golden
    token strings (``tests/fixtures/token_goldens.json``) where the G2P
    backends are installed.
-3. **mel parity** against the reference ``zipvoice`` package: not ported.
-   It is reported ``gated: no reference`` while the reference source is
-   absent (the default place is ``reference/`` at the repository root);
-   where it is present, ``check_parity`` raises.
+3. **mel parity** against the reference ``zipvoice`` package
+   (``eval/parity.py``): the port's sampler on the device in f32 and in
+   bf16 against the reference's on the CPU in f32, at the variant's
+   default sampling settings, within 1e-3 and 1e-2.  It is reported
+   ``gated: no reference`` while the reference source is absent (the
+   default place is ``reference/`` at the repository root).
 
 The reports have the JAX package's schema (``docs/parity.md``, GOLDEN.json).
-The port never downloads: a model dir must be given.
+Without a model dir the model's files come from the Hugging Face Hub's cache
+(``io/model_dir.maybe_download``).
 """
 
 from __future__ import annotations
@@ -34,18 +37,18 @@ import torch
 
 from zipvoice_tpu_torch.config import load_model_json
 from zipvoice_tpu_torch.io.checkpoint import load_into, load_torch_state_dict
+from zipvoice_tpu_torch.eval.parity import BUDGETS, DEFAULT_REFERENCE, run_parity
 from zipvoice_tpu_torch.io.model_dir import (
     MODEL_REGISTRY,
     _find_checkpoint,
     build_model,
-    load_model_dir,
+    maybe_download,
 )
 from zipvoice_tpu_torch.text import tokenizer as tok_mod
 from zipvoice_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[2]
 DEFAULT_FIXTURE = REPO / "tests" / "fixtures" / "token_goldens.json"
-DEFAULT_REFERENCE = REPO / "reference"
 DIALOG_MODELS = ("zipvoice_dialog", "zipvoice_dialog_stereo")
 
 SENTENCE_BATTERY: List[Dict] = [
@@ -275,14 +278,26 @@ def check_parity(
     seconds: float = 5.0,
     spk_a_id: Optional[int] = None,
     spk_b_id: Optional[int] = None,
+    device: Union[str, torch.device] = "cuda",
 ) -> Dict:
-    """f32 + bf16 mel parity against the reference package: not ported."""
-    raise NotImplementedError(
-        "mel parity against the reference zipvoice package (eval/parity.py) is not "
-        "yet ported to zipvoice_tpu_torch: it waits for the reference package's "
-        f"source in the repository; {reference_path} exists, so golden acceptance "
-        "cannot report parity as gated"
-    )
+    """f32 + bf16 mel parity at the variant's default sampling settings,
+    the port's side on ``device``."""
+    reg = MODEL_REGISTRY[model_name]
+    out: Dict = {"check": "parity", "sub": {}}
+    ok = True
+    for dt, budget in BUDGETS.items():
+        mse = run_parity(
+            str(model_dir), reference_path, num_step=reg["num_step"],
+            guidance_scale=reg["guidance_scale"], t_shift=reg["t_shift"],
+            seconds=seconds, prompt_seconds=0.4 * seconds, dtype=dt,
+            model_name=model_name, spk_a_id=spk_a_id, spk_b_id=spk_b_id, device=device,
+        )
+        passed = mse < budget
+        ok = ok and passed
+        out["sub"][dt] = {"mel_mse": float(f"{mse:.3e}"), "budget": budget,
+                          "status": "pass" if passed else "fail"}
+    out["status"] = "pass" if ok else "fail"
+    return out
 
 
 def golden_acceptance(
@@ -297,7 +312,7 @@ def golden_acceptance(
 ) -> Dict:
     """Run the three checks for one variant; returns the report dict."""
     if model_dir is None:
-        load_model_dir(None, model_name)  # raises: the port never downloads
+        model_dir = str(maybe_download(model_name))
     if spk_a_id is None and model_name in DIALOG_MODELS:
         # the [S1]/[S2] ids live in the shipped tokens.txt (ids 360/361 in
         # the released vocab, ref zipvoice_dialog.py:53-54)
@@ -309,7 +324,7 @@ def golden_acceptance(
     checks.append(check_tokenizer(model_name, model_dir, fixture_path))
     if Path(reference_path).exists():
         checks.append(check_parity(model_name, model_dir, reference_path, seconds,
-                                   spk_a_id=spk_a_id, spk_b_id=spk_b_id))
+                                   spk_a_id=spk_a_id, spk_b_id=spk_b_id, device=device))
     else:
         checks.append({"check": "parity", "status": "gated: no reference"})
         logging.warning("reference repo not found at %s — parity skipped", reference_path)
